@@ -1,0 +1,87 @@
+"""The port's CUDA kernel against its plain PyTorch version, on the card.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one:
+a CUDA kernel has no CPU mode.  This file imports no JAX, so it runs on a
+GPU machine that has only the port's dependencies:
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
+
+Bound: bitwise (``torch.equal``); the kernel and the plain version consume
+the same per-slot records and round every product and sum the same way.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fast_autoaugment_tpu_torch.ops import _kernels
+from fast_autoaugment_tpu_torch.ops import augment as T
+from fast_autoaugment_tpu_torch.policies.archive import ARCHIVES, load_policy, policy_to_tensor
+
+SHAPES = [(8, 32, 32), (4, 17, 23), (2, 224, 224)]
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _images(g, b, h, w, dev):
+    return torch.from_numpy(g.integers(0, 256, (b, h, w, 3)).astype(np.float32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", SHAPES)
+def test_every_op_bitwise_vs_plain(cuda_device, b, h, w):
+    g = np.random.default_rng(h)
+    imgs = _images(g, b, h, w, cuda_device)
+    for op in range(T.NUM_OPS):
+        pol = torch.tensor([[[op, 1.0, lv]] for lv in np.linspace(0, 1, 5)],
+                           dtype=torch.float32, device=cuda_device)
+        sub = torch.arange(b, dtype=torch.int32, device=cuda_device) % 5
+        draws = torch.from_numpy(np.stack([
+            np.zeros(b), np.where(np.arange(b) % 2 == 0, 0.25, 0.75),
+            g.uniform(0, w, b), g.uniform(0, h, b)], -1).astype(np.float32)[:, None]).to(cuda_device)
+        got = T.apply_subpolicy_draws(imgs, pol, sub, draws)
+        assert torch.equal(got, T.apply_subpolicy_draws_plain(imgs, pol, sub, draws)), T.OP_NAMES[op]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ARCHIVES)
+def test_archive_draws_bitwise_vs_plain(cuda_device, name):
+    g = np.random.default_rng(len(name))
+    pol = torch.from_numpy(policy_to_tensor(load_policy(name))).to(cuda_device)
+    imgs = _images(g, 16, 32, 32, cuda_device)
+    keys = torch.from_numpy(g.integers(0, 2**32, (16, 2), dtype=np.int64)).to(cuda_device)
+    sub, draws = T.sample_exact(keys, pol.shape[0], pol.shape[1], 32, 32)
+    before = _kernels.launch_counts()["augment_slot"]
+    got = T.apply_subpolicy_draws(imgs, pol, sub, draws)
+    assert _kernels.launch_counts()["augment_slot"] == before + pol.shape[1]
+    assert torch.equal(got, T.apply_subpolicy_draws_plain(imgs, pol, sub, draws))
+
+
+@pytest.mark.cuda
+def test_samplers_bitwise_cuda_vs_cpu(cuda_device):
+    keys = torch.from_numpy(np.random.default_rng(0).integers(0, 2**32, (64, 2), dtype=np.int64))
+    for a, c in zip(T.sample_exact(keys.to(cuda_device), 493, 2, 224, 224),
+                    T.sample_exact(keys, 493, 2, 224, 224)):
+        assert torch.equal(a.cpu(), c)
+    for a, c in zip(T.sample_grouped(keys[0].to(cuda_device), 128, 8, 493, 2, 32, 32),
+                    T.sample_grouped(keys[0], 128, 8, 493, 2, 32, 32)):
+        assert torch.equal(a.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    imgs = torch.zeros((2, 8, 8, 3), device=cuda_device)
+    rec = torch.zeros((2, 2, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        _kernels.augment(imgs.double(), rec)
+    with pytest.raises(ValueError):
+        _kernels.augment(imgs[:, :, :, :2], rec)
+    with pytest.raises(ValueError):
+        _kernels.augment(imgs.permute(0, 2, 1, 3), rec)
+    with pytest.raises(ValueError):
+        _kernels.augment(imgs, rec.cpu())

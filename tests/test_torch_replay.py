@@ -1,0 +1,288 @@
+"""Replay of the JAX augmentation key tree, for the port's parity tests.
+
+The port (``fast_autoaugment_tpu_torch``) takes its random draws as
+tensors: a sub-policy index per image and ``draws [B, num_op, 4]`` =
+(gate uniform, mirror uniform, cutout x centre, cutout y centre).  The
+helpers here extract, from a JAX key, exactly the draws that
+``fast_autoaugment_tpu.ops.augment`` consumes:
+
+- ``apply_policy`` (``:459``): ``key_choice, key_sub = split(key)``, the
+  sub-policy is ``randint(key_choice, (), 0, S)``;
+- ``apply_subpolicy`` (``:434``): per slot ``key, key_gate, key_op =
+  split(key, 3)``, the gate is ``uniform(key_gate)``;
+- ``apply_op`` (``:409``): ``key_mirror, key_op = split(key_op)``, the
+  mirror draw is ``uniform(key_mirror)``;
+- ``_cutout_abs`` (``:333``): ``kx, ky = split(key_op)``, the centre is
+  ``uniform(kx, 0, W), uniform(ky, 0, H)``;
+- ``apply_policy_batch_grouped`` (``:520``): the permutation, the
+  per-chunk sub-policy and the per-image keys of ``apply_subpolicy_batch``.
+
+The replay reads the ``jax_threefry_partitionable`` flag in force and is
+self-consistent under either value; :func:`test_replay_reproduces_apply_policy`
+checks both.  Other ``tests/test_torch_*.py`` files import these helpers.
+
+Compiled references run in a fresh process (:func:`jax_reference`, which
+runs this file as a script) whose XLA is capped at ``--xla_cpu_max_isa=AVX``.
+On an FMA-capable CPU, XLA contracts some multiply-adds of the compiled
+JAX programs into fused ones, and differently from one program to the next
+(``jit(apply_policy)``, the ``AotPolicyApplier`` exact and grouped
+programs and the eager ops then disagree with each other in a few
+elements of the blend ops and ``level * (high - low) + low``).  Without
+FMA every JAX program rounds each product and sum on its own, the
+reference's documented PIL semantics, which the port implements.
+"""
+
+import functools
+import os
+import pickle
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from fast_autoaugment_tpu.ops import augment as A
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: XLA without fused multiply-add: the JAX programs' documented rounding
+NO_FMA_XLA_FLAGS = "--xla_cpu_max_isa=AVX"
+
+# ------------------------------------------------------------ the replay
+
+
+def _subpolicy_draws(key, num_op: int, h: int, w: int):
+    rows = []
+    for _ in range(num_op):
+        key, key_gate, key_op = jax.random.split(key, 3)
+        key_mirror, key_cut = jax.random.split(key_op)
+        kx, ky = jax.random.split(key_cut)
+        rows.append(jnp.stack([
+            jax.random.uniform(key_gate),
+            jax.random.uniform(key_mirror),
+            jax.random.uniform(kx, (), minval=0.0, maxval=float(w)),
+            jax.random.uniform(ky, (), minval=0.0, maxval=float(h))]))
+    return jnp.stack(rows)
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3, 4))
+def _policy_draws(keys, num_sub, num_op: int, h: int, w: int):
+    def one(key):
+        key_choice, key_sub = jax.random.split(key)
+        idx = jax.random.randint(key_choice, (), 0, num_sub)
+        return idx, _subpolicy_draws(key_sub, num_op, h, w)
+
+    return jax.vmap(one)(keys)
+
+
+def jax_policy_draws(keys, num_sub: int, num_op: int, h: int, w: int):
+    """Per-image keys ``[B, 2]`` uint32 -> (sub_idx [B] int32, draws
+    [B, num_op, 4] float32) as numpy, the draws of ``apply_policy`` (and of
+    ``apply_policy_scalar_single`` for a one-sub policy)."""
+    sub, draws = _policy_draws(jnp.asarray(np.asarray(keys, np.uint32)),
+                               jnp.int32(num_sub), num_op, h, w)
+    return np.array(sub, np.int32), np.array(draws, np.float32)
+
+
+def jax_grouped_draws(key, batch: int, groups: int, num_sub: int, num_op: int,
+                      h: int, w: int):
+    """The draws of ``apply_policy_batch_grouped(images[batch], policy, key,
+    groups=groups)``, per image in the batch's own order."""
+    key = jnp.asarray(np.asarray(key, np.uint32))
+    if num_sub == 1:  # the scalar short-circuit: per-image keys
+        return jax_policy_draws(np.asarray(jax.random.split(key, batch)),
+                                1, num_op, h, w)
+    g = min(groups, batch)
+    chunk = -(-batch // g)
+    key_perm, key_groups = jax.random.split(key)
+    perm = np.asarray(jax.random.permutation(key_perm, batch))
+    group_keys = jax.random.split(key_groups, g)
+    sub = np.zeros(batch, np.int32)
+    draws = np.zeros((batch, num_op, 4), np.float32)
+    for gi in range(g):
+        key_choice, key_apply = jax.random.split(group_keys[gi])
+        idx = int(jax.random.randint(key_choice, (), 0, num_sub))
+        lane_keys = jax.random.split(key_apply, chunk)
+        for j in range(chunk):
+            p = gi * chunk + j
+            if p < batch:  # positions past the batch are padding duplicates
+                sub[perm[p]] = idx
+                draws[perm[p]] = np.asarray(_subpolicy_draws(lane_keys[j], num_op, h, w))
+    return sub, draws
+
+
+def jax_draw_source(dispatch, keys, batch, *, num_sub, num_op, height, width,
+                    groups, device):
+    """A ``PolicyApplier`` draw source that replays the JAX key tree, so the
+    port's applier can be held bitwise against ``AotPolicyApplier``."""
+    import torch  # not at import: the reference subprocess runs this file
+
+    if dispatch == "exact":
+        sub, draws = jax_policy_draws(np.asarray(keys).reshape(batch, 2),
+                                      num_sub, num_op, height, width)
+    else:
+        sub, draws = jax_grouped_draws(keys, batch, groups, num_sub, num_op,
+                                       height, width)
+    return torch.from_numpy(sub).to(device), torch.from_numpy(draws).to(device)
+
+
+# ----------------------------------------- the self-check, in JAX alone
+
+
+def _jax_cutout_at(img, v, centre):
+    """``A._cutout_abs`` with its two uniforms given as ``centre``."""
+    h, w = img.shape[0], img.shape[1]
+    x0 = jnp.trunc(jnp.maximum(0.0, centre[0] - v / 2.0))
+    y0 = jnp.trunc(jnp.maximum(0.0, centre[1] - v / 2.0))
+    x1 = jnp.minimum(float(w), x0 + v)
+    y1 = jnp.minimum(float(h), y0 + v)
+    ys, xs = jnp.mgrid[0:h, 0:w]
+    inside = ((xs.astype(jnp.float32) >= x0) & (xs.astype(jnp.float32) <= x1)
+              & (ys.astype(jnp.float32) >= y0) & (ys.astype(jnp.float32) <= y1))
+    out = jnp.where(inside[..., None], jnp.asarray(A.CUTOUT_COLOR, img.dtype), img)
+    return jnp.where(v < 0.0, img, out)
+
+
+def _jax_branches():
+    fns = []
+    for i, fn in enumerate(A._OP_FNS):
+        if A.OP_NAMES[i] == "Cutout":
+            fns.append(lambda img, v, c: jnp.where(
+                v <= 0.0, img, _jax_cutout_at(img, v * img.shape[1], c)))
+        elif A.OP_NAMES[i] == "CutoutAbs":
+            fns.append(_jax_cutout_at)
+        else:
+            fns.append(functools.partial(lambda f, img, v, c: f(img, v, None), fn))
+    return fns
+
+
+@jax.jit
+def jax_apply_from_draws(img, policy, sub_idx, draws):
+    """``apply_policy`` written with the draws as inputs instead of a key,
+    in JAX and with the JAX package's own ops."""
+    op_low, op_high, op_mirror = A._op_range_constants()
+    sub = policy[sub_idx]
+    branches = _jax_branches()
+    for i in range(policy.shape[1]):
+        op_idx = sub[i, 0].astype(jnp.int32)
+        value = sub[i, 2] * (op_high[op_idx] - op_low[op_idx]) + op_low[op_idx]
+        value = value * jnp.where(op_mirror[op_idx] & (draws[i, 1] > 0.5), -1.0, 1.0)
+        out = jax.lax.switch(op_idx, branches, img, value, draws[i, 2:4])
+        img = jnp.where(draws[i, 0] < sub[i, 1], out, img)
+    return img
+
+
+def random_policy(rng, num_sub: int, num_op: int) -> np.ndarray:
+    pol = np.zeros((num_sub, num_op, 3), np.float32)
+    pol[..., 0] = rng.integers(0, A.NUM_OPS, (num_sub, num_op))
+    pol[..., 1] = rng.uniform(0.0, 1.0, (num_sub, num_op))
+    pol[..., 2] = rng.uniform(0.0, 1.0, (num_sub, num_op))
+    return pol
+
+
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_replay_reproduces_apply_policy(partitionable):
+    """Replayed draws fed to the draws-as-inputs JAX program reproduce
+    ``jit(apply_policy)`` bitwise, under either threefry mode (the mode in
+    force by default here is ``jax.config.jax_threefry_partitionable``)."""
+    rng = np.random.default_rng(3)
+    policy = random_policy(rng, 6, 2)
+    policy[0, 0, 0] = A.op_index("CutoutAbs")
+    policy[1, 1, 0] = A.op_index("Cutout")
+    policy[:, :, 1] = np.maximum(policy[:, :, 1], 0.5)
+    h, w = 12, 10
+    imgs = rng.integers(0, 256, (12, h, w, 3)).astype(np.float32)
+    keys = np.stack([np.asarray(jax.random.PRNGKey(500 + i), np.uint32) for i in range(12)])
+    ref_fn = jax.jit(A.apply_policy)
+    with jax.threefry_partitionable(partitionable):
+        sub, draws = jax_policy_draws(keys, 6, 2, h, w)
+        _, key_sub = split_policy_key(keys)
+        for i in range(12):
+            want = np.asarray(ref_fn(jnp.asarray(imgs[i]), jnp.asarray(policy), jnp.asarray(keys[i])))
+            got = np.asarray(jax_apply_from_draws(jnp.asarray(imgs[i]), jnp.asarray(policy),
+                                                  jnp.int32(sub[i]), jnp.asarray(draws[i])))
+            assert np.array_equal(want, got), (i, partitionable)
+            if partitionable == jax.config.jax_threefry_partitionable:
+                # the mode in force: apply_policy is apply_subpolicy on the
+                # (sub-policy, key) of its first split (the reference the
+                # augment tests compile)
+                via_sub = np.asarray(jax.jit(A.apply_subpolicy)(
+                    jnp.asarray(imgs[i]), jnp.asarray(policy[sub[i]]), jnp.asarray(key_sub[i])))
+                assert np.array_equal(want, via_sub), (i, partitionable)
+    assert len(set(sub.tolist())) > 1  # several sub-policies were drawn
+
+
+def test_grouped_replay_reproduces_grouped_kernel():
+    """The grouped replay reproduces ``apply_policy_batch_grouped`` on a
+    ragged batch (5 images in 2 chunks of 3: one padding duplicate)."""
+    rng = np.random.default_rng(4)
+    policy = random_policy(rng, 6, 2)  # the self-check's shapes: its compile is reused
+    policy[:, :, 1] = 1.0
+    h, w = 12, 10
+    imgs = rng.integers(0, 256, (5, h, w, 3)).astype(np.float32)
+    key = np.asarray(jax.random.PRNGKey(17), np.uint32)
+    want = np.asarray(jax.jit(functools.partial(A.apply_policy_batch_grouped, groups=2))(
+        jnp.asarray(imgs), jnp.asarray(policy), jnp.asarray(key)))
+    sub, draws = jax_grouped_draws(key, 5, 2, 6, 2, h, w)
+    got = np.stack([np.asarray(jax_apply_from_draws(
+        jnp.asarray(imgs[i]), jnp.asarray(policy), jnp.int32(sub[i]), jnp.asarray(draws[i])))
+        for i in range(5)])
+    assert np.array_equal(want, got)
+
+
+# ------------------------------- compiled JAX references, without FMA
+
+
+def split_policy_key(keys):
+    """``apply_policy``'s first split: per-image ``(key_choice, key_sub)``
+    as two ``[B, 2]`` uint32 arrays."""
+    pairs = np.stack([np.asarray(jax.random.split(jnp.asarray(k))) for k in keys])
+    return pairs[:, 0].astype(np.uint32), pairs[:, 1].astype(np.uint32)
+
+
+def _run_job(job: dict):
+    if job["kind"] == "apply_subpolicy":
+        # apply_policy(img, policy, key) == apply_subpolicy(img, policy[idx],
+        # key_sub) with (idx, key_sub) from its first split; one compile
+        # serves every policy, whatever its number of sub-policies
+        fn = jax.jit(A.apply_subpolicy)
+        return np.stack([np.asarray(fn(jnp.asarray(img), jnp.asarray(sub), jnp.asarray(k)))
+                         for img, sub, k in zip(job["images"], job["subpolicies"], job["keys"])])
+    if job["kind"] == "aot":
+        from fast_autoaugment_tpu.serve.policy_server import AotPolicyApplier
+
+        ap = AotPolicyApplier(job["policy"], image=job["image"], shapes=job["shapes"],
+                              dispatch=job["dispatch"], groups=job["groups"])
+        return {"dispatch": ap.dispatch,
+                "outputs": [ap.apply(imgs, keys) for imgs, keys in job["calls"]]}
+    raise ValueError(f"unknown reference job {job['kind']!r}")
+
+
+def jax_reference(jobs: list[dict], tmp_dir) -> list:
+    """Run reference jobs in a fresh process with FMA-free XLA:
+    ``{"kind": "apply_subpolicy", "images", "subpolicies", "keys"}`` -> the
+    stacked ``jit(apply_subpolicy)`` outputs; ``{"kind": "aot", "policy", "image",
+    "shapes", "dispatch", "groups", "calls": [(images, keys), ...]}`` ->
+    ``{"dispatch", "outputs"}`` of ``AotPolicyApplier.apply``."""
+    src, dst = os.path.join(tmp_dir, "jobs.pkl"), os.path.join(tmp_dir, "refs.pkl")
+    with open(src, "wb") as fh:
+        pickle.dump(jobs, fh)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "") + " " + NO_FMA_XLA_FLAGS).strip(),
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), src, dst],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(dst, "rb") as fh:
+        return pickle.load(fh)
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_replay.py JOBS.pkl OUT.pkl (see jax_reference)
+    assert NO_FMA_XLA_FLAGS in os.environ.get("XLA_FLAGS", "")
+    with open(sys.argv[1], "rb") as fh:
+        todo = pickle.load(fh)
+    results = [_run_job(j) for j in todo]
+    with open(sys.argv[2], "wb") as fh:
+        pickle.dump(results, fh)
