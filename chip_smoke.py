@@ -7,23 +7,41 @@ Run from the root of a checkout; it needs one CUDA card and ``nvcc``.  The
 phases, each printing one JSON line:
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions, and the
-   seconds it took to build ``fast_autoaugment_tpu_torch/csrc/augment.cu``;
-2. kernel vs plain version on the card: all 19 ops forced on with both
-   mirror signs over a sweep of levels, then random draws under all six
-   policy archives, at 128x32x32, 4x17x23 and 8x224x224 -- bitwise, with
-   the count of differing elements; and the samplers' draws on the card
-   against the CPU from the same keys -- bitwise;
-3. main path: two ``serve_cli`` processes on the card (the shipped
+   seconds it took to build the kernels (``fast_autoaugment_tpu_torch/csrc/
+   augment.cu`` and ``preprocess.cu``, one ``nvcc`` each, in parallel);
+2. kernel vs plain version on the card, bitwise with the count of
+   differing elements: the augmentation kernel (all 19 ops forced on with
+   both mirror signs over a sweep of levels, then random draws under all
+   six policy archives, at 128x32x32, 4x17x23 and 8x224x224) and the CIFAR
+   stack kernel (``k5_vs_plain``: every crop offset and flip bit, cutout
+   lengths 0 and 16 centred at corners, edges and random places, at
+   640x32x32 and 4x17x23, and the eval stack); and every sampler's draws on
+   the card against the CPU from the same keys;
+3. the serving path: two ``serve_cli`` processes on the card (the shipped
    ``fa_reduced_cifar10`` archive at 32x32, grouped dispatch; one ImageNet
    sub-policy at 224x224, shapes 1,8, exact dispatch) answer npz, raw and
    concurrent requests; every answer is checked against the plain version
    applied on the card to the same draws; the kernel's launch count in
    ``/stats`` must equal dispatches x op slots; SIGTERM must drain to exit 0;
-4. times beside the card's name and power limit: requests/s and p50/p99
+4. the TTA policy-scoring path (``tta_main_path``): WRN-40-2 from the
+   flagship config (:data:`FLAGSHIP`) with seeded weights, a seeded 20,000
+   image uint8 fold uploaded once (157 batches of 128, the last with 32
+   real images), then ``eval_tta`` of a 5-sub-policy candidate, the
+   identity baseline, ``eval_tta_batched`` of 4 candidates, one audit step
+   and ``eval_tta`` under grouped dispatch; the launch counts must be
+   ``num_op`` augmentation launches and 1 CIFAR stack launch per step
+   call; then the same steps with the plain versions of both kernels on the
+   card (augmented lanes bitwise, fields equal under
+   ``cudnn.deterministic``) and each batched candidate against ``eval_tta``
+   of that candidate alone;
+5. times beside the card's name and power limit: requests/s and p50/p99
    latency of a closed-loop burst (inside phase 3, before the drain); the
-   kernel per dispatch at each serving shape with CUDA events, its bound,
-   the plain version; a ``torch.profiler`` trace of the applier at the
-   largest serving shape (device time by kernel, device idle share).
+   augmentation kernel per dispatch at each serving shape; a
+   ``torch.profiler`` trace of the applier at the largest serving shape;
+   seconds per TTA trial and images/s; both kernels at the TTA shape
+   (640x32x32) against their bounds and plain versions; a
+   ``torch.profiler`` trace of one ``eval_tta`` over the fold's first 16
+   batches (device time by stage and the device's idle share).
 
 The last two lines are the ``kernels`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with
@@ -50,6 +68,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SHAPES = ((128, 32, 32), (4, 17, 23), (8, 224, 224))
+#: the flagship search config: confs/wresnet40x2_cifar.yaml (model, dataset,
+#: batch, cutout; precision f32 by default) and the search CLI's defaults
+#: (fast_autoaugment_tpu/launch/search_cli.py: --num-policy 5, --num-op 2,
+#: --cv-ratio 0.4, --aug-groups 8).  The card's machine has no YAML reader,
+#: so they are constants here; tests/test_torch_tta.py holds them against the
+#: JAX package's reading.  A CIFAR-10 held-out fold at cv_ratio 0.4 has
+#: 0.4 x 50,000 = 20,000 images.
+FLAGSHIP = {"model": "wresnet40_2", "dataset": "cifar10", "batch": 128, "cutout": 16,
+            "precision": "f32", "num_policy": 5, "num_op": 2, "cv_ratio": 0.4,
+            "aug_groups": 8, "fold_images": 20_000}
 
 
 def emit(obj) -> None:
@@ -72,14 +100,28 @@ def device_us_of(event) -> float:
     return us if us is not None else getattr(event, "self_cuda_time_total", 0.0)
 
 
+def kernel_device_us(prof) -> dict[str, float]:
+    """Device time (µs) of each kernel name in a profile.  Only the device
+    rows count: an operator's row repeats the time of the kernels it
+    launched, so summing every row would count each kernel twice."""
+    from torch.autograd import DeviceType
+
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = device_us_of(e)
+        if us > 0 and getattr(e, "device_type", None) == DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + us
+    return out
+
+
 def device_us(prof, name_part: str) -> float:
     """Summed device (CUPTI) time in µs of the profiled kernels whose name
     contains `name_part`."""
     return sum(device_us_of(e) for e in prof.key_averages() if name_part in e.key)
 
 
-def kernel_device_ms(fn, iters: int = 20) -> float | None:
-    """Device time of ``augment_slot_kernel`` per call of `fn`, from the
+def kernel_device_ms(fn, iters: int = 20, kernel: str = "augment_slot_kernel") -> float | None:
+    """Device time of the kernels named `kernel` per call of `fn`, from the
     profiler: the kernel's own execution, without the host's launch gaps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -90,7 +132,7 @@ def kernel_device_ms(fn, iters: int = 20) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = device_us(prof, "augment_slot_kernel")
+    us = device_us(prof, kernel)
     return us / 1e3 / iters if us else None
 
 
@@ -179,6 +221,76 @@ def phase_kernel_vs_plain(dev) -> dict:
     emit(report)
     if report["differing_elements"] or not report["sampler_bitwise_cuda_vs_cpu"]:
         fail("kernel and plain version disagree on the card")
+    return report
+
+
+def _stack_draws(g, b, h, w):
+    """``[b, 5]`` draws: every crop offset and flip bit in turn (all 162 when
+    b >= 162), cutout centres at the corners and edges, then at random."""
+    import torch
+
+    edges = [(0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (h // 2, 0), (0, w // 2)]
+    rows = []
+    for i in range(b):
+        j = i % 162
+        cy, cx = edges[i % 6] if i % 12 < 6 else (int(g.integers(0, h)), int(g.integers(0, w)))
+        rows.append((j // 18, (j // 2) % 9, j % 2, cy, cx))
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def phase_k5_vs_plain(dev) -> dict:
+    """The CIFAR stack kernel against its plain version on the card, and
+    the new draws on the card against the CPU."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+    from fast_autoaugment_tpu_torch.ops import preprocess as pre
+    from fast_autoaugment_tpu_torch.ops import rng
+    from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
+
+    g = np.random.default_rng(5)
+    report = {"phase": "k5_vs_plain", "tolerance": "bitwise: 0 differing elements",
+              "cases": {}, "differing_elements": 0, "max_abs_err": 0.0}
+
+    def compare(tag, got, want):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not got.is_contiguous(memory_format=torch.channels_last):
+            fail(f"k5 {tag}: shape {tuple(got.shape)} or layout is wrong")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"k5 {tag}: output is not finite")
+        diff = (got - want).abs()
+        n_diff, err = int((diff > 0).sum()), float(diff.max())
+        report["cases"][tag] = n_diff
+        report["differing_elements"] += n_diff
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+
+    for b, h, w in ((640, 32, 32), (4, 17, 23)):
+        imgs = _rand_images(g, b, h, w, dev)
+        draws = _stack_draws(g, b, h, w).to(dev)
+        for length in (0, 16):
+            compare(f"{b}x{h}x{w}_cutout{length}",
+                    pre.cifar_stack(imgs, draws, cutout_length=length),
+                    pre.cifar_stack_plain(imgs, draws, cutout_length=length))
+        compare(f"{b}x{h}x{w}_eval", pre.cifar_eval_batch(imgs),
+                pre.cifar_stack_plain(imgs, pre.eval_draws(b, dev), cutout_length=0))
+    # the new draws: crop draws and the TTA key tree, card against CPU
+    keys = rng.split(torch.tensor([4, 2]), 4096)
+    same = [torch.equal(aug.sample_crop(keys.to(dev), 32, 32).cpu(), aug.sample_crop(keys, 32, 32))]
+    src, key = PhiloxDraws(), torch.tensor([7, 9])
+    for dispatch in ("exact", "grouped"):
+        on = {"card": dev, "cpu": torch.device("cpu")}
+        d = {}
+        for where, device in on.items():
+            k = src.fold_in(key, 3, device)
+            d[where] = src.draws(src.split(k, 5, device), batch=128, num_sub=5, num_op=2,
+                                 height=32, width=32, dispatch=dispatch, groups=8,
+                                 device=device)
+        same += [torch.equal(getattr(d["card"], f).cpu(), getattr(d["cpu"], f))
+                 for f in ("sub_idx", "policy", "crop")]
+    report["draws_bitwise_cuda_vs_cpu"] = all(same)
+    emit(report)
+    if report["differing_elements"] or not report["draws_bitwise_cuda_vs_cpu"]:
+        fail("the CIFAR stack kernel and its plain version, or the draws, disagree on the card")
     return report
 
 
@@ -526,11 +638,7 @@ def phase_trace(dev, card: str) -> dict:
             applier.apply(imgs, np.uint32([9, 100 + i]))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    for e in prof.key_averages():
-        us = device_us_of(e)
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us
+    by_name = kernel_device_us(prof)
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out = {"phase": "trace", "card": card, "calls": 20, "batch": 128, "image": 32,
@@ -540,6 +648,306 @@ def phase_trace(dev, card: str) -> dict:
            "device_kernels": len(by_name),
            "augment_kernel_us_per_call": device_us(prof, "augment_slot_kernel") / 20,
            "top_device_us_per_call": {k[:80]: v / 20 for k, v in top}}
+    emit(out)
+    return out
+
+
+# ------------------------------------------------------------ TTA path
+
+TTA_FIELDS = ("minus_loss", "top1_valid", "top1_mean", "cnt")
+#: stages of the TTA step (its torch.profiler ranges, search/tta.py)
+TTA_STAGES = ("tta.sampler", "tta.augment", "tta.model", "tta.reductions")
+TRACE_BATCHES = 16
+
+
+def _tta_policy(g, num_sub: int, num_op: int) -> np.ndarray:
+    """A random candidate: ops from the 15 search ops, prob and level uniform."""
+    pol = np.zeros((num_sub, num_op, 3), np.float32)
+    pol[..., 0] = g.integers(0, 15, (num_sub, num_op))
+    pol[..., 1:] = g.uniform(0.0, 1.0, (num_sub, num_op, 2))
+    return pol
+
+
+class _Capture:
+    """An augment_fn that keeps its output for the step calls in `keep`."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep, self.calls, self.out = fn, set(keep), 0, {}
+
+    def __call__(self, images, policy, draws):
+        x = self.fn(images, policy, draws)
+        if self.calls in self.keep:
+            self.out[self.calls] = x.clone()
+        self.calls += 1
+        return x
+
+
+def _plain_augment(cutout):
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+    from fast_autoaugment_tpu_torch.ops import preprocess as pre
+
+    def fn(images, policy, d):
+        x = aug.apply_subpolicy_draws_plain(images.contiguous(), policy, d.sub_idx, d.policy)
+        return pre.cifar_stack_plain(x, d.crop, cutout_length=cutout)
+    return fn
+
+
+def _check_fields(tag: str, r: dict, cnt: float) -> None:
+    vals = [r[f] for f in TTA_FIELDS]
+    if not all(np.isfinite(vals)) or r["cnt"] != cnt:
+        fail(f"{tag}: fields not finite or count {r['cnt']} != {cnt}: {r}")
+    if not (r["minus_loss"] <= 0 and 0 <= r["top1_mean"] <= r["top1_valid"] <= 1):
+        fail(f"{tag}: fields out of range: {r}")
+
+
+def tta_setup(dev) -> dict:
+    """WRN-40-2 with seeded weights and the seeded fold, uploaded once."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.data.datasets import ArrayDataset
+    from fast_autoaugment_tpu_torch.data.pipeline import device_batches, eval_batches
+    from fast_autoaugment_tpu_torch.models import get_model, num_class
+
+    c = FLAGSHIP
+    classes = num_class(c["dataset"])
+    model = get_model({"type": c["model"], "precision": c["precision"]}, classes,
+                      device=dev, seed=0)
+    g = np.random.default_rng(7)
+    n = c["fold_images"]
+    fold = ArrayDataset(g.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8),
+                        g.integers(0, classes, (n,), dtype=np.int32), classes)
+    t0 = time.perf_counter()
+    batches = device_batches(eval_batches(fold, None, c["batch"], pad_multiple=c["batch"]),
+                             device=dev)
+    torch.cuda.synchronize()
+    return {"model": model, "batches": batches, "upload_s": time.perf_counter() - t0,
+            "policy": _tta_policy(g, c["num_policy"], c["num_op"]),
+            "candidates": np.stack([_tta_policy(g, c["num_policy"], c["num_op"])
+                                    for _ in range(4)]),
+            "key": torch.tensor([0, 42], device=dev),
+            "keys": torch.tensor([[0, 100 + i] for i in range(4)], device=dev)}
+
+
+def phase_tta_main_path(dev, st: dict) -> dict:
+    """The TTA scoring path through its entry points, with the launch
+    counts set to 0 just before and read just after; then the checks."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.search import tta
+
+    c = FLAGSHIP
+    model, batches = st["model"], st["batches"]
+    n_batches, last_real = len(batches), int(batches[-1]["m"].sum())
+    if n_batches != -(-c["fold_images"] // c["batch"]) or batches[-1]["x"].shape[0] != c["batch"]:
+        fail(f"fold of {n_batches} batches is not padded to full batches")
+    opts = dict(num_policy=c["num_policy"], cutout_length=c["cutout"])
+    step = tta.make_tta_step(model, **opts)
+    step_k = tta.make_tta_step(model, num_candidates=4, **opts)
+    audit = tta.make_audit_step(model, **opts)
+    step_g = tta.make_tta_step(model, aug_dispatch="grouped", aug_groups=c["aug_groups"], **opts)
+    identity = np.zeros((1, c["num_op"], 3), np.float32)  # search/driver.py:491
+    b0 = batches[0]
+
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    exact = tta.eval_tta(step, batches, st["policy"], st["key"])
+    baseline = tta.eval_tta(step, batches, identity, torch.tensor([0, 17], device=dev))
+    batched = tta.eval_tta_batched(step_k, batches, st["candidates"], st["keys"])
+    audit_out = {f: v.cpu().numpy().tolist()
+                 for f, v in audit(b0["x"], b0["y"], b0["m"], st["policy"], st["key"]).items()}
+    grouped = tta.eval_tta(step_g, batches, st["policy"], st["key"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+
+    calls = 4 * n_batches + 1
+    want = {"augment_slot": c["num_op"] * calls, "cifar_stack": calls}
+    if counts != want:
+        fail(f"TTA launch counts {counts} != {want} ({calls} step calls)")
+    for tag, r in [("exact", exact), ("baseline", baseline), ("grouped", grouped)] + \
+            [(f"batched[{k}]", r) for k, r in enumerate(batched)]:
+        _check_fields(tag, r, float(c["fold_images"]))
+    if audit_out["cnt"] != c["batch"] or len(audit_out["correct_mean_sum"]) != c["num_policy"]:
+        fail(f"audit step output is malformed: {audit_out}")
+
+    # kernels against their plain versions on the card: the same step, the
+    # same draws and weights; lanes bitwise, fields equal under deterministic cuDNN
+    keep = (0, n_batches - 1)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        fns = {"kernel": _Capture(tta.cifar_augment_fn(c["cutout"]), keep),
+               "plain": _Capture(_plain_augment(c["cutout"]), keep)}
+        res = {k: tta.eval_tta(tta.make_tta_step(model, augment_fn=fn, **opts), batches,
+                               st["policy"], st["key"]) for k, fn in fns.items()}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    lanes_diff = sum(int((fns["kernel"].out[i] != fns["plain"].out[i]).sum()) for i in keep)
+    lanes_err = max(float((fns["kernel"].out[i] - fns["plain"].out[i]).abs().max()) for i in keep)
+    if lanes_diff or res["kernel"] != res["plain"]:
+        fail(f"TTA step with kernels vs plain versions: {lanes_diff} lane elements differ, "
+             f"fields {res}")
+
+    # each batched candidate against eval_tta of that candidate alone: the
+    # forwards run at batch sizes 2560 and 640, whose cuDNN algorithms may
+    # round differently; a top-1 can flip only where two logits are that close
+    single = [tta.eval_tta(step, batches, st["candidates"][k], st["keys"][k]) for k in range(4)]
+    dev_max = {f: max(abs(batched[k][f] - single[k][f]) for k in range(4)) for f in TTA_FIELDS}
+    tol = {"minus_loss": 1e-4, "top1_valid": 10 / c["fold_images"],
+           "top1_mean": 10 / c["fold_images"], "cnt": 0.0}
+    if any(dev_max[f] > tol[f] for f in TTA_FIELDS):
+        fail(f"batched candidates differ from single: {dev_max} (tolerance {tol})")
+
+    out = {"phase": "tta_main_path", "model": c["model"], "dataset": c["dataset"],
+           "fold_images": c["fold_images"], "batches": n_batches, "last_batch_real": last_real,
+           "batch": c["batch"], "num_policy": c["num_policy"], "num_op": c["num_op"],
+           "upload_s": st["upload_s"], "main_path_wall_s": wall, "step_calls": calls,
+           "launches": counts, "expected_launches": want,
+           "exact": exact, "baseline": baseline, "grouped": grouped, "batched": batched,
+           "audit": audit_out, "plain_vs_kernel": {"lane_elements_differing": lanes_diff,
+                                                   "lanes_max_abs_err": lanes_err,
+                                                   "fields_equal": True, "kernel": res["kernel"]},
+           "batched_vs_single_max_abs": dev_max, "batched_vs_single_tolerance": tol}
+    emit(out)
+    return out
+
+
+def _stage_device_us(prof) -> dict:
+    """Device time (µs) under each TTA stage's profiler range."""
+    from torch.autograd import DeviceType
+
+    totals = dict.fromkeys(TTA_STAGES, 0.0)
+    for e in prof.events():
+        if e.name in totals and e.device_type == DeviceType.CPU:
+            totals[e.name] += getattr(e, "device_time_total", 0.0) or 0.0
+    return totals
+
+
+def model_flops(model, dev, size: int = 32) -> int:
+    """Float operations (2 per multiply-add) of one image's forward through
+    the model's convolutions and dense layers."""
+    import torch
+
+    macs = [0]
+
+    def hook(mod, _inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.kernel_size[0] * mod.kernel_size[1] * mod.in_channels // mod.groups
+            macs[0] += out.numel() * k
+        elif isinstance(mod, torch.nn.Linear):
+            macs[0] += out.numel() * mod.in_features
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, 3, size, size), device=dev).to(memory_format=torch.channels_last))
+    finally:
+        for h in handles:
+            h.remove()
+    return 2 * macs[0]
+
+
+def phase_tta_times(dev, st: dict, card: str) -> dict:
+    """Seconds per trial, both kernels at the TTA shape, and a profiler
+    trace of one eval_tta."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+    from fast_autoaugment_tpu_torch.ops import preprocess as pre
+    from fast_autoaugment_tpu_torch.search import tta
+
+    c = FLAGSHIP
+    batches, p = st["batches"], c["num_policy"]
+    step = tta.make_tta_step(st["model"], num_policy=p, cutout_length=c["cutout"])
+    trials = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tta.eval_tta(step, batches, st["policy"], torch.tensor([1, i], device=dev))
+        torch.cuda.synchronize()
+        trials.append(time.perf_counter() - t0)
+    s_trial = float(np.median(trials))
+
+    # both kernels at the step's shape: P x B = 640 lanes of 32x32
+    x = batches[0]["x"].to(torch.float32).repeat(p, 1, 1, 1).contiguous()
+    pol = torch.as_tensor(st["policy"], device=dev)
+    src = tta.PhiloxDraws()
+    d = src.draws(src.split(st["key"], p, dev), batch=c["batch"], num_sub=pol.shape[0],
+                  num_op=pol.shape[1], height=32, width=32, dispatch="exact", groups=8,
+                  device=dev)
+    rec = aug.slot_records(pol, d.sub_idx, d.policy, 32, 32)
+    y = _kernels.augment(x, rec)
+    elems = x.numel()
+    k1 = {"kernel": "augment_slot", "shape": list(x.shape), "num_op": int(pol.shape[1]),
+          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(x, rec)),
+          "kernel_event_ms": cuda_ms(lambda: _kernels.augment(x, rec)),
+          "plain_ms": cuda_ms(lambda: aug.apply_subpolicy_draws_plain(x, pol, d.sub_idx, d.policy),
+                              iters=5, warmup=1),
+          "bytes": 2 * elems * 4 + rec.numel() * 4}
+    k5 = {"kernel": "cifar_stack", "shape": list(x.shape),
+          "kernel_ms": kernel_device_ms(lambda: pre.cifar_stack(y, d.crop, cutout_length=16),
+                                        kernel="cifar_stack_kernel"),
+          "kernel_event_ms": cuda_ms(lambda: pre.cifar_stack(y, d.crop, cutout_length=16)),
+          "plain_ms": cuda_ms(lambda: pre.cifar_stack_plain(y, d.crop, cutout_length=16),
+                              iters=5, warmup=1),
+          "bytes": 2 * elems * 4 + d.crop.numel() * 4, "ops": 3 * elems}
+    for k in (k1, k5):
+        bytes_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = k.get("ops", 0) / FP32_OPS_PER_S * 1e3
+        k.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
+
+    # a profiler trace of one eval_tta over the first TRACE_BATCHES batches
+    # of the fold (the profiler's post-processing takes about 2 s per batch)
+    traced = batches[:TRACE_BATCHES]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tta.eval_tta(step, traced, st["policy"], torch.tensor([2, 0], device=dev))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    t_post = time.perf_counter()
+    by_name = kernel_device_us(prof)
+    busy_us = sum(v for k, v in by_name.items() if not k.startswith("tta."))
+    stages = _stage_device_us(prof)
+    k1_us, k5_us = device_us(prof, "augment_slot_kernel"), device_us(prof, "cifar_stack_kernel")
+    n = len(traced)
+    split_ms = {"sampler": stages["tta.sampler"], "augment_kernel_K1": k1_us,
+                "cifar_stack_kernel_K5": k5_us,
+                "augment_other": stages["tta.augment"] - k1_us - k5_us,
+                "model": stages["tta.model"], "reductions": stages["tta.reductions"]}
+    split_ms = {k: v / 1e3 / n for k, v in split_ms.items()}
+    top = sorted(((k, v) for k, v in by_name.items() if not k.startswith("tta.")),
+                 key=lambda kv: -kv[1])[:10]
+    conv_us = sum(v for k, v in by_name.items() if "fprop" in k or "conv" in k.lower())
+    flop = model_flops(st["model"], dev) * p * c["batch"]
+    out = {"phase": "tta_times", "card": card, "fold_images": c["fold_images"],
+           "num_policy": p, "seconds_per_trial": s_trial, "trial_seconds": trials,
+           "images_per_s": p * c["fold_images"] / s_trial, "k1": k1, "k5": k5,
+           "trace": {"wall_s": wall_s, "batches": n,
+                     "device_busy_ms_per_batch": busy_us / 1e3 / n,
+                     "device_idle_share": 1 - busy_us / 1e6 / wall_s if busy_us else None,
+                     "device_idle_share_at_trial_wall": (1 - busy_us / 1e6 / n * len(batches)
+                                                         / s_trial) if busy_us else None,
+                     "device_ms_per_batch_by_stage": split_ms,
+                     "convolution_kernels_ms_per_batch": conv_us / 1e3 / n,
+                     "model_gflop_per_batch": flop / 1e9,
+                     "model_flop_bound_ms": flop / FP32_OPS_PER_S * 1e3,
+                     "convolution_tflop_per_s": flop / (conv_us / n * 1e-6) / 1e12
+                     if conv_us else None,
+                     "stage_ranges_found": any(v > 0 for v in stages.values()),
+                     "top_device_ms_per_batch": {k[:90]: v / 1e3 / n for k, v in top},
+                     "postprocess_s": time.perf_counter() - t_post},
+           "timing": "seconds_per_trial: median of 3 eval_tta over the fold, host clock, "
+                     "synchronized; kernel_ms: device time from torch.profiler over 20 calls; "
+                     "*_event_ms and plain_ms: CUDA events around back-to-back calls, host "
+                     "gaps included; the trace runs with the profiler on (host time inflated), "
+                     "device_idle_share_at_trial_wall sets its device time per batch against "
+                     "the unprofiled trial's wall per batch"}
     emit(out)
     return out
 
@@ -563,30 +971,50 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
     t0 = time.perf_counter()
-    _kernels.load_library()
+    _kernels.load_libraries()
     emit({"phase": "environment", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "build_s": time.perf_counter() - t0, "nvcc_s": _kernels.build_seconds,
           "nvcc_flags": list(_kernels.NVCC_FLAGS)})
     check = phase_kernel_vs_plain(dev)
+    check5 = phase_k5_vs_plain(dev)
     with tempfile.TemporaryDirectory() as workdir:
         main_path = phase_main_path(dev, workdir)
+    st = tta_setup(dev)
+    tta_path = phase_tta_main_path(dev, st)
     rows = phase_times(dev, card)
     phase_trace(dev, card)
+    tta_t = phase_tta_times(dev, st, card)
     at = next(r for r in rows if r["batch"] == 128)  # the largest serving shape
+    k1, k5 = tta_t["k1"], tta_t["k5"]
     print(card, flush=True)
     emit({"kernels": [{
         "name": "augment_slot", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/augment.cu",
         "replaces": "fast_autoaugment_tpu/ops/augment.py:409",
-        "launches": main_path["launches"], "max_abs_err": check["max_abs_err"],
+        "launches": main_path["launches"] + tta_path["launches"]["augment_slot"],
+        "launches_by_path": {"serve": main_path["launches"],
+                             "tta": tta_path["launches"]["augment_slot"]},
+        "max_abs_err": check["max_abs_err"],
         "differing_elements": check["differing_elements"],
         "ms": at["kernel_ms"] if at["kernel_ms"] is not None else at["kernel_event_ms"],
         "ms_source": "device" if at["kernel_ms"] is not None else "events",
         "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"], "library_ms": None,
-        "shape": [at["batch"], at["image"], at["image"], 3]}]})
+        "shape": [at["batch"], at["image"], at["image"], 3],
+        "at_tta_shape": {k: k1[k] for k in ("shape", "kernel_ms", "kernel_event_ms",
+                                            "plain_ms", "bound_ms", "bound_by")}}, {
+        "name": "cifar_stack", "route": "cuda",
+        "source": "fast_autoaugment_tpu_torch/csrc/preprocess.cu",
+        "replaces": "fast_autoaugment_tpu/ops/preprocess.py:109",
+        "launches": tta_path["launches"]["cifar_stack"],
+        "max_abs_err": check5["max_abs_err"],
+        "differing_elements": check5["differing_elements"],
+        "ms": k5["kernel_ms"] if k5["kernel_ms"] is not None else k5["kernel_event_ms"],
+        "ms_source": "device" if k5["kernel_ms"] is not None else "events",
+        "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": None, "shape": k5["shape"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,1 +1,1 @@
-"""Clocks shared by the serving path."""
+"""Clocks, device selection and metrics shared by the port's paths."""

@@ -1,11 +1,18 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
-``csrc/augment.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and bound with ``ctypes``.  The build
-happens on first use, into ``fast_autoaugment_tpu_torch/_build/`` (listed
-in ``.gitignore``), keyed by a hash of the source and the flags, so a
-second process finds the library already built.  Nothing is built or
-imported from CUDA when this module is imported.
+Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface and bound with
+``ctypes``:
+
+- ``augment.cu``: the policy augmentation (``augment_slot``);
+- ``preprocess.cu``: the CIFAR crop/flip/normalize/cutout stack
+  (``cifar_stack``).
+
+The build happens on first use, into ``fast_autoaugment_tpu_torch/_build/``
+(listed in ``.gitignore``), keyed by a hash of the source and the flags, so
+a second process finds the libraries already built.  The sources that are
+not built yet are compiled together, one ``nvcc`` process each.  Nothing is
+built or imported from CUDA when this module is imported.
 """
 
 from __future__ import annotations
@@ -21,21 +28,32 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library", "augment",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "load_libraries", "augment",
+           "cifar_stack", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "augment.cu"
+SOURCES = {"augment": _PKG / "csrc" / "augment.cu",
+           "preprocess": _PKG / "csrc" / "preprocess.cu"}
 BUILD_DIR = _PKG / "_build"
-#: --fmad=false: the ops are held bitwise against PIL-exact references,
-#: and a contracted multiply-add rounds differently
+#: --fmad=false: the kernels are held bitwise against references that
+#: round every product and sum on its own, and a contracted multiply-add
+#: rounds differently
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: (C function, argument types) of each library
+_SIGNATURES = {
+    "augment": ("faa_augment_slot", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "preprocess": ("faa_cifar_stack", [_P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                       _F, _F, _F, _F, _F, _F, _I, _P]),
+}
+
 _lock = threading.Lock()
-_lib = None
-_launches = {"augment_slot": 0}
-#: wall seconds of the last build (0.0 when the library was already built)
+_libs: dict[str, ctypes.CDLL] = {}
+_launches = {"augment_slot": 0, "cifar_stack": 0}
+#: wall seconds of the last build of all missing libraries (0.0 when every
+#: library was already built)
 build_seconds = 0.0
 
 
@@ -48,44 +66,64 @@ def _nvcc() -> str:
     if os.path.exists(cand):
         return cand
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
-                       "the augmentation kernel cannot be built")
+                       "the port's CUDA kernels cannot be built")
 
 
-def _build(out: Path) -> None:
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{digest}.so"
+
+
+def _build(missing: dict[str, Path]) -> None:
+    """Compile every missing library at once, one ``nvcc`` per source."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    procs = {}
+    for name, out in missing.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    errors = []
+    for name, (cmd, tmp, out, proc) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            errors.append(f"nvcc timed out: {' '.join(cmd)}\n{log}")
+            continue
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    if errors:
+        raise RuntimeError("\n".join(errors))
     build_seconds = time.perf_counter() - t0
 
 
-def load_library():
-    """Build (once per source and flag set) and load the kernel library."""
-    global _lib
+def load_libraries() -> dict[str, ctypes.CDLL]:
+    """Build (once per source and flag set) and load every kernel library."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"augment_{digest}.so"
-        if not so.exists():
-            _build(so)
-        lib = ctypes.CDLL(str(so))
-        lib.faa_augment_slot.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.faa_augment_slot.restype = ctypes.c_int
-        lib.faa_error_string.argtypes = [ctypes.c_int]
-        lib.faa_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+        if len(_libs) == len(SOURCES):
+            return dict(_libs)
+        paths = {name: _library_path(name) for name in SOURCES}
+        missing = {n: p for n, p in paths.items() if not p.exists()}
+        if missing:
+            _build(missing)
+        for name, path in paths.items():
+            lib = ctypes.CDLL(str(path))
+            fn_name, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            lib.faa_error_string.argtypes = [ctypes.c_int]
+            lib.faa_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return dict(_libs)
 
 
 def launch_counts() -> dict[str, int]:
@@ -97,6 +135,12 @@ def reset_launch_counts() -> None:
     with _lock:
         for k in _launches:
             _launches[k] = 0
+
+
+def _check_rc(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.faa_error_string(rc).decode()}")
 
 
 def augment(images: torch.Tensor, records: torch.Tensor) -> torch.Tensor:
@@ -121,7 +165,7 @@ def augment(images: torch.Tensor, records: torch.Tensor) -> torch.Tensor:
         raise ValueError("records must hold at least one op slot")
     if b == 0:
         return torch.empty_like(images)
-    lib = load_library()
+    lib = load_libraries()["augment"]
     out = torch.empty_like(images)
     tmp = torch.empty_like(images) if num_op > 1 else None
     stream = torch.cuda.current_stream(images.device).cuda_stream
@@ -131,10 +175,48 @@ def augment(images: torch.Tensor, records: torch.Tensor) -> torch.Tensor:
         rc = lib.faa_augment_slot(src.data_ptr(), dst.data_ptr(), records.data_ptr(),
                                   slot, num_op, b, h, w, images.device.index or 0,
                                   stream)
-        if rc != 0:
-            raise RuntimeError(f"augment kernel launch failed: "
-                               f"{lib.faa_error_string(rc).decode()}")
+        _check_rc(lib, rc, "augment")
         with _lock:
             _launches["augment_slot"] += 1
         src = dst
     return out
+
+
+def cifar_stack(images: torch.Tensor, draws: torch.Tensor, *, pad: int,
+                cutout_length: int, scale: float, mean, rstd) -> torch.Tensor:
+    """Crop with zero pad, flip, normalize and cut out ``images [N, H, W, 3]``
+    (float32, integral in [0, 255]) with the CUDA kernel, one launch.
+
+    ``draws [N, 5]`` int32 holds (oy, ox, flip, cy, cx) per image.  A
+    value is normalized as ``(v * scale - mean[c]) * rstd[c]``, each product
+    and difference rounded to float32 on its own; `scale` is ``1 / 255`` and
+    `rstd` ``1 / std``, both as float32.  Returns ``[N, 3, H, W]`` float32 in ``channels_last``
+    strides (NHWC in memory)."""
+    if images.device.type != "cuda" or draws.device != images.device:
+        raise ValueError("the CIFAR stack kernel takes CUDA tensors on one device")
+    if images.dtype != torch.float32 or draws.dtype != torch.int32:
+        raise TypeError("the CIFAR stack kernel takes float32 images and int32 draws")
+    if not (images.is_contiguous() and draws.is_contiguous()):
+        raise ValueError("the CIFAR stack kernel takes contiguous tensors")
+    if images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError(f"images must be [N, H, W, 3], got {tuple(images.shape)}")
+    n, h, w, _ = images.shape
+    if tuple(draws.shape) != (n, 5):
+        raise ValueError(f"draws must be [{n}, 5], got {tuple(draws.shape)}")
+    if n * h * w * 3 >= 1 << 31:
+        raise ValueError(f"batch of {n}x{h}x{w} is too large for the kernel")
+    if pad < 0 or cutout_length < 0:
+        raise ValueError("pad and cutout_length must be >= 0")
+    out = torch.empty((n, h, w, 3), dtype=torch.float32, device=images.device)
+    if n:
+        lib = load_libraries()["preprocess"]
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        m = [float(v) for v in mean]
+        r = [float(v) for v in rstd]
+        rc = lib.faa_cifar_stack(images.data_ptr(), out.data_ptr(), draws.data_ptr(),
+                                 n, h, w, int(pad), int(cutout_length) // 2,
+                                 float(scale), *m, *r, images.device.index or 0, stream)
+        _check_rc(lib, rc, "CIFAR stack")
+        with _lock:
+            _launches["cifar_stack"] += 1
+    return out.permute(0, 3, 1, 2)

@@ -47,7 +47,8 @@ __all__ = [
     "OP_NAMES", "SEARCH_OP_NAMES", "NUM_OPS", "CUTOUT_COLOR", "REC_WIDTH",
     "op_index", "augment_list", "run_op", "slot_records",
     "apply_subpolicy_draws", "apply_subpolicy_draws_plain",
-    "sample_exact", "sample_grouped", "sample_draws", "check_policy",
+    "sample_exact", "sample_grouped", "sample_draws", "sample_crop",
+    "check_policy",
     "shear_x", "shear_y", "translate_x", "translate_y", "rotate",
     "auto_contrast", "invert", "equalize", "solarize", "posterize",
     "contrast", "color", "brightness", "sharpness", "cutout", "cutout_abs",
@@ -480,7 +481,7 @@ def apply_subpolicy_draws(images: torch.Tensor, policy: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # Philox counter layout (c0, c1, c2, c3): c1 names the stream.
-_STREAM_SLOT, _STREAM_SUB, _STREAM_PERM, _STREAM_GROUP = 0, 1, 2, 3
+_STREAM_SLOT, _STREAM_SUB, _STREAM_PERM, _STREAM_GROUP, _STREAM_CROP = 0, 1, 2, 3, 4
 
 
 def _pick(word: torch.Tensor, n: int) -> torch.Tensor:
@@ -541,6 +542,25 @@ def sample_grouped(key: torch.Tensor, batch: int, groups: int, num_sub: int,
     draws = _slot_draws(k0.expand(batch), k1.expand(batch), lane + 1, num_op,
                         height, width)
     return sub_idx, draws
+
+
+def sample_crop(keys: torch.Tensor, height: int, width: int,
+                pad: int = 4) -> torch.Tensor:
+    """The draws of the CIFAR stack after the policy
+    (``fast_autoaugment_tpu/ops/preprocess.py:91-106``), one row per lane:
+    ``[L, 5]`` int32 = (crop offset y in [0, 2*pad], crop offset x in
+    [0, 2*pad], flip bit, cutout centre y in [0, H), cutout centre x in
+    [0, W)), each a function of that lane's key ``keys [L, 2]`` alone (two
+    Philox blocks of its own stream), bit-identical on every device."""
+    keys = keys.to(torch.int64).reshape(-1, 2)
+    k1, k0 = keys[:, 0:1], keys[:, 1:2]
+    block = torch.arange(2, dtype=torch.int64, device=keys.device)
+    zero = torch.zeros_like(block)
+    w = philox4x32((k0, k1), (block, zero + _STREAM_CROP, zero, zero))  # 4 x [L, 2]
+    span = 2 * int(pad) + 1
+    return torch.stack([_pick(w[0][:, 0], span), _pick(w[1][:, 0], span),
+                        _pick(w[2][:, 0], 2), _pick(w[3][:, 0], height),
+                        _pick(w[0][:, 1], width)], dim=-1)
 
 
 def sample_draws(dispatch: str, keys, batch: int, *, num_sub: int, num_op: int,

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["philox4x32", "uniform24", "fold_in", "MASK32"]
+__all__ = ["philox4x32", "uniform24", "fold_in", "split", "MASK32"]
 
 MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox multipliers
@@ -65,10 +65,24 @@ def uniform24(word: torch.Tensor) -> torch.Tensor:
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """A fresh ``[2]`` key derived from ``key`` ``[2]`` and an integer."""
+    """A fresh key derived from ``key`` ``[..., 2]`` and an integer (one
+    Philox block at counter ``(data, "Fold", 0, 0)``); same shape as `key`."""
     key = key.to(torch.int64)
     data_t = torch.full((), int(data) & MASK32, dtype=torch.int64,
                         device=key.device)
     zero = torch.zeros((), dtype=torch.int64, device=key.device)
-    w = philox4x32((key[0], key[1]), (data_t, zero + 0x466F6C64, zero, zero))
-    return torch.stack([w[0], w[1]])
+    w = philox4x32((key[..., 0], key[..., 1]), (data_t, zero + 0x466F6C64, zero, zero))
+    return torch.stack([w[0], w[1]], dim=-1)
+
+
+def split(keys: torch.Tensor, num: int) -> torch.Tensor:
+    """``num`` fresh keys from each key: ``keys [..., 2]`` -> ``[..., num, 2]``.
+
+    Key ``j`` of a key is one Philox block of that key at counter
+    ``(j, "Splt", 0, 0)``, so it depends on the key and ``j`` alone."""
+    keys = keys.to(torch.int64)
+    k0, k1 = keys[..., 0:1], keys[..., 1:2]
+    j = torch.arange(num, dtype=torch.int64, device=keys.device)
+    zero = torch.zeros_like(j)
+    w = philox4x32((k0, k1), (j, zero + 0x53706C74, zero, zero))
+    return torch.stack([w[0], w[1]], dim=-1)

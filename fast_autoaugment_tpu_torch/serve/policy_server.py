@@ -40,6 +40,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from fast_autoaugment_tpu_torch.core.device import resolve_device
 from fast_autoaugment_tpu_torch.core.telemetry import mono
 from fast_autoaugment_tpu_torch.ops import _kernels
 from fast_autoaugment_tpu_torch.ops.augment import (
@@ -86,23 +87,6 @@ class ServerStoppedError(ServeError):
 class DeadlineExpiredError(ServeError):
     """The request's deadline passed while it was queued; it was shed
     before dispatch (HTTP 503)."""
-
-
-def resolve_device(device) -> torch.device:
-    """``"cuda"`` (the default everywhere) or ``"cpu"`` as a torch device.
-    A CUDA request without a card raises: nothing falls back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the CUDA device was requested but torch.cuda.is_available() "
-                "is False: no GPU is visible.  The CPU path exists for tests "
-                "only and must be asked for (device='cpu' / --device cpu)")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be cuda or cpu, got {device!r}")
-    return dev
 
 
 def pick_shape(shapes: Sequence[int], n: int) -> int:
@@ -166,7 +150,7 @@ class PolicyApplier:
         self.max_batch = self.shapes[-1]
         self.draw_source = draw_source or sample_draws
         if self.device.type == "cuda":
-            _kernels.load_library()
+            _kernels.load_libraries()
         logger.info("policy applier ready: %d sub-policies, dispatch=%s, "
                     "shapes=%s, device=%s", self.num_sub, dispatch,
                     list(self.shapes), self.device)

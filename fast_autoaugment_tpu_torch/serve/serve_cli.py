@@ -17,7 +17,8 @@ CUDA augmentation kernel, and serves:
   uint8 out).  Requests from concurrent clients coalesce into shared
   dispatches (:class:`~fast_autoaugment_tpu_torch.serve.policy_server.
   PolicyServer`).  Errors are structured JSON: 400 (malformed), 413 (body
-  too large, refused on Content-Length before the body is read), 429 with
+  too large, refused on Content-Length: the body is never decoded, only
+  read and discarded), 429 with
   ``Retry-After`` (queue full), 503 (draining, deadline missed).
 - ``GET /stats``: serving accounting plus the kernel's launch count.
 - ``GET /healthz``: liveness.  ``GET /readyz``: 200 only while admitting.
@@ -51,6 +52,12 @@ logger = get_logger("faa_torch.serve_cli")
 DEFAULT_MAX_BODY_MB = 64
 
 DEADLINE_HEADER = "X-FAA-Deadline-Ms"
+
+#: a refused body up to this many bytes is read and discarded before the
+#: connection closes: closing a socket with unread bytes resets the
+#: connection, and a client still sending its body then sees the reset
+#: instead of the answer
+DRAIN_LIMIT_BYTES = 256 * 1024 * 1024
 
 
 def build_policy_tensor(spec: str) -> np.ndarray:
@@ -116,12 +123,23 @@ def make_handler(server, max_body_bytes: int = DEFAULT_MAX_BODY_MB * 1024 * 1024
         def _send_json(self, code: int, obj, headers: dict | None = None) -> None:
             self._send(code, json.dumps(obj).encode(), "application/json", headers)
 
-        def _refuse(self, code: int, err_type: str, msg: str) -> None:
-            """Refuse without reading the body: close the connection, since
-            unread bytes would poison the next request on it."""
+        def _refuse(self, code: int, err_type: str, msg: str, unread: int = 0) -> None:
+            """Refuse and close the connection, since unread bytes would
+            poison the next request on it.  The `unread` bytes of the body
+            are read and discarded first (up to ``DRAIN_LIMIT_BYTES``), so
+            that the client reads the answer rather than a reset."""
             self.close_connection = True
             self._send_json(code, {"error": msg, "type": err_type},
                             {"Connection": "close"})
+            remaining = unread if unread <= DRAIN_LIMIT_BYTES else 0
+            try:
+                while remaining > 0:
+                    chunk = self.rfile.read(min(remaining, 1 << 16))
+                    if not chunk:
+                        break
+                    remaining -= len(chunk)
+            except OSError:  # the client went away or stalled past the timeout
+                pass
 
         def do_GET(self):
             if self.path == "/healthz":
@@ -152,7 +170,7 @@ def make_handler(server, max_body_bytes: int = DEFAULT_MAX_BODY_MB * 1024 * 1024
                 return None
             if length > max_body_bytes:
                 self._refuse(413, "body_too_large", f"body of {length} bytes "
-                             f"exceeds the {max_body_bytes}-byte bound")
+                             f"exceeds the {max_body_bytes}-byte bound", unread=length)
                 return None
             return self.rfile.read(length)
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one:
 a CUDA kernel has no CPU mode.  This file imports no JAX, so it runs on a
@@ -6,8 +6,11 @@ GPU machine that has only the port's dependencies:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 
-Bound: bitwise (``torch.equal``); the kernel and the plain version consume
-the same per-slot records and round every product and sum the same way.
+Bound: bitwise (``torch.equal``).  The augmentation kernel and its plain
+version consume the same per-slot records and round every product and sum
+the same way; the CIFAR stack kernel and its plain version compute the same
+gather and the same reciprocal-form normalization, each product and
+difference rounded on its own.
 """
 
 import numpy as np
@@ -16,6 +19,8 @@ import torch
 
 from fast_autoaugment_tpu_torch.ops import _kernels
 from fast_autoaugment_tpu_torch.ops import augment as T
+from fast_autoaugment_tpu_torch.ops import preprocess as P
+from fast_autoaugment_tpu_torch.ops import rng
 from fast_autoaugment_tpu_torch.policies.archive import ARCHIVES, load_policy, policy_to_tensor
 
 SHAPES = [(8, 32, 32), (4, 17, 23), (2, 224, 224)]
@@ -85,3 +90,55 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         _kernels.augment(imgs.permute(0, 2, 1, 3), rec)
     with pytest.raises(ValueError):
         _kernels.augment(imgs, rec.cpu())
+
+
+def _stack_draws(b, h, w, g):
+    """Every crop offset and flip bit, cutout centres at the corners, the
+    edges and random places."""
+    centres = [(0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (h // 2, 0), (0, w // 2)]
+    rows = []
+    for i in range(b):
+        j = i % 162
+        cy, cx = centres[i % 6] if i % 12 < 6 else (g.integers(0, h), g.integers(0, w))
+        rows.append((j // 18, (j // 2) % 9, j % 2, cy, cx))
+    return np.int32(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(640, 32, 32), (4, 17, 23)])
+@pytest.mark.parametrize("length", [0, 16])
+def test_cifar_stack_bitwise_vs_plain(cuda_device, b, h, w, length):
+    g = np.random.default_rng(b + length)
+    imgs = _images(g, b, h, w, cuda_device)
+    draws = torch.from_numpy(_stack_draws(b, h, w, g)).to(cuda_device)
+    before = _kernels.launch_counts()["cifar_stack"]
+    got = P.cifar_stack(imgs, draws, cutout_length=length)
+    assert _kernels.launch_counts()["cifar_stack"] == before + 1
+    want = P.cifar_stack_plain(imgs, draws, cutout_length=length)
+    assert got.shape == (b, 3, h, w) and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cifar_eval_batch_and_crop_draws_on_the_card(cuda_device):
+    imgs = torch.arange(256, dtype=torch.float32).reshape(1, 16, 16, 1).repeat(2, 1, 1, 3)
+    got = P.cifar_eval_batch(imgs.to(cuda_device))
+    assert torch.equal(got.cpu(), P.cifar_eval_batch(imgs))
+    keys = rng.split(torch.tensor([4, 2]), 4096)
+    assert torch.equal(T.sample_crop(keys.to(cuda_device), 32, 32).cpu(),
+                       T.sample_crop(keys, 32, 32))
+
+
+@pytest.mark.cuda
+def test_cifar_stack_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    imgs = torch.zeros((2, 8, 8, 3), device=cuda_device)
+    draws = torch.zeros((2, 5), dtype=torch.int32, device=cuda_device)
+    kw = dict(pad=4, cutout_length=16, scale=1 / 255, mean=(0, 0, 0), rstd=(1, 1, 1))
+    with pytest.raises(TypeError):
+        _kernels.cifar_stack(imgs.double(), draws, **kw)
+    with pytest.raises(ValueError):
+        _kernels.cifar_stack(imgs.permute(0, 2, 1, 3), draws, **kw)
+    with pytest.raises(ValueError):
+        _kernels.cifar_stack(imgs, draws.cpu(), **kw)
+    with pytest.raises(ValueError):
+        _kernels.cifar_stack(imgs, draws[:1], **kw)

@@ -30,6 +30,24 @@ programs and the eager ops then disagree with each other in a few
 elements of the blend ops and ``level * (high - low) + low``).  Without
 FMA every JAX program rounds each product and sum on its own, the
 reference's documented PIL semantics, which the port implements.
+
+The CIFAR stack and the TTA step (``ops/preprocess.py``, ``search/tta.py``)
+add to the tree:
+
+- ``cifar_train_batch`` (``:109``): per draw key, ``split(key, B)`` gives
+  each image's key (after ``key, key_pol = split(key)`` under ``grouped``
+  with a multi-sub policy, whose policy draws are then those of
+  ``apply_policy_batch_grouped(key_pol)``);
+- ``_cifar_train_one`` (``:91``): ``k_policy, k_crop, k_flip, k_cutout =
+  split(key, 4)``; the crop offsets are ``randint(ky/kx, (), 0, 9)`` with
+  ``ky, kx = split(k_crop)``, the flip ``uniform(k_flip) < 0.5``, the cutout
+  centre ``randint(ky, (), 0, H), randint(kx, (), 0, W)`` with ``ky, kx =
+  split(k_cutout)``;
+- ``make_tta_step`` (``:76``): a batch's P draw keys are ``split(key, P)``;
+  ``make_audit_step``: ``split(key, S * P)``; ``eval_tta``: batch i's key
+  is ``fold_in(key, i)``.
+
+:class:`JaxDraws` is that tree as a draw source of the port's TTA step.
 """
 
 import functools
@@ -125,6 +143,79 @@ def jax_draw_source(dispatch, keys, batch, *, num_sub, num_op, height, width,
         sub, draws = jax_grouped_draws(keys, batch, groups, num_sub, num_op,
                                        height, width)
     return torch.from_numpy(sub).to(device), torch.from_numpy(draws).to(device)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _cifar_lane_draws(keys, h: int, w: int, pad: int = 4):
+    """Per-image keys ``[B, 2]`` -> (``k_policy [B, 2]``, ``[B, 5]`` int32 =
+    (oy, ox, flip, cy, cx)), as ``_cifar_train_one`` consumes its key."""
+    def one(key):
+        k_policy, k_crop, k_flip, k_cutout = jax.random.split(key, 4)
+        ky, kx = jax.random.split(k_crop)
+        oy = jax.random.randint(ky, (), 0, 2 * pad + 1)
+        ox = jax.random.randint(kx, (), 0, 2 * pad + 1)
+        flip = (jax.random.uniform(k_flip) < 0.5).astype(jnp.int32)
+        cy_k, cx_k = jax.random.split(k_cutout)
+        cy = jax.random.randint(cy_k, (), 0, h)
+        cx = jax.random.randint(cx_k, (), 0, w)
+        return k_policy, jnp.stack([oy, ox, flip, cy, cx]).astype(jnp.int32)
+
+    return jax.vmap(one)(keys)
+
+
+def jax_cifar_draws(key, batch: int, policy_shape, h: int, w: int,
+                    dispatch: str = "exact", groups: int = 8):
+    """The draws of ``cifar_train_batch(images[batch], key, policy,
+    aug_dispatch=dispatch, aug_groups=groups)``: (sub_idx [B], policy draws
+    [B, num_op, 4], stack draws [B, 5]) as numpy.  ``policy_shape`` is
+    ``(num_sub, num_op)``, or None for no policy."""
+    key = jnp.asarray(np.asarray(key, np.uint32))
+    grouped = (dispatch == "grouped" and policy_shape is not None
+               and policy_shape[0] > 1)
+    if grouped:
+        key, key_pol = jax.random.split(key)
+    k_policy, crop = _cifar_lane_draws(jax.random.split(key, batch), h, w)
+    if policy_shape is None:
+        return None, None, np.array(crop, np.int32)
+    num_sub, num_op = policy_shape
+    if grouped:
+        sub, draws = jax_grouped_draws(np.asarray(key_pol), batch, groups, num_sub,
+                                       num_op, h, w)
+    else:
+        sub, draws = jax_policy_draws(np.asarray(k_policy), num_sub, num_op, h, w)
+    return sub, draws, np.array(crop, np.int32)
+
+
+class JaxDraws:
+    """A draw source for the port's TTA and audit steps that replays the JAX
+    key tree (keys are ``[..., 2]`` uint32 JAX keys as numpy)."""
+
+    @staticmethod
+    def _keys(key):
+        return jnp.asarray(np.asarray(key, np.uint32))
+
+    def fold_in(self, key, i, device):
+        k = self._keys(key)
+        flat = jax.vmap(lambda kk: jax.random.fold_in(kk, i))(k.reshape(-1, 2))
+        return np.asarray(flat.reshape(k.shape), np.uint32)
+
+    def split(self, key, num, device):
+        k = self._keys(key)
+        flat = jax.vmap(lambda kk: jax.random.split(kk, num))(k.reshape(-1, 2))
+        return np.asarray(flat.reshape(k.shape[:-1] + (num, 2)), np.uint32)
+
+    def draws(self, draw_keys, *, batch, num_sub, num_op, height, width, dispatch,
+              groups, device):
+        import torch  # not at import: the reference subprocess runs this file
+
+        from fast_autoaugment_tpu_torch.search.tta import LaneDraws
+
+        parts = [jax_cifar_draws(k, batch, (num_sub, num_op), height, width,
+                                 dispatch, groups)
+                 for k in np.asarray(draw_keys, np.uint32).reshape(-1, 2)]
+        sub, pol, crop = (torch.from_numpy(np.concatenate(p)).to(device)
+                          for p in zip(*parts))
+        return LaneDraws(sub, pol, crop)
 
 
 # ----------------------------------------- the self-check, in JAX alone
@@ -256,7 +347,54 @@ def _run_job(job: dict):
                               dispatch=job["dispatch"], groups=job["groups"])
         return {"dispatch": ap.dispatch,
                 "outputs": [ap.apply(imgs, keys) for imgs, keys in job["calls"]]}
+    if job["kind"] == "cifar_train_batch":
+        from fast_autoaugment_tpu.ops.preprocess import cifar_train_batch
+
+        fn = jax.jit(functools.partial(cifar_train_batch, cutout_length=job["cutout_length"],
+                                       aug_dispatch=job["dispatch"], aug_groups=job["groups"]))
+        return [np.asarray(fn(jnp.asarray(imgs), jnp.asarray(key),
+                              policy=None if pol is None else jnp.asarray(pol)))
+                for imgs, key, pol in job["calls"]]
+    if job["kind"] == "cifar_eval_batch":
+        from fast_autoaugment_tpu.ops.preprocess import cifar_eval_batch
+
+        return np.asarray(jax.jit(cifar_eval_batch)(jnp.asarray(job["images"])))
+    if job["kind"] == "tta":
+        return _run_tta_job(job)
     raise ValueError(f"unknown reference job {job['kind']!r}")
+
+
+def _run_tta_job(job: dict) -> list:
+    """The JAX TTA entry points on a WideResNet with the given variables."""
+    from fast_autoaugment_tpu.models.wideresnet import WideResNet
+    from fast_autoaugment_tpu.search import tta
+
+    model = WideResNet(*job["model"])
+    params, stats = job["variables"]["params"], job["variables"]["batch_stats"]
+    batches = [{"x": jnp.asarray(x), "y": jnp.asarray(y), "m": jnp.asarray(m)}
+               for x, y, m in job["batches"]]
+    out = []
+    for run in job["runs"]:
+        opts = dict(num_policy=run["num_policy"], cutout_length=run["cutout_length"],
+                    aug_dispatch=run["dispatch"], aug_groups=run["groups"])
+        if run["fn"] == "eval_tta":
+            step = tta.make_tta_step(model, **opts)
+            out.append(tta.eval_tta(step, params, stats, batches,
+                                    jnp.asarray(run["policy"]), jnp.asarray(run["key"])))
+        elif run["fn"] == "eval_tta_batched":
+            step = tta.make_tta_step(model, num_candidates=len(run["policy"]), **opts)
+            out.append(tta.eval_tta_batched(step, params, stats, batches,
+                                            jnp.asarray(run["policy"]),
+                                            jnp.asarray(run["key"])))
+        elif run["fn"] == "audit":
+            step = tta.make_audit_step(model, **opts)
+            b = batches[run["batch"]]
+            res = step(params, stats, b["x"], b["y"], b["m"], jnp.asarray(run["policy"]),
+                       jnp.asarray(run["key"]))
+            out.append({k: np.asarray(v) for k, v in res.items()})
+        else:
+            raise ValueError(f"unknown TTA run {run['fn']!r}")
+    return out
 
 
 def jax_reference(jobs: list[dict], tmp_dir) -> list:
@@ -264,7 +402,13 @@ def jax_reference(jobs: list[dict], tmp_dir) -> list:
     ``{"kind": "apply_subpolicy", "images", "subpolicies", "keys"}`` -> the
     stacked ``jit(apply_subpolicy)`` outputs; ``{"kind": "aot", "policy", "image",
     "shapes", "dispatch", "groups", "calls": [(images, keys), ...]}`` ->
-    ``{"dispatch", "outputs"}`` of ``AotPolicyApplier.apply``."""
+    ``{"dispatch", "outputs"}`` of ``AotPolicyApplier.apply``;
+    ``{"kind": "cifar_train_batch", "cutout_length", "dispatch", "groups",
+    "calls": [(images, key, policy or None), ...]}`` -> the outputs;
+    ``{"kind": "cifar_eval_batch", "images"}`` -> the output;
+    ``{"kind": "tta", "model": (depth, widen, classes), "variables",
+    "batches": [(x, y, m), ...], "runs": [...]}`` -> the result of each run
+    (``eval_tta``, ``eval_tta_batched`` or one ``audit`` step call)."""
     src, dst = os.path.join(tmp_dir, "jobs.pkl"), os.path.join(tmp_dir, "refs.pkl")
     with open(src, "wb") as fh:
         pickle.dump(jobs, fh)

@@ -11,9 +11,12 @@ nothing here needs a card.
 import io
 import json
 import os
+import select
 import signal
+import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -306,13 +309,41 @@ def test_serve_cli_http_round_trip(tmp_path):
         assert status == 413 and json.loads(body)["type"] == "body_too_large"
         stats = _get(port, "/stats")
         assert stats["images_served"] == 6 and stats["device"] == "cpu"
-        assert stats["kernel_launches"] == {"augment_slot": 0}
+        assert stats["kernel_launches"] == {"augment_slot": 0, "cifar_stack": 0}
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=10)
+
+
+def test_refused_body_is_read_so_the_answer_arrives():
+    """A 413 answer reaches a client that sends its body after the answer:
+    the handler reads and discards the refused body before it closes, where
+    closing with the body unread resets the connection mid-send."""
+    httpd = serve_cli._ServeHTTPServer(("127.0.0.1", 0),
+                                       serve_cli.make_handler(None, max_body_bytes=1024))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    body_len = 4 << 20
+    try:
+        with socket.create_connection(httpd.server_address, timeout=30) as sock:
+            sock.sendall(f"POST /augment HTTP/1.1\r\nHost: x\r\nContent-Length: {body_len}"
+                         f"\r\nContent-Type: application/octet-stream\r\n\r\n".encode())
+            assert select.select([sock], [], [], 30)[0]  # the answer comes first
+            sock.sendall(b"x" * body_len)  # reset here if the handler closed unread
+            answer = b""
+            while chunk := sock.recv(1 << 16):
+                answer += chunk
+        head, _, payload = answer.partition(b"\r\n\r\n")
+        assert head.startswith(b"HTTP/1.1 413")
+        assert json.loads(payload)["type"] == "body_too_large"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
 
 
 def test_serve_cli_without_gpu_fails_loudly():
