@@ -8,15 +8,18 @@ phases, each printing one JSON line:
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions, and the
    seconds it took to build the kernels (``fast_autoaugment_tpu_torch/csrc/
-   augment.cu`` and ``preprocess.cu``, one ``nvcc`` each, in parallel);
+   augment.cu``, ``preprocess.cu`` and ``imagenet.cu``, one ``nvcc`` each,
+   in parallel);
 2. kernel vs plain version on the card, bitwise with the count of
    differing elements: the augmentation kernel (all 19 ops forced on with
    both mirror signs over a sweep of levels, then random draws under all
    six policy archives, at 128x32x32, 4x17x23 and 8x224x224) and the CIFAR
    stack kernel (``k5_vs_plain``: every crop offset and flip bit, cutout
    lengths 0 and 16 centred at corners, edges and random places, at
-   640x32x32 and 4x17x23, and the eval stack); and every sampler's draws on
-   the card against the CPU from the same keys;
+   640x32x32 and 4x17x23, and the eval stack) and the ImageNet stack kernel
+   (``k6_vs_plain``: the six ColorJitter orders x both flip bits x cutout 0
+   and 16, uint8 and float32 inputs, at 128x224x224 and 4x17x23); and every
+   sampler's draws on the card against the CPU from the same keys;
 3. the serving path: two ``serve_cli`` processes on the card (the shipped
    ``fa_reduced_cifar10`` archive at 32x32, grouped dispatch; one ImageNet
    sub-policy at 224x224, shapes 1,8, exact dispatch) answer npz, raw and
@@ -42,6 +45,25 @@ phases, each printing one JSON line:
    (640x32x32) against their bounds and plain versions; a
    ``torch.profiler`` trace of one ``eval_tta`` over the fold's first 16
    batches (device time by stage and the device's idle share).
+
+6. the training path: ``train_main_path`` drives ResNet-50 from
+   ``confs/resnet50.yaml`` (:data:`RESNET50`: 1000 classes, batch 128 at
+   224x224, lr 0.05 with the ``resnet`` schedule over 270 epochs of the real
+   run's 10,009 steps, warmup 5, nesterov, decay 1e-4, clip 0, the
+   498-sub-policy ``fa_resnet50_rimagenet`` archive) through
+   ``make_train_step`` with the ImageNet stack (K1, then K6) as its augment
+   function, on seeded uint8 batches: 10 exact steps and one grouped step
+   with finite losses and ``num_op`` K1 and 2 K6 launches per step; then one
+   step with both kernels against one with both plain versions from the
+   same state under deterministic cuDNN (augmented batch, loss and every
+   tensor of the model bitwise).  ``train_flagship`` runs ``train_and_eval``
+   with the flagship WRN-40-2 config on ``synthetic`` (2 epochs of 4 steps,
+   evaluation every epoch) and checks its result dict and launch counts;
+7. ``train_times``: the ResNet-50 step's median time and images/s, a
+   profiler trace split by stage (sampler, K1, K6, model forward and
+   backward with the convolutions' TFLOP/s, optimizer) with the device's
+   idle share, K1 and K6 at 128x224x224 against their bounds and plain
+   versions, and the peak device memory.
 
 The last two lines are the ``kernels`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with
@@ -77,7 +99,19 @@ SHAPES = ((128, 32, 32), (4, 17, 23), (8, 224, 224))
 #: 0.4 x 50,000 = 20,000 images.
 FLAGSHIP = {"model": "wresnet40_2", "dataset": "cifar10", "batch": 128, "cutout": 16,
             "precision": "f32", "num_policy": 5, "num_op": 2, "cv_ratio": 0.4,
-            "aug_groups": 8, "fold_images": 20_000}
+            "aug_groups": 8, "fold_images": 20_000, "aug": "fa_reduced_cifar10",
+            "epoch": 200, "lr": 0.1,
+            "lr_schedule": {"type": "cosine", "warmup": {"multiplier": 1, "epoch": 5}},
+            "optimizer": {"type": "sgd", "nesterov": True, "decay": 0.0002, "ema": 0}}
+#: confs/resnet50.yaml (the ImageNet flagship of the reference) as constants,
+#: held against the YAML by tests/test_torch_train.py; the smoke trains it for
+#: a few steps with the real run's steps per epoch (ImageNet-1k's train set)
+RESNET50 = {"model": {"type": "resnet50"}, "dataset": "imagenet", "aug": "fa_reduced_imagenet",
+            "cutout": 0, "batch": 128, "epoch": 270, "lr": 0.05,
+            "lr_schedule": {"type": "resnet", "warmup": {"multiplier": 1, "epoch": 5}},
+            "optimizer": {"type": "sgd", "nesterov": True, "decay": 0.0001, "clip": 0,
+                          "ema": 0}}
+IMAGENET_TRAIN_IMAGES = 1_281_167
 
 
 def emit(obj) -> None:
@@ -114,24 +148,48 @@ def kernel_device_us(prof) -> dict[str, float]:
     return out
 
 
-def device_us(prof, name_part: str) -> float:
+def device_us(prof, name_part) -> float:
     """Summed device (CUPTI) time in µs of the profiled kernels whose name
-    contains `name_part`."""
-    return sum(device_us_of(e) for e in prof.key_averages() if name_part in e.key)
+    contains `name_part` (a string, or a tuple of them)."""
+    parts = (name_part,) if isinstance(name_part, str) else tuple(name_part)
+    return sum(device_us_of(e) for e in prof.key_averages() if any(p in e.key for p in parts))
 
 
-def kernel_device_ms(fn, iters: int = 20, kernel: str = "augment_slot_kernel") -> float | None:
-    """Device time of the kernels named `kernel` per call of `fn`, from the
-    profiler: the kernel's own execution, without the host's launch gaps."""
+def kernel_counts(prof, parts) -> dict[str, int]:
+    """Kernel executions in a profile for each name part."""
+    from torch.autograd import DeviceType
+
+    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    return {p: sum(e.count for e in rows if p in e.key) for p in parts}
+
+
+def kernel_device_ms(fn, iters: int = 20, kernel="augment_slot_kernel",
+                     per_call: int = 1) -> float | None:
+    """Device time of the kernels named `kernel` (a name part, or a tuple of
+    them) per call of `fn`, from the profiler: the kernels' own execution,
+    without the host's launch gaps.  The profiler traces a warm-up window
+    of `iters` calls that it discards, then the measured one.  Each named
+    kernel must appear there `per_call` times for each call; where one does
+    not (the profiler can drop a row), None, and the caller reports the
+    CUDA-event time of the launches instead."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    parts = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    for p, seen in kernel_counts(prof, parts).items():
+        if seen != iters * per_call:
+            print(f"chip_smoke: profiler shows {seen} launches of {p}, expected "
+                  f"{iters * per_call}; reporting CUDA-event times", file=sys.stderr, flush=True)
+            return None
     us = device_us(prof, kernel)
     return us / 1e3 / iters if us else None
 
@@ -591,7 +649,8 @@ def phase_times(dev, card: str) -> list[dict]:
                                           policy.shape[1], img, img)
         rec = aug.slot_records(policy, sub, draws, img, img)
         kernel_event_ms = cuda_ms(lambda: _kernels.augment(x, rec))
-        kernel_ms = kernel_device_ms(lambda: _kernels.augment(x, rec))
+        kernel_ms = kernel_device_ms(lambda: _kernels.augment(x, rec),
+                                     per_call=int(policy.shape[1]))
         wrapper_ms = cuda_ms(lambda: aug.apply_subpolicy_draws(x, policy, sub, draws))
         plain_ms = cuda_ms(lambda: aug.apply_subpolicy_draws_plain(x, policy, sub, draws),
                            iters=5, warmup=1)
@@ -762,7 +821,7 @@ def phase_tta_main_path(dev, st: dict) -> dict:
     counts = _kernels.launch_counts()
 
     calls = 4 * n_batches + 1
-    want = {"augment_slot": c["num_op"] * calls, "cifar_stack": calls}
+    want = {"augment_slot": c["num_op"] * calls, "cifar_stack": calls, "imagenet_stack": 0}
     if counts != want:
         fail(f"TTA launch counts {counts} != {want} ({calls} step calls)")
     for tag, r in [("exact", exact), ("baseline", baseline), ("grouped", grouped)] + \
@@ -813,11 +872,11 @@ def phase_tta_main_path(dev, st: dict) -> dict:
     return out
 
 
-def _stage_device_us(prof) -> dict:
-    """Device time (µs) under each TTA stage's profiler range."""
+def _stage_device_us(prof, stages=TTA_STAGES) -> dict:
+    """Device time (µs) under each stage's profiler range."""
     from torch.autograd import DeviceType
 
-    totals = dict.fromkeys(TTA_STAGES, 0.0)
+    totals = dict.fromkeys(stages, 0.0)
     for e in prof.events():
         if e.name in totals and e.device_type == DeviceType.CPU:
             totals[e.name] += getattr(e, "device_time_total", 0.0) or 0.0
@@ -883,7 +942,8 @@ def phase_tta_times(dev, st: dict, card: str) -> dict:
     y = _kernels.augment(x, rec)
     elems = x.numel()
     k1 = {"kernel": "augment_slot", "shape": list(x.shape), "num_op": int(pol.shape[1]),
-          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(x, rec)),
+          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(x, rec),
+                                        per_call=int(pol.shape[1])),
           "kernel_event_ms": cuda_ms(lambda: _kernels.augment(x, rec)),
           "plain_ms": cuda_ms(lambda: aug.apply_subpolicy_draws_plain(x, pol, d.sub_idx, d.policy),
                               iters=5, warmup=1),
@@ -952,6 +1012,410 @@ def phase_tta_times(dev, st: dict, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ train path
+
+TRAIN_STAGES = ("train.sampler", "train.augment", "train.model", "train.optimizer")
+TRAIN_STEPS = 10
+TIMED_STEPS = 20
+TRACE_STEPS = 3
+K6_KERNELS = ("grey_sum_kernel", "imagenet_stack_kernel")
+K6_SHAPES = ((128, 224, 224), (4, 17, 23))
+
+
+def _imagenet_k6_draws(g, b, h, w, dev):
+    """Draws for ``b`` images: every (jitter order, flip) pair in turn,
+    cutout centres at the corners, then at random."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
+
+    d = PhiloxDraws().imagenet_draws(torch.tensor([11, int(g.integers(0, 2**31))]), batch=b,
+                                     policy_shape=None, height=h, width=w, dispatch="exact",
+                                     groups=8, device=dev)
+    i = torch.arange(b, dtype=torch.int32, device=dev)
+    d.order, d.flip = (i % 6).contiguous(), ((i // 6) % 2).contiguous()
+    corners = torch.tensor([[0, 0], [0, w - 1], [h - 1, 0], [h - 1, w - 1]], dtype=torch.int32,
+                           device=dev)
+    d.centre[: min(4, b)] = corners[: min(4, b)]
+    return d
+
+
+def phase_k6_vs_plain(dev) -> dict:
+    """The ImageNet stack kernel against its plain version on the card:
+    the six jitter orders x both flip bits x cutout 0 and 16, uint8 and
+    float32 inputs, at 128x224x224 and 4x17x23; and the stack's draws on the
+    card against the CPU."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import preprocess_imagenet as pi
+    from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
+
+    g = np.random.default_rng(6)
+    report = {"phase": "k6_vs_plain", "tolerance": "bitwise: 0 differing elements",
+              "cases": {}, "differing_elements": 0, "max_abs_err": 0.0}
+    for b, h, w in K6_SHAPES:
+        u8 = torch.from_numpy(g.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(dev)
+        for length in (0, 16):
+            d = _imagenet_k6_draws(g, b, h, w, dev)
+            for name, imgs in (("uint8", u8), ("float32", u8.to(torch.float32))):
+                got = pi.imagenet_stack(imgs, d, cutout_length=length)
+                want = pi.imagenet_stack_plain(imgs, d, cutout_length=length)
+                torch.cuda.synchronize()
+                if got.shape != (b, 3, h, w) or not got.is_contiguous(
+                        memory_format=torch.channels_last) or not bool(torch.isfinite(got).all()):
+                    fail(f"k6 {b}x{h}x{w}: shape, layout or finiteness is wrong")
+                diff = (got - want).abs()
+                tag = f"{b}x{h}x{w}_cutout{length}_{name}"
+                report["cases"][tag] = int((diff > 0).sum())
+                report["differing_elements"] += report["cases"][tag]
+                report["max_abs_err"] = max(report["max_abs_err"], float(diff.max()))
+    src, same = PhiloxDraws(), []
+    for dispatch in ("exact", "grouped"):
+        d = {where: src.imagenet_draws(torch.tensor([5, 1]), batch=128, policy_shape=(498, 2),
+                                       height=224, width=224, dispatch=dispatch, groups=8,
+                                       device=device)
+             for where, device in (("card", dev), ("cpu", torch.device("cpu")))}
+        same += [torch.equal(getattr(d["card"], f).cpu(), getattr(d["cpu"], f))
+                 for f in ("sub_idx", "policy", "flip", "order", "factors", "alpha", "centre")]
+    report["draws_bitwise_cuda_vs_cpu"] = all(same)
+    emit(report)
+    if report["differing_elements"] or not report["draws_bitwise_cuda_vs_cpu"]:
+        fail("the ImageNet stack kernel and its plain version, or the draws, disagree")
+    return report
+
+
+def resnet50_setup(dev, n_batches: int = 4) -> dict:
+    """ResNet-50 (1000 classes) with seeded weights, the resnet50.yaml
+    optimizer and schedule over the real run's steps per epoch, the
+    fa_resnet50_rimagenet policy, and seeded uint8 224x224 batches on the
+    card (standing in for host-cropped images)."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.models import get_model, input_image_size, num_class
+    from fast_autoaugment_tpu_torch.ops.optim import build_optimizer
+    from fast_autoaugment_tpu_torch.ops.schedules import build_schedule
+    from fast_autoaugment_tpu_torch.train import steps
+    from fast_autoaugment_tpu_torch.train.trainer import resolve_policy_tensor
+
+    c = RESNET50
+    classes = num_class(c["dataset"])
+    image = input_image_size(c["dataset"], c["model"]["type"])
+    model = get_model(dict(c["model"], dataset=c["dataset"]), classes, device=dev, seed=0)
+    steps_per_epoch = IMAGENET_TRAIN_IMAGES // c["batch"]
+    optimizer = build_optimizer(c["optimizer"], build_schedule(c, steps_per_epoch))
+    state = steps.create_train_state(model, optimizer, use_ema=False)
+    policy = torch.from_numpy(resolve_policy_tensor(c["aug"])).to(dev)
+    g = np.random.default_rng(8)
+    batches = [(torch.from_numpy(g.integers(0, 256, (c["batch"], image, image, 3),
+                                            dtype=np.uint8)).to(dev),
+                torch.from_numpy(g.integers(0, classes, (c["batch"],))).to(dev))
+               for _ in range(n_batches)]
+    make = lambda dispatch, fn=None: steps.make_train_step(  # noqa: E731
+        model, optimizer, num_classes=classes, cutout_length=c["cutout"],
+        augment_fn=fn or steps.imagenet_augment_fn(c["cutout"], True, dispatch, 8))
+    return {"model": model, "optimizer": optimizer, "state": state, "policy": policy,
+            "batches": batches, "classes": classes, "image": image, "make": make,
+            "steps_per_epoch": steps_per_epoch}
+
+
+def _plain_imagenet_augment(cutout):
+    """The ImageNet train stack with the plain versions of K1 and K6."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+    from fast_autoaugment_tpu_torch.ops import preprocess_imagenet as pi
+
+    def fn(images, policy, key, src):
+        b, h, w = (int(v) for v in images.shape[:3])
+        d = src.imagenet_draws(key, batch=b, policy_shape=tuple(policy.shape[:2]), height=h,
+                               width=w, dispatch="exact", groups=8, device=images.device)
+        x = aug.apply_subpolicy_draws_plain(images.to(torch.float32), policy, d.sub_idx,
+                                            d.policy)
+        return pi.imagenet_stack_plain(x, d, cutout_length=cutout)
+    return fn
+
+
+class _CaptureAugment:
+    def __init__(self, fn):
+        self.fn, self.out = fn, []
+
+    def __call__(self, images, policy, key, src):
+        x = self.fn(images, policy, key, src)
+        self.out.append(x.detach().clone())
+        return x
+
+
+def _copy_state(state):
+    """A separate copy of a train state: its own model and optimizer state."""
+    import copy
+
+    from fast_autoaugment_tpu_torch.train import steps
+
+    model = copy.deepcopy(state.model)
+    opt_state = copy.deepcopy(state.opt_state)
+    return steps.TrainState(step=state.step, model=model, opt_state=opt_state, ema=None)
+
+
+def _batchnorm_rule_error(dev) -> float:
+    """The port's train-mode BatchNorm on the card, on a seeded [128, 64,
+    56, 56] channels_last batch (ResNet-50's first stage) from running
+    statistics (0, 1): the largest relative error of its running mean and
+    variance against the flax rule ``0.9 * running + 0.1 * batch``, with
+    the biased batch variance taken in float64."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.models.layers import BatchNorm
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = (torch.randn(128, 64, 56, 56, generator=g) * 1.7 + 0.4).to(dev)
+    x = x.contiguous(memory_format=torch.channels_last)
+    bn = BatchNorm(64).to(dev).train()
+    bn(x)
+    var, mean = torch.var_mean(x.double(), dim=(0, 2, 3), unbiased=False)
+    errs = [((bn.running_mean.double() - 0.1 * mean).abs() / (0.1 * mean).abs()).max(),
+            ((bn.running_var.double() - (0.9 + 0.1 * var)).abs() / (0.9 + 0.1 * var)).max()]
+    return float(max(errs))
+
+
+def phase_train_main_path(dev, st: dict) -> dict:
+    """ResNet-50 train steps through make_train_step with the ImageNet stack
+    (K1, then K6) as its augment_fn, wired as train_and_eval wires it; the
+    launch counts set to 0 just before and read just after; then one step
+    with both kernels against one with both plain versions."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.train import steps
+
+    c = RESNET50
+    num_op = int(st["policy"].shape[1])
+    step = st["make"]("exact")
+    step_g = st["make"]("grouped")
+    key = torch.tensor([0, 0], device=dev)
+    losses = []
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        x, y = st["batches"][i % len(st["batches"])]
+        st["state"], m = step(st["state"], x, y, st["policy"], key)
+        losses.append(m["loss"] / m["num"])
+    x, y = st["batches"][0]
+    st["state"], mg = step_g(st["state"], x, y, st["policy"], key)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    losses = [float(v) for v in losses]
+    calls = TRAIN_STEPS + 1
+    want = {"augment_slot": num_op * calls, "cifar_stack": 0, "imagenet_stack": 2 * calls}
+    if counts != want:
+        fail(f"train launch counts {counts} != {want} ({calls} steps)")
+    grouped_loss = float(mg["loss"] / mg["num"])
+    if not all(np.isfinite(losses + [grouped_loss])):
+        fail(f"a train step's loss is not finite: {losses} {grouped_loss}")
+
+    # one step with both kernels against one with both plain versions, from
+    # the same state, batch and key, under deterministic cuDNN
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {}
+        for name, fn in (("kernel", steps.imagenet_augment_fn(c["cutout"], True, "exact", 8)),
+                         ("plain", _plain_imagenet_augment(c["cutout"]))):
+            state = _copy_state(st["state"])
+            cap = _CaptureAugment(fn)
+            make = steps.make_train_step(state.model, st["optimizer"], num_classes=st["classes"],
+                                         cutout_length=c["cutout"], augment_fn=cap)
+            state, m = make(state, x, y, st["policy"], key)
+            torch.cuda.synchronize()
+            runs[name] = (cap.out[0], float(m["loss"]), state.model.state_dict())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    (xk, lk, sk), (xp, lp, sp) = runs["kernel"], runs["plain"]
+    batch_diff = int((xk != xp).sum())
+    bn_err = _batchnorm_rule_error(dev)
+    tensors_diff = sorted(k for k in sk if not torch.equal(sk[k], sp[k]))
+    out = {"phase": "train_main_path", "model": c["model"]["type"], "dataset": c["dataset"],
+           "batch": c["batch"], "image": st["image"], "classes": st["classes"],
+           "policy": c["aug"], "num_sub": int(st["policy"].shape[0]), "num_op": num_op,
+           "steps_per_epoch": st["steps_per_epoch"], "steps": TRAIN_STEPS,
+           "grouped_steps": 1, "losses": losses, "grouped_loss": grouped_loss,
+           "main_path_wall_s": wall, "launches": counts, "expected_launches": want,
+           "launches_per_step": {"augment_slot": num_op, "imagenet_stack": 2},
+           "plain_vs_kernel": {"augmented_elements_differing": batch_diff,
+                               "augmented_max_abs_err": float((xk - xp).abs().max()),
+                               "loss_kernel": lk, "loss_plain": lp,
+                               "state_tensors": len(sk), "state_tensors_differing": tensors_diff},
+           "batchnorm_running_stats_rel_err": bn_err, "batchnorm_running_stats_tol": 1e-5}
+    emit(out)
+    if batch_diff or lk != lp or tensors_diff:
+        fail("the train step with the kernels differs from the step with the plain versions")
+    if bn_err > 1e-5:
+        fail(f"BatchNorm's running statistics on the card miss the flax rule by {bn_err}")
+    return out
+
+
+def phase_train_flagship(dev) -> dict:
+    """train_and_eval with the flagship WRN-40-2 config on ``synthetic``
+    (512 train and 256 test images of 32x32): 2 epochs of 4 steps, evaluation
+    every epoch, launch counts set to 0 just before and read just after."""
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.train.trainer import train_and_eval
+
+    c = FLAGSHIP
+    conf = {"model": {"type": c["model"], "precision": c["precision"]}, "dataset": "synthetic",
+            "aug": c["aug"], "cutout": c["cutout"], "batch": c["batch"], "epoch": 2,
+            "lr": c["lr"], "lr_schedule": c["lr_schedule"], "optimizer": c["optimizer"]}
+    _kernels.reset_launch_counts()
+    result = train_and_eval(conf, "", evaluation_interval=1, device=dev)
+    counts = _kernels.launch_counts()
+    steps, evals = 2 * (512 // c["batch"]), 2 * -(-256 // c["batch"])
+    want = {"augment_slot": c["num_op"] * steps, "cifar_stack": steps + evals,
+            "imagenet_stack": 0}
+    keys = {"epoch", "loss_train", "top1_train", "top5_train", "loss_test", "top1_test",
+            "top5_test", "num_test", "best_valid_top1", "best_test_top1", "elapsed_sec"}
+    out = {"phase": "train_flagship", "conf": conf, "result": result, "launches": counts,
+           "expected_launches": want, "train_steps": steps, "eval_batches": evals}
+    emit(out)
+    if set(result) != keys or not all(np.isfinite(list(result.values()))):
+        fail(f"train_and_eval result is malformed: {sorted(result)}")
+    if counts != want or result["epoch"] != 2 or result["num_test"] != 256:
+        fail(f"train_and_eval launch counts {counts} != {want}, or epochs/counts wrong")
+    return out
+
+
+def phase_train_times(dev, st: dict, card: str) -> dict:
+    """The ResNet-50 step: median ms per step and images/s, a profiler
+    trace split by stage, K1 and K6 at 128x224x224 against their bounds,
+    and the peak device memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+    from fast_autoaugment_tpu_torch.ops import preprocess_imagenet as pi
+    from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
+
+    c = RESNET50
+    b, image = c["batch"], st["image"]
+    step = st["make"]("exact")
+    key = torch.tensor([1, 0], device=dev)
+    for i in range(3):
+        st["state"], _ = step(st["state"], *st["batches"][i % 4], st["policy"], key)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        st["state"], _ = step(st["state"], *st["batches"][i % 4], st["policy"], key)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = float(np.median(times)) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(TRACE_STEPS):
+            st["state"], _ = step(st["state"], *st["batches"][i % 4], st["policy"], key)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    # kernel rows only: the stage ranges show up as device rows of their own
+    by_name = {k: v for k, v in kernel_device_us(prof).items() if not k.startswith("train.")}
+    busy_us = sum(by_name.values())
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in by_name and device_us_of(e) > 0)
+    # K1 and K6 run a known number of times: the profile's rows of them
+    # show whether it lost kernel records (then busy time is a floor)
+    rows_seen = kernel_counts(prof, ("augment_slot_kernel",) + K6_KERNELS)
+    rows_want = {"augment_slot_kernel": int(st["policy"].shape[1]) * TRACE_STEPS,
+                 K6_KERNELS[0]: TRACE_STEPS, K6_KERNELS[1]: TRACE_STEPS}
+    # a range's device time counts the PyTorch operators launched inside it:
+    # not the kernels launched through ctypes (K1, K6), and not the backward,
+    # which autograd runs on a thread of its own; so the model's share is
+    # what remains of the busy time
+    stages = _stage_device_us(prof, TRAIN_STAGES)
+    k1_us, k6_us = device_us(prof, "augment_slot_kernel"), device_us(prof, K6_KERNELS)
+    conv_us = sum(v for k, v in by_name.items()
+                  if "conv" in k.lower() or "fprop" in k or "dgrad" in k or "wgrad" in k)
+    flop = 3 * model_flops(st["model"], dev, size=image) * b  # forward + 2 backward
+    n = TRACE_STEPS
+    split = {"sampler": stages["train.sampler"], "augment_kernel_K1": k1_us,
+             "imagenet_stack_kernel_K6": k6_us, "augment_other": stages["train.augment"],
+             "optimizer_and_metrics": stages["train.optimizer"]}
+    split["model_forward_backward"] = busy_us - sum(split.values())
+    split = {k: v / 1e3 / n for k, v in split.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+
+    # K1 and K6 at the step's shape, with the step's draws
+    x, _ = st["batches"][0]
+    pol = st["policy"]
+    d = PhiloxDraws().imagenet_draws(torch.tensor([0, 5], device=dev), batch=b,
+                                     policy_shape=tuple(pol.shape[:2]), height=image,
+                                     width=image, dispatch="exact", groups=8, device=dev)
+    xf = x.to(torch.float32).contiguous()
+    rec = aug.slot_records(pol, d.sub_idx, d.policy, image, image)
+    y1 = _kernels.augment(xf, rec)
+    elems = xf.numel()
+    k1 = {"kernel": "augment_slot", "shape": list(xf.shape), "num_op": int(pol.shape[1]),
+          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(xf, rec),
+                                        per_call=int(pol.shape[1])),
+          "kernel_event_ms": cuda_ms(lambda: _kernels.augment(xf, rec)),
+          "plain_ms": cuda_ms(lambda: aug.apply_subpolicy_draws_plain(xf, pol, d.sub_idx,
+                                                                     d.policy),
+                              iters=3, warmup=1),
+          "bytes": 2 * elems * 4 + rec.numel() * 4}  # images in + out once, records in
+    k6 = {}
+    ints = torch.stack([d.flip, d.order, d.centre[:, 0], d.centre[:, 1]], dim=-1).contiguous()
+    floats = torch.cat([d.factors, pi.lighting_rgb(d.alpha)], dim=-1).contiguous()
+    mean, rstd = (v.tolist() for v in pi.norm_constants(pi.IMAGENET_MEAN, pi.IMAGENET_STD))
+    for name, inp in (("float32", y1), ("uint8", x)):
+        raw = lambda: _kernels.imagenet_stack(  # noqa: E731  (the two launches alone)
+            inp, ints, floats, cutout_length=0, scale=1 / 255, mean=mean, rstd=rstd)
+        k6[name] = {
+            "kernel": "imagenet_stack", "input": name, "shape": list(inp.shape),
+            "kernel_ms": kernel_device_ms(lambda: pi.imagenet_stack(inp, d), kernel=K6_KERNELS),
+            "grey_sum_kernel_ms": kernel_device_ms(raw, iters=50, kernel=K6_KERNELS[0]),
+            "stack_kernel_ms": kernel_device_ms(raw, iters=50, kernel=K6_KERNELS[1]),
+            "kernel_event_ms": cuda_ms(raw, iters=50),
+            "wrapper_event_ms": cuda_ms(lambda: pi.imagenet_stack(inp, d)),
+            "plain_ms": cuda_ms(lambda: pi.imagenet_stack_plain(inp, d), iters=5, warmup=1),
+            "bytes": elems * inp.element_size() + elems * 4 + b * (4 * 4 + 6 * 4),
+            "ops": 20 * elems}
+    for k in (k1, *k6.values()):
+        bytes_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = k.get("ops", 0) / FP32_OPS_PER_S * 1e3
+        k.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
+    out = {"phase": "train_times", "card": card, "model": c["model"]["type"], "batch": b,
+           "image": image, "median_step_ms": step_ms, "step_ms": [t * 1e3 for t in times],
+           "images_per_s": b / step_ms * 1e3, "max_memory_allocated_bytes": peak,
+           "k1": k1, "k6": k6,
+           "trace": {"steps": n, "wall_ms_per_step": wall_s * 1e3 / n,
+                     "device_busy_ms_per_step": busy_us / 1e3 / n,
+                     "known_kernel_rows": rows_seen, "known_kernel_rows_expected": rows_want,
+                     "kernel_launches_per_step": launches / n,
+                     "device_idle_share": 1 - busy_us / 1e6 / wall_s if busy_us else None,
+                     "device_idle_share_at_step_wall": (1 - busy_us / 1e3 / n / step_ms)
+                     if busy_us else None,
+                     "device_ms_per_step_by_stage": split,
+                     "convolution_kernels_ms_per_step": conv_us / 1e3 / n,
+                     "model_tflop_per_step": flop / 1e12,
+                     "model_flop_bound_ms": flop / FP32_OPS_PER_S * 1e3,
+                     "convolution_tflop_per_s": flop / (conv_us / n * 1e-6) / 1e12
+                     if conv_us else None,
+                     "stage_ranges_found": any(v > 0 for v in stages.values()),
+                     "top_device_ms_per_step": {k[:90]: v / 1e3 / n for k, v in top}},
+           "timing": "median_step_ms: host clock around each of 20 steps after 3 warm-up "
+                     "steps, synchronized; kernel_ms: device time from torch.profiler over 20 "
+                     "calls (K6's per-kernel times over 50 calls of the two launches alone); "
+                     "*_event_ms and plain_ms: CUDA events around back-to-back calls "
+                     "(K6's kernel_event_ms: the two launches alone, 50 calls); "
+                     "the trace runs with the profiler on (host time inflated); "
+                     "convolution TFLOP/s counts 3x the forward's convolution and dense "
+                     "FLOPs against the convolution kernels' device time"}
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -979,6 +1443,7 @@ def main() -> int:
           "nvcc_flags": list(_kernels.NVCC_FLAGS)})
     check = phase_kernel_vs_plain(dev)
     check5 = phase_k5_vs_plain(dev)
+    check6 = phase_k6_vs_plain(dev)
     with tempfile.TemporaryDirectory() as workdir:
         main_path = phase_main_path(dev, workdir)
     st = tta_setup(dev)
@@ -986,16 +1451,27 @@ def main() -> int:
     rows = phase_times(dev, card)
     phase_trace(dev, card)
     tta_t = phase_tta_times(dev, st, card)
+    del st
+    torch.cuda.empty_cache()
+    rn = resnet50_setup(dev)
+    train_path = phase_train_main_path(dev, rn)
+    flagship = phase_train_flagship(dev)
+    train_t = phase_train_times(dev, rn, card)
     at = next(r for r in rows if r["batch"] == 128)  # the largest serving shape
     k1, k5 = tta_t["k1"], tta_t["k5"]
+    k1_train, k6 = train_t["k1"], train_t["k6"]["float32"]
+    timing_keys = ("shape", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms", "bound_by")
     print(card, flush=True)
     emit({"kernels": [{
         "name": "augment_slot", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/augment.cu",
         "replaces": "fast_autoaugment_tpu/ops/augment.py:409",
-        "launches": main_path["launches"] + tta_path["launches"]["augment_slot"],
+        "launches": main_path["launches"] + tta_path["launches"]["augment_slot"]
+        + train_path["launches"]["augment_slot"] + flagship["launches"]["augment_slot"],
         "launches_by_path": {"serve": main_path["launches"],
-                             "tta": tta_path["launches"]["augment_slot"]},
+                             "tta": tta_path["launches"]["augment_slot"],
+                             "train_resnet50": train_path["launches"]["augment_slot"],
+                             "train_and_eval_wrn40_2": flagship["launches"]["augment_slot"]},
         "max_abs_err": check["max_abs_err"],
         "differing_elements": check["differing_elements"],
         "ms": at["kernel_ms"] if at["kernel_ms"] is not None else at["kernel_event_ms"],
@@ -1003,18 +1479,35 @@ def main() -> int:
         "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"], "library_ms": None,
         "shape": [at["batch"], at["image"], at["image"], 3],
-        "at_tta_shape": {k: k1[k] for k in ("shape", "kernel_ms", "kernel_event_ms",
-                                            "plain_ms", "bound_ms", "bound_by")}}, {
+        "at_tta_shape": {k: k1[k] for k in timing_keys},
+        "at_train_shape": {k: k1_train[k] for k in timing_keys}}, {
         "name": "cifar_stack", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/preprocess.cu",
         "replaces": "fast_autoaugment_tpu/ops/preprocess.py:109",
-        "launches": tta_path["launches"]["cifar_stack"],
+        "launches": tta_path["launches"]["cifar_stack"] + flagship["launches"]["cifar_stack"],
+        "launches_by_path": {"tta": tta_path["launches"]["cifar_stack"],
+                             "train_and_eval_wrn40_2": flagship["launches"]["cifar_stack"]},
+        "train_and_eval_launches_are": f"{flagship['train_steps']} train steps + "
+                                       f"{flagship['eval_batches']} eval batches",
         "max_abs_err": check5["max_abs_err"],
         "differing_elements": check5["differing_elements"],
         "ms": k5["kernel_ms"] if k5["kernel_ms"] is not None else k5["kernel_event_ms"],
         "ms_source": "device" if k5["kernel_ms"] is not None else "events",
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
-        "library_ms": None, "shape": k5["shape"]}]})
+        "library_ms": None, "shape": k5["shape"]}, {
+        "name": "imagenet_stack", "route": "cuda",
+        "source": "fast_autoaugment_tpu_torch/csrc/imagenet.cu",
+        "replaces": "fast_autoaugment_tpu/ops/preprocess_imagenet.py:191",
+        "launches": train_path["launches"]["imagenet_stack"],
+        "launches_by_path": {"train_resnet50": train_path["launches"]["imagenet_stack"]},
+        "launches_per_call": 2,
+        "max_abs_err": check6["max_abs_err"],
+        "differing_elements": check6["differing_elements"],
+        "ms": k6["kernel_ms"] if k6["kernel_ms"] is not None else k6["kernel_event_ms"],
+        "ms_source": "device" if k6["kernel_ms"] is not None else "events",
+        "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+        "library_ms": None, "shape": k6["shape"], "input": k6["input"],
+        "at_uint8_input": {k: train_t["k6"]["uint8"][k] for k in timing_keys}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

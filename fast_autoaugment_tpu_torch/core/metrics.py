@@ -1,6 +1,7 @@
 """Losses and metric accumulation (``fast_autoaugment_tpu/core/metrics.py``).
 
-- softmax cross entropy with integer labels;
+- softmax cross entropy with integer labels, and its label-smoothed form
+  (reference ``metrics.py:26-46``);
 - top-k correctness and accuracy (reference ``metrics.py:10-23``);
 - :class:`Accumulator` (reference ``metrics.py:49-85``): count-weighted
   sums normalized by the total sample count.  Values may be Python floats
@@ -8,14 +9,16 @@
   ``normalize``/``__getitem__`` time, so the device is never stalled
   mid-loop.
 
-Label smoothing and mixup belong to training and are not ported yet.
+Mixup (``core/metrics.py:58``, ``:73``) is not ported yet: no ported
+configuration uses it, and it needs a Beta sampler (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["cross_entropy", "top_k_correct", "accuracy", "Accumulator"]
+__all__ = ["cross_entropy", "smooth_cross_entropy", "top_k_correct", "accuracy",
+           "Accumulator"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -23,6 +26,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Plain softmax cross entropy with integer labels."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.to(torch.int64)[:, None])[:, 0]
+    return nll.mean() if reduce_mean else nll
+
+
+def smooth_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, epsilon: float = 0.0,
+                         reduce_mean: bool = True) -> torch.Tensor:
+    """Label-smoothed cross entropy (``CrossEntropyLabelSmooth``, reference
+    ``metrics.py:26-46``): targets ``(1 - eps) * onehot + eps / classes``;
+    plain cross entropy when ``epsilon`` is 0."""
+    if not epsilon:
+        return cross_entropy(logits, labels, reduce_mean)
+    num_classes = logits.shape[-1]
+    logp = torch.log_softmax(logits, dim=-1)
+    onehot = torch.nn.functional.one_hot(labels.to(torch.int64), num_classes).to(logits.dtype)
+    targets = (1.0 - epsilon) * onehot + epsilon / num_classes
+    nll = -(targets * logp).sum(dim=-1)
     return nll.mean() if reduce_mean else nll
 
 

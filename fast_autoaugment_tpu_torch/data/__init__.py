@@ -1,1 +1,1 @@
-"""In-memory datasets and the eval batching of the search's held-out folds."""
+"""In-memory datasets, the CV split, and train and eval batching."""

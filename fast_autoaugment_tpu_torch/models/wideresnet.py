@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fast_autoaugment_tpu_torch.models.layers import BatchNorm, global_avg_pool
+from fast_autoaugment_tpu_torch.models.layers import BatchNorm, at_least_float32, global_avg_pool
 
 __all__ = ["WideBasic", "WideResNet"]
 
@@ -76,4 +76,4 @@ class WideResNet(nn.Module):
         out = self.conv1(x)
         out = self.layer3(self.layer2(self.layer1(out)))
         out = global_avg_pool(torch.relu(self.bn1(out)))
-        return self.linear(out.to(torch.float32))
+        return self.linear(at_least_float32(out))

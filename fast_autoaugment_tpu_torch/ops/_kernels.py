@@ -6,7 +6,10 @@ shared library of its own with a plain C interface and bound with
 
 - ``augment.cu``: the policy augmentation (``augment_slot``);
 - ``preprocess.cu``: the CIFAR crop/flip/normalize/cutout stack
-  (``cifar_stack``).
+  (``cifar_stack``);
+- ``imagenet.cu``: the ImageNet flip/ColorJitter/lighting/normalize/cutout
+  stack (``imagenet_stack``, two launches: a grey-sum pass and the
+  per-pixel pass).
 
 The build happens on first use, into ``fast_autoaugment_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the source and the flags, so
@@ -29,11 +32,12 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "load_libraries", "augment",
-           "cifar_stack", "launch_counts", "reset_launch_counts"]
+           "cifar_stack", "imagenet_stack", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"augment": _PKG / "csrc" / "augment.cu",
-           "preprocess": _PKG / "csrc" / "preprocess.cu"}
+           "preprocess": _PKG / "csrc" / "preprocess.cu",
+           "imagenet": _PKG / "csrc" / "imagenet.cu"}
 BUILD_DIR = _PKG / "_build"
 #: --fmad=false: the kernels are held bitwise against references that
 #: round every product and sum on its own, and a contracted multiply-add
@@ -42,16 +46,19 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: (C function, argument types) of each library
+#: {C function: argument types} of each library; each returns an int
 _SIGNATURES = {
-    "augment": ("faa_augment_slot", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "preprocess": ("faa_cifar_stack", [_P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                       _F, _F, _F, _F, _F, _F, _I, _P]),
+    "augment": {"faa_augment_slot": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "preprocess": {"faa_cifar_stack": [_P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                       _F, _F, _F, _F, _F, _F, _I, _P]},
+    "imagenet": {"faa_imagenet_stack": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                        _F, _F, _F, _F, _F, _F, _I, _P],
+                 "faa_imagenet_tiles": [_I, _I]},
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_launches = {"augment_slot": 0, "cifar_stack": 0}
+_launches = {"augment_slot": 0, "cifar_stack": 0, "imagenet_stack": 0}
 #: wall seconds of the last build of all missing libraries (0.0 when every
 #: library was already built)
 build_seconds = 0.0
@@ -116,10 +123,10 @@ def load_libraries() -> dict[str, ctypes.CDLL]:
             _build(missing)
         for name, path in paths.items():
             lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.faa_error_string.argtypes = [ctypes.c_int]
             lib.faa_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -219,4 +226,52 @@ def cifar_stack(images: torch.Tensor, draws: torch.Tensor, *, pad: int,
         _check_rc(lib, rc, "CIFAR stack")
         with _lock:
             _launches["cifar_stack"] += 1
+    return out.permute(0, 3, 1, 2)
+
+
+def imagenet_stack(images: torch.Tensor, ints: torch.Tensor, floats: torch.Tensor, *,
+                   cutout_length: int, scale: float, mean, rstd) -> torch.Tensor:
+    """Flip, ColorJitter, scale, light, normalize and cut out ``images
+    [N, H, W, 3]`` (uint8, or float32 integral in [0, 255]) with the CUDA
+    kernel: two launches, a grey-sum pass and the per-pixel pass.
+
+    ``ints [N, 4]`` int32 holds (flip, jitter order, cutout centre y, x),
+    ``floats [N, 6]`` float32 (brightness, contrast, saturation factors,
+    lighting offset r, g, b).  A value ends as
+    ``((v * scale + rgb[c]) - mean[c]) * rstd[c]``, each operation rounded
+    on its own.  Returns ``[N, 3, H, W]`` float32 in ``channels_last``
+    strides."""
+    if images.device.type != "cuda" or {ints.device, floats.device} != {images.device}:
+        raise ValueError("the ImageNet stack kernel takes CUDA tensors on one device")
+    if images.dtype not in (torch.uint8, torch.float32) or ints.dtype != torch.int32 \
+            or floats.dtype != torch.float32:
+        raise TypeError("the ImageNet stack kernel takes uint8 or float32 images, int32 "
+                        "ints and float32 floats")
+    if not (images.is_contiguous() and ints.is_contiguous() and floats.is_contiguous()):
+        raise ValueError("the ImageNet stack kernel takes contiguous tensors")
+    if images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError(f"images must be [N, H, W, 3], got {tuple(images.shape)}")
+    n, h, w, _ = images.shape
+    if tuple(ints.shape) != (n, 4) or tuple(floats.shape) != (n, 6):
+        raise ValueError(f"ints must be [{n}, 4] and floats [{n}, 6], got "
+                         f"{tuple(ints.shape)} and {tuple(floats.shape)}")
+    if n > 65535 or h * w >= 1 << 24:
+        raise ValueError(f"batch of {n}x{h}x{w} is too large for the kernel")
+    if cutout_length < 0:
+        raise ValueError("cutout_length must be >= 0")
+    out = torch.empty((n, h, w, 3), dtype=torch.float32, device=images.device)
+    if n:
+        lib = load_libraries()["imagenet"]
+        partial = torch.empty((n, lib.faa_imagenet_tiles(h, w)), dtype=torch.int64,
+                              device=images.device)
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        m = [float(v) for v in mean]
+        r = [float(v) for v in rstd]
+        rc = lib.faa_imagenet_stack(images.data_ptr(), int(images.dtype == torch.uint8),
+                                    out.data_ptr(), ints.data_ptr(), floats.data_ptr(),
+                                    partial.data_ptr(), n, h, w, int(cutout_length) // 2,
+                                    float(scale), *m, *r, images.device.index or 0, stream)
+        _check_rc(lib, rc, "ImageNet stack")
+        with _lock:
+            _launches["imagenet_stack"] += 2
     return out.permute(0, 3, 1, 2)

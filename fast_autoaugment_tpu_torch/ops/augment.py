@@ -47,7 +47,7 @@ __all__ = [
     "OP_NAMES", "SEARCH_OP_NAMES", "NUM_OPS", "CUTOUT_COLOR", "REC_WIDTH",
     "op_index", "augment_list", "run_op", "slot_records",
     "apply_subpolicy_draws", "apply_subpolicy_draws_plain",
-    "sample_exact", "sample_grouped", "sample_draws", "sample_crop",
+    "sample_exact", "sample_grouped", "sample_draws", "sample_crop", "sample_imagenet",
     "check_policy",
     "shear_x", "shear_y", "translate_x", "translate_y", "rotate",
     "auto_contrast", "invert", "equalize", "solarize", "posterize",
@@ -481,7 +481,8 @@ def apply_subpolicy_draws(images: torch.Tensor, policy: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # Philox counter layout (c0, c1, c2, c3): c1 names the stream.
-_STREAM_SLOT, _STREAM_SUB, _STREAM_PERM, _STREAM_GROUP, _STREAM_CROP = 0, 1, 2, 3, 4
+(_STREAM_SLOT, _STREAM_SUB, _STREAM_PERM, _STREAM_GROUP, _STREAM_CROP,
+ _STREAM_IMAGENET) = 0, 1, 2, 3, 4, 5
 
 
 def _pick(word: torch.Tensor, n: int) -> torch.Tensor:
@@ -561,6 +562,49 @@ def sample_crop(keys: torch.Tensor, height: int, width: int,
     return torch.stack([_pick(w[0][:, 0], span), _pick(w[1][:, 0], span),
                         _pick(w[2][:, 0], 2), _pick(w[3][:, 0], height),
                         _pick(w[0][:, 1], width)], dim=-1)
+
+
+def _unit64(word: torch.Tensor) -> torch.Tensor:
+    """A 32-bit word -> float64 uniform in [0, 1) on 24 bits (exact)."""
+    return (word >> 8).to(torch.float64) * 2.0**-24
+
+
+def sample_imagenet(keys: torch.Tensor, height: int, width: int, strength: float = 0.4,
+                    alphastd: float = 0.1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The draws of the ImageNet stack after the policy
+    (``fast_autoaugment_tpu/ops/preprocess_imagenet.py:136-188``), one row
+    per lane, from three Philox blocks of that lane's key ``keys [L, 2]``
+    (stream 5):
+
+    - ``ints [L, 4]`` int32 = (flip bit, ColorJitter order in [0, 6),
+      cutout centre y in [0, H), cutout centre x in [0, W));
+    - ``floats [L, 6]`` float32 = (brightness, contrast, saturation factors
+      ``U(1 - strength, 1 + strength)``, the PCA lighting noise
+      ``N(0, alphastd)`` x 3).
+
+    The normals are Box-Muller in float64, rounded once to float32, so the
+    CPU and the card give the same values (their float64 ``log``/``cos``
+    may differ in the last double place, which rounding to float32
+    removes); the rest is integer arithmetic and exact."""
+    keys = keys.to(torch.int64).reshape(-1, 2)
+    k1, k0 = keys[:, 0:1], keys[:, 1:2]
+    block = torch.arange(3, dtype=torch.int64, device=keys.device)
+    zero = torch.zeros_like(block)
+    w = philox4x32((k0, k1), (block, zero + _STREAM_IMAGENET, zero, zero))  # 4 x [L, 3]
+    ints = torch.stack([_pick(w[0][:, 0], 2), _pick(w[1][:, 0], 6),
+                        _pick(w[2][:, 0], height), _pick(w[3][:, 0], width)], dim=-1)
+    lo = np.float32(1.0 - strength)
+    span = np.float32(1.0 + strength) - lo
+    factors = torch.stack([uniform24(w[i][:, 1]) for i in range(3)], dim=-1) * float(span) \
+        + float(lo)
+    # Box-Muller on (0, 1] x [0, 1): the third block's four words give four normals
+    r0 = torch.sqrt(-2.0 * torch.log(1.0 - _unit64(w[0][:, 2])))
+    r1 = torch.sqrt(-2.0 * torch.log(1.0 - _unit64(w[2][:, 2])))
+    t0 = 2.0 * np.pi * _unit64(w[1][:, 2])
+    t1 = 2.0 * np.pi * _unit64(w[3][:, 2])
+    normals = torch.stack([r0 * torch.cos(t0), r0 * torch.sin(t0), r1 * torch.cos(t1)], dim=-1)
+    alpha = (normals * float(alphastd)).to(torch.float32)
+    return ints, torch.cat([factors, alpha], dim=-1)
 
 
 def sample_draws(dispatch: str, keys, batch: int, *, num_sub: int, num_op: int,

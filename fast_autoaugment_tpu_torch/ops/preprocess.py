@@ -39,21 +39,25 @@ from fast_autoaugment_tpu_torch.ops import _kernels
 from fast_autoaugment_tpu_torch.ops.augment import apply_subpolicy_draws
 
 __all__ = [
-    "CIFAR_MEAN", "CIFAR_STD", "CROP_PAD", "normalize", "random_crop_with_pad",
+    "CIFAR_MEAN", "CIFAR_STD", "IMAGENET_MEAN", "IMAGENET_STD", "CROP_PAD",
+    "norm_constants", "normalize", "random_crop_with_pad",
     "random_hflip", "cutout_default", "cifar_stack", "cifar_stack_plain",
     "cifar_train_batch", "cifar_eval_batch", "eval_draws",
 ]
 
 CIFAR_MEAN = (0.4914, 0.4822, 0.4465)  # reference data.py:34
 CIFAR_STD = (0.2023, 0.1994, 0.2010)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)  # reference data.py:71
+IMAGENET_STD = (0.229, 0.224, 0.225)
 CROP_PAD = 4
 
 #: 1/255 as float32, the factor XLA multiplies by for ``img / 255.0``
 _SCALE = float(np.float32(1.0) / np.float32(255.0))
 
 
-def _norm_constants(mean: Sequence[float], std: Sequence[float]):
-    """(mean, 1/std) as float32 numpy arrays of three values."""
+def norm_constants(mean: Sequence[float], std: Sequence[float]):
+    """(mean, 1/std) as float32 numpy arrays of three values: the constants
+    of the reciprocal form."""
     mean32 = np.asarray(mean, np.float32)
     return mean32, np.float32(1.0) / np.asarray(std, np.float32)
 
@@ -62,7 +66,7 @@ def normalize(img: torch.Tensor, mean: Sequence[float] = CIFAR_MEAN,
               std: Sequence[float] = CIFAR_STD) -> torch.Tensor:
     """uint8-valued [0..255] float NHWC -> normalized float (ToTensor +
     Normalize), in the reciprocal form described above."""
-    mean32, rstd32 = _norm_constants(mean, std)
+    mean32, rstd32 = norm_constants(mean, std)
     scale = torch.tensor(_SCALE, dtype=torch.float32, device=img.device)
     m = torch.as_tensor(mean32, device=img.device)
     r = torch.as_tensor(rstd32, device=img.device)
@@ -144,7 +148,7 @@ def cifar_stack(images: torch.Tensor, draws: torch.Tensor, *,
     if images.device.type != "cuda":
         raise ValueError(f"no CIFAR stack for device {images.device}")
     _check_stack(images, draws)
-    mean32, rstd32 = _norm_constants(mean, std)
+    mean32, rstd32 = norm_constants(mean, std)
     return _kernels.cifar_stack(images.contiguous(), draws.contiguous(), pad=pad,
                                 cutout_length=cutout_length, scale=_SCALE,
                                 mean=mean32.tolist(), rstd=rstd32.tolist())

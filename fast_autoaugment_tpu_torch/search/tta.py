@@ -61,8 +61,10 @@ from fast_autoaugment_tpu_torch.ops.augment import (
     sample_crop,
     sample_exact,
     sample_grouped,
+    sample_imagenet,
 )
 from fast_autoaugment_tpu_torch.ops.preprocess import cifar_train_batch
+from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import ImageNetDraws
 
 __all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "cifar_augment_fn",
            "make_tta_step", "make_audit_step", "eval_tta", "eval_tta_batched"]
@@ -86,7 +88,9 @@ class LaneDraws:
 
 class PhiloxDraws:
     """The port's draw source: Philox4x32-10 keys (``[..., 2]`` int64
-    tensors of 32-bit words), bit-identical on the CPU and the card.
+    tensors of 32-bit words), bit-identical on the CPU and the card.  It
+    makes the draws of the CIFAR stack (:meth:`draws`) and of the ImageNet
+    stack (:meth:`imagenet_draws`).
 
     A draw key's lanes are its images: lane b's key is ``split(draw_key,
     B)[b]``, which gives the exact sampler's sub-policy and op-slot draws
@@ -120,6 +124,34 @@ class PhiloxDraws:
         else:
             sub, pol = sample_exact(lanes, num_sub, num_op, height, width)
         return LaneDraws(sub, pol, crop)
+
+    def imagenet_draws(self, key, *, batch: int, policy_shape: tuple[int, int] | None,
+                       height: int, width: int, dispatch: str, groups: int,
+                       device) -> ImageNetDraws:
+        """The draws of one ``imagenet_train_batch`` call on `batch` images
+        from one key, in the JAX tree's shape: under ``grouped`` with a
+        multi-sub policy the key is split first and its second half draws
+        the grouped policy; image b's lane key is ``split(key, batch)[b]``,
+        which gives its exact policy draws and its stack draws
+        (:func:`~fast_autoaugment_tpu_torch.ops.augment.sample_imagenet`).
+        ``policy_shape`` is ``(num_sub, num_op)``, or None without a
+        policy."""
+        key = self.key(key, device).reshape(2)
+        grouped = dispatch == "grouped" and policy_shape is not None and policy_shape[0] > 1
+        if grouped:
+            key, key_pol = rng.split(key, 2)
+        lanes = rng.split(key, batch)
+        ints, floats = sample_imagenet(lanes, height, width)
+        sub = pol = None
+        if policy_shape is not None:
+            num_sub, num_op = policy_shape
+            if grouped:
+                sub, pol = sample_grouped(key_pol, batch, groups, num_sub, num_op, height, width)
+            else:
+                sub, pol = sample_exact(lanes, num_sub, num_op, height, width)
+        return ImageNetDraws(sub, pol, flip=ints[:, 0].contiguous(),
+                             order=ints[:, 1].contiguous(), factors=floats[:, :3].contiguous(),
+                             alpha=floats[:, 3:].contiguous(), centre=ints[:, 2:].contiguous())
 
 
 def check_aug_dispatch(mode: str) -> str:

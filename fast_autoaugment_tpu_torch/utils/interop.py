@@ -1,7 +1,8 @@
 """JAX (flax) variables -> the port's ``state_dict``.
 
-The inverse of the JAX package's importer
-(``fast_autoaugment_tpu/utils/interop.py:100 _import_wideresnet``): it
+The inverse of the JAX package's importers
+(``fast_autoaugment_tpu/utils/interop.py:100 _import_wideresnet`` and
+``:117 _import_resnet``): it
 takes a flax variables tree ``{"params", "batch_stats"}`` whose leaves are
 numpy arrays (``jax.tree.map(np.asarray, variables)``) and returns the
 ``state_dict`` of the port's model of the same family, so that both
@@ -13,7 +14,10 @@ packages can run the same weights.  Layouts:
   matching ``batch_stats`` ``{mean,var}`` -> ``running_{mean,var}``
   (``num_batches_tracked`` is 0: eval mode does not read it).
 
-Only the WideResNet family is ported (ROADMAP item 9 adds the others).
+ResNet's blocks map ``layer{s}_{i}/conv{k}`` and ``bn{k}`` to
+``layer{s}.{i}.conv{k}`` and ``bn{k}``, and ``downsample_conv`` and
+``downsample_bn`` to ``downsample.0`` and ``downsample.1``.  The WideResNet
+and ResNet families are ported (ROADMAP item 9 adds the others).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ __all__ = ["flax_to_state_dict"]
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.from_numpy(np.array(a, np.float32))  # a writable copy
 
 
 class _Builder:
@@ -65,12 +69,15 @@ class _Builder:
         self.sd[f"{torch_name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
+def _blocks(params: Mapping) -> list[tuple[int, int]]:
+    return sorted((int(m.group(1)), int(m.group(2))) for m in
+                  (re.fullmatch(r"layer(\d+)_(\d+)", k) for k in params) if m)
+
+
 def _wideresnet(variables: Mapping) -> dict[str, torch.Tensor]:
     b = _Builder(variables)
     b.conv(["conv1"], "conv1")
-    blocks = sorted((int(m.group(1)), int(m.group(2))) for m in
-                    (re.fullmatch(r"layer(\d+)_(\d+)", k) for k in b.params) if m)
-    for stage, i in blocks:
+    for stage, i in _blocks(b.params):
         f, t = f"layer{stage}_{i}", f"layer{stage}.{i}"
         b.bn([f, "bn1"], f"{t}.bn1")
         b.conv([f, "conv1"], f"{t}.conv1")
@@ -83,7 +90,24 @@ def _wideresnet(variables: Mapping) -> dict[str, torch.Tensor]:
     return b.sd
 
 
-_CONVERTERS = {"wideresnet": _wideresnet}
+def _resnet(variables: Mapping) -> dict[str, torch.Tensor]:
+    b = _Builder(variables)
+    b.conv(["conv1"], "conv1")
+    b.bn(["bn1"], "bn1")
+    for stage, i in _blocks(b.params):
+        f, t = f"layer{stage}_{i}", f"layer{stage}.{i}"
+        for k in (1, 2, 3):
+            if f"conv{k}" in b.params[f]:
+                b.conv([f, f"conv{k}"], f"{t}.conv{k}")
+                b.bn([f, f"bn{k}"], f"{t}.bn{k}")
+        if "downsample_conv" in b.params[f]:
+            b.conv([f, "downsample_conv"], f"{t}.downsample.0")
+            b.bn([f, "downsample_bn"], f"{t}.downsample.1")
+    b.linear(["fc"], "fc")
+    return b.sd
+
+
+_CONVERTERS = {"wideresnet": _wideresnet, "resnet": _resnet}
 
 
 def flax_to_state_dict(variables: Mapping, family: str = "wideresnet") -> dict[str, torch.Tensor]:

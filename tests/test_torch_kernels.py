@@ -10,7 +10,9 @@ Bound: bitwise (``torch.equal``).  The augmentation kernel and its plain
 version consume the same per-slot records and round every product and sum
 the same way; the CIFAR stack kernel and its plain version compute the same
 gather and the same reciprocal-form normalization, each product and
-difference rounded on its own.
+difference rounded on its own; the ImageNet stack kernel and its plain
+version compute the same blends, the same integer grey sum and the same
+scale, lighting offset and normalization, each operation rounded on its own.
 """
 
 import numpy as np
@@ -20,7 +22,9 @@ import torch
 from fast_autoaugment_tpu_torch.ops import _kernels
 from fast_autoaugment_tpu_torch.ops import augment as T
 from fast_autoaugment_tpu_torch.ops import preprocess as P
+from fast_autoaugment_tpu_torch.ops import preprocess_imagenet as PI
 from fast_autoaugment_tpu_torch.ops import rng
+from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
 from fast_autoaugment_tpu_torch.policies.archive import ARCHIVES, load_policy, policy_to_tensor
 
 SHAPES = [(8, 32, 32), (4, 17, 23), (2, 224, 224)]
@@ -142,3 +146,70 @@ def test_cifar_stack_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         _kernels.cifar_stack(imgs, draws.cpu(), **kw)
     with pytest.raises(ValueError):
         _kernels.cifar_stack(imgs, draws[:1], **kw)
+
+
+def _imagenet_draws(n, h, w, dev, seed=0):
+    """Philox draws with every (jitter order, flip) pair in turn and cutout
+    centres at the corners and inside."""
+    d = PhiloxDraws().imagenet_draws(torch.tensor([3, seed]), batch=n, policy_shape=None,
+                                     height=h, width=w, dispatch="exact", groups=8, device=dev)
+    i = torch.arange(n, device=dev, dtype=torch.int32)
+    d.order, d.flip = (i % 6).contiguous(), ((i // 6) % 2).contiguous()
+    corners = torch.tensor([[0, 0], [0, w - 1], [h - 1, 0], [h - 1, w - 1]], dtype=torch.int32,
+                           device=dev)
+    d.centre[: min(4, n)] = corners[: min(4, n)]
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(128, 224, 224), (4, 17, 23), (24, 32, 32)])
+@pytest.mark.parametrize("length", [0, 16])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_imagenet_stack_bitwise_vs_plain(cuda_device, b, h, w, length, dtype):
+    g = np.random.default_rng(b + length)
+    imgs = torch.from_numpy(g.integers(0, 256, (b, h, w, 3)).astype(np.uint8)).to(cuda_device)
+    imgs = imgs.to(dtype)
+    d = _imagenet_draws(b, h, w, cuda_device, seed=length)
+    before = _kernels.launch_counts()["imagenet_stack"]
+    got = PI.imagenet_stack(imgs, d, cutout_length=length)
+    assert _kernels.launch_counts()["imagenet_stack"] == before + 2
+    want = PI.imagenet_stack_plain(imgs, d, cutout_length=length)
+    assert got.shape == (b, 3, h, w) and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_imagenet_train_batch_and_draws_on_the_card(cuda_device):
+    """With the ImageNet archive through the augmentation kernel first, and
+    the stack's draws bit-identical on the card and the CPU."""
+    pol = torch.from_numpy(policy_to_tensor(load_policy("fa_resnet50_rimagenet"))).to(cuda_device)
+    src = PhiloxDraws()
+    for dispatch in ("exact", "grouped"):
+        draws = {dev: src.imagenet_draws(torch.tensor([5, 1]), batch=16, policy_shape=(498, 2),
+                                         height=64, width=64, dispatch=dispatch, groups=4,
+                                         device=dev) for dev in (cuda_device, "cpu")}
+        for f in ("sub_idx", "policy", "flip", "order", "factors", "alpha", "centre"):
+            assert torch.equal(getattr(draws[cuda_device], f).cpu(), getattr(draws["cpu"], f)), f
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (16, 64, 64, 3))
+                            .astype(np.uint8)).to(cuda_device)
+    d = draws[cuda_device]
+    got = PI.imagenet_train_batch(imgs, d, policy=pol, cutout_length=16)
+    x = T.apply_subpolicy_draws_plain(imgs.float(), pol, d.sub_idx, d.policy)
+    assert torch.equal(got, PI.imagenet_stack_plain(x, d, cutout_length=16))
+    assert torch.equal(PI.imagenet_eval_batch(imgs).cpu(), PI.imagenet_eval_batch(imgs.cpu()))
+
+
+@pytest.mark.cuda
+def test_imagenet_stack_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    imgs = torch.zeros((2, 8, 8, 3), device=cuda_device)
+    ints = torch.zeros((2, 4), dtype=torch.int32, device=cuda_device)
+    floats = torch.zeros((2, 6), device=cuda_device)
+    kw = dict(cutout_length=0, scale=1 / 255, mean=(0, 0, 0), rstd=(1, 1, 1))
+    with pytest.raises(TypeError):
+        _kernels.imagenet_stack(imgs.double(), ints, floats, **kw)
+    with pytest.raises(ValueError):
+        _kernels.imagenet_stack(imgs.permute(0, 2, 1, 3), ints, floats, **kw)
+    with pytest.raises(ValueError):
+        _kernels.imagenet_stack(imgs, ints.cpu(), floats, **kw)
+    with pytest.raises(ValueError):
+        _kernels.imagenet_stack(imgs, ints[:1], floats, **kw)

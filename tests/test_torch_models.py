@@ -41,7 +41,8 @@ def _numpy_tree(tree):
 def _random_variables(model, seed, size=32):
     """JAX init, then BatchNorm scales, biases and statistics made random
     (at init they are 1, 0, 0, 1, which would hide a mapping error)."""
-    variables = _numpy_tree(model.init(jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 3))))
+    variables = _numpy_tree(jax.jit(model.init)(jax.random.PRNGKey(seed),
+                                                jnp.zeros((1, size, size, 3))))
     g = np.random.default_rng(seed)
 
     def perturb(path, leaf):
@@ -121,7 +122,7 @@ def test_get_model_layout_init_and_precision():
 
 def test_get_model_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model({"type": "resnet50"}, 1000, device="cpu")
+        get_model({"type": "shakeshake26_2x32d"}, 10, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model({"type": "wresnet40_2", "precision": "bf16"}, 10, device="cpu")
     with pytest.raises(ValueError):

@@ -48,6 +48,28 @@ add to the tree:
   is ``fold_in(key, i)``.
 
 :class:`JaxDraws` is that tree as a draw source of the port's TTA step.
+
+The ImageNet stack and the train step (``ops/preprocess_imagenet.py``,
+``train/steps.py``) add:
+
+- ``imagenet_train_batch`` (``:191``): ``split(key, B)`` gives each image's
+  key (after ``key, key_pol = split(key)`` under ``grouped`` with a
+  multi-sub policy);
+- ``_train_one`` (``:168``): ``k_pol, k_flip, k_jit, k_light, k_cut =
+  split(key, 5)``; the flip is ``uniform(k_flip) < 0.5``; ``_color_jitter``
+  splits ``k_jit`` into ``(k_perm, k_b, k_c, k_s)``, the factors are
+  ``uniform(k, (), 0.6, 1.4)`` and the order ``randint(k_perm, (), 0, 6)``;
+  the lighting noise is ``normal(k_light, (3,)) * 0.1``; the cutout centre
+  is ``randint(ky, (), 0, H), randint(kx, (), 0, W)`` with ``ky, kx =
+  split(k_cut)``;
+- ``make_train_step`` (``train/steps.py:154``): step s's key is
+  ``fold_in(key, s)``, split into ``(key_aug, key_model)``.
+
+The ImageNet stack's factors and normals are float arithmetic
+(``u * (max - min) + min``, an inverse error function), which XLA on an FMA
+CPU contracts differently from the FMA-free reference process.  So they are
+drawn in that process (:func:`jax_imagenet_draws`, job kind
+``imagenet_draws``) and handed to :class:`JaxDraws` as a table by key.
 """
 
 import functools
@@ -186,9 +208,75 @@ def jax_cifar_draws(key, batch: int, policy_shape, h: int, w: int,
     return sub, draws, np.array(crop, np.int32)
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _imagenet_lane_draws(keys, h: int, w: int):
+    """Per-image keys ``[B, 2]`` -> (``k_pol [B, 2]``, ints ``[B, 4]`` =
+    (flip, order, cy, cx), factors ``[B, 3]``, alpha ``[B, 3]``), as
+    ``_train_one`` and ``_color_jitter`` consume their keys."""
+    def one(key):
+        k_pol, k_flip, k_jit, k_light, k_cut = jax.random.split(key, 5)
+        flip = (jax.random.uniform(k_flip) < 0.5).astype(jnp.int32)
+        k_perm, k_b, k_c, k_s = jax.random.split(k_jit, 4)
+        factors = jnp.stack([jax.random.uniform(k, (), minval=1 - 0.4, maxval=1 + 0.4)
+                             for k in (k_b, k_c, k_s)])
+        order = jax.random.randint(k_perm, (), 0, 6)
+        alpha = jax.random.normal(k_light, (3,)) * 0.1
+        ky, kx = jax.random.split(k_cut)
+        cy = jax.random.randint(ky, (), 0, h)
+        cx = jax.random.randint(kx, (), 0, w)
+        return k_pol, jnp.stack([flip, order, cy, cx]).astype(jnp.int32), factors, alpha
+
+    return jax.vmap(one)(keys)
+
+
+def jax_imagenet_draws(key, batch: int, policy_shape, h: int, w: int,
+                       dispatch: str = "exact", groups: int = 8) -> dict:
+    """The draws of ``imagenet_train_batch(images[batch], key, policy,
+    aug_dispatch=dispatch, aug_groups=groups)`` as numpy: ``{"sub_idx",
+    "policy"}`` (None without a policy) and ``{"flip", "order", "factors",
+    "alpha", "centre"}``.  Run it in the FMA-free reference process."""
+    key = jnp.asarray(np.asarray(key, np.uint32))
+    grouped = (dispatch == "grouped" and policy_shape is not None
+               and policy_shape[0] > 1)
+    if grouped:
+        key, key_pol = jax.random.split(key)
+    k_pol, ints, factors, alpha = _imagenet_lane_draws(jax.random.split(key, batch), h, w)
+    ints = np.array(ints, np.int32)
+    out = {"sub_idx": None, "policy": None, "flip": ints[:, 0].copy(),
+           "order": ints[:, 1].copy(), "centre": ints[:, 2:].copy(),
+           "factors": np.array(factors, np.float32), "alpha": np.array(alpha, np.float32)}
+    if policy_shape is not None:
+        num_sub, num_op = policy_shape
+        if grouped:
+            out["sub_idx"], out["policy"] = jax_grouped_draws(
+                np.asarray(key_pol), batch, groups, num_sub, num_op, h, w)
+        else:
+            out["sub_idx"], out["policy"] = jax_policy_draws(np.asarray(k_pol), num_sub,
+                                                             num_op, h, w)
+    return out
+
+
+def imagenet_draws_to_torch(d: dict, device="cpu"):
+    """:func:`jax_imagenet_draws`' dict -> the port's ``ImageNetDraws``."""
+    import torch  # not at import: the reference subprocess runs this file
+
+    from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import ImageNetDraws
+
+    t = {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).to(device)
+         for k, v in d.items()}
+    return ImageNetDraws(**t)
+
+
 class JaxDraws:
-    """A draw source for the port's TTA and audit steps that replays the JAX
-    key tree (keys are ``[..., 2]`` uint32 JAX keys as numpy)."""
+    """A draw source for the port's TTA, audit and train steps that replays
+    the JAX key tree (keys are ``[..., 2]`` uint32 JAX keys as numpy).
+
+    ``imagenet_table`` maps a key (a tuple of its two words) to the
+    :func:`jax_imagenet_draws` dict of that key, drawn in the reference
+    process."""
+
+    def __init__(self, imagenet_table: dict | None = None):
+        self.imagenet_table = imagenet_table or {}
 
     @staticmethod
     def _keys(key):
@@ -216,6 +304,14 @@ class JaxDraws:
         sub, pol, crop = (torch.from_numpy(np.concatenate(p)).to(device)
                           for p in zip(*parts))
         return LaneDraws(sub, pol, crop)
+
+    def imagenet_draws(self, key, *, batch, policy_shape, height, width, dispatch, groups,
+                       device):
+        k = tuple(int(v) for v in np.asarray(key, np.uint32).reshape(2))
+        d = self.imagenet_table[k]
+        assert d["flip"].shape == (batch,) and d["centre"].max() < max(height, width)
+        assert (d["sub_idx"] is None) == (policy_shape is None)
+        return imagenet_draws_to_torch(d, device)
 
 
 # ----------------------------------------- the self-check, in JAX alone
@@ -333,6 +429,15 @@ def split_policy_key(keys):
 
 
 def _run_job(job: dict):
+    if "threefry_partitionable" in job:
+        jax.config.update("jax_threefry_partitionable", job["threefry_partitionable"])
+    if "runner" in job:  # "module:function" of a test file, run here
+        import importlib
+
+        mod, fn = job["runner"].split(":")
+        return getattr(importlib.import_module(mod), fn)(job)
+    if job["kind"] == "imagenet_draws":
+        return [jax_imagenet_draws(*call) for call in job["calls"]]
     if job["kind"] == "apply_subpolicy":
         # apply_policy(img, policy, key) == apply_subpolicy(img, policy[idx],
         # key_sub) with (idx, key_sub) from its first split; one compile
@@ -408,18 +513,43 @@ def jax_reference(jobs: list[dict], tmp_dir) -> list:
     ``{"kind": "cifar_eval_batch", "images"}`` -> the output;
     ``{"kind": "tta", "model": (depth, widen, classes), "variables",
     "batches": [(x, y, m), ...], "runs": [...]}`` -> the result of each run
-    (``eval_tta``, ``eval_tta_batched`` or one ``audit`` step call)."""
-    src, dst = os.path.join(tmp_dir, "jobs.pkl"), os.path.join(tmp_dir, "refs.pkl")
-    with open(src, "wb") as fh:
-        pickle.dump(jobs, fh)
+    (``eval_tta``, ``eval_tta_batched`` or one ``audit`` step call);
+    ``{"kind": "imagenet_draws", "calls": [(key, batch, policy_shape, h, w,
+    dispatch, groups), ...]}`` -> a :func:`jax_imagenet_draws` dict per call;
+    ``{"runner": "module:function", ...}`` -> that function of a test module
+    called with the job (a test file keeps its own JAX references).  A job
+    may pin ``"threefry_partitionable"``."""
+    return jax_reference_groups([jobs], tmp_dir)[0]
+
+
+def jax_reference_groups(groups: list[list[dict]], tmp_dir) -> list[list]:
+    """:func:`jax_reference` for several lists of jobs at once, one FMA-free
+    process per list, the processes running side by side."""
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS=(os.environ.get("XLA_FLAGS", "") + " " + NO_FMA_XLA_FLAGS).strip(),
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), src, dst],
-                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with open(dst, "rb") as fh:
-        return pickle.load(fh)
+    procs = []
+    for i, jobs in enumerate(groups):
+        src = os.path.join(tmp_dir, f"jobs{i}.pkl")
+        dst = os.path.join(tmp_dir, f"refs{i}.pkl")
+        with open(src, "wb") as fh:
+            pickle.dump(jobs, fh)
+        procs.append((dst, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), src, dst], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    out = []
+    try:
+        for dst, proc in procs:
+            _, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err[-4000:]
+            with open(dst, "rb") as fh:
+                out.append(pickle.load(fh))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
 
 
 if __name__ == "__main__":

@@ -244,7 +244,7 @@ def test_step_fields_and_trace_on_the_cpu():
     assert 0 <= out["top1_mean"] <= out["top1_valid"] <= 1 and out["minus_loss"] <= 0
     again = tta.eval_tta(step, batches, FA_CIFAR, torch.tensor([0, 3]))
     assert again == out  # the Philox draws are a function of the key
-    assert _kernels.launch_counts() == {"augment_slot": 0, "cifar_stack": 0}
+    assert _kernels.launch_counts() == {"augment_slot": 0, "cifar_stack": 0, "imagenet_stack": 0}
     with pytest.raises(ValueError):
         tta.make_tta_step(model, aug_dispatch="fast")
     with pytest.raises(ValueError):  # candidate axis != num_candidates
