@@ -2,9 +2,12 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --pair-with OTHER_CHECKOUT
 
-Run from the root of a checkout; it needs one CUDA card and ``nvcc``.  The
-phases, each printing one JSON line:
+Run from the root of a checkout; it needs one CUDA card and ``nvcc``.  With
+``--pair-with`` it only times K1 and K5 of the other checkout's port against
+this one's (:func:`paired_kernel_times`).  Without arguments, the phases,
+each printing one JSON line:
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions, and the
    seconds it took to build the kernels (``fast_autoaugment_tpu_torch/csrc/
@@ -13,10 +16,15 @@ phases, each printing one JSON line:
 2. kernel vs plain version on the card, bitwise with the count of
    differing elements: the augmentation kernel (all 19 ops forced on with
    both mirror signs over a sweep of levels, then random draws under all
-   six policy archives, at 128x32x32, 4x17x23 and 8x224x224) and the CIFAR
+   six policy archives, at 128x32x32, 4x17x23, 128x224x224, 3x225x223 (bands
+   of unequal height), 2x496x300 (clusters of 16 at one block per SM) and
+   2x520x300 (too large for a cluster: one launch per slot); at 224x224
+   with clusters of 8 and of 16 blocks; one launch per call on the cluster
+   path; every cluster size resident at its largest band) and the CIFAR
    stack kernel (``k5_vs_plain``: every crop offset and flip bit, cutout
    lengths 0 and 16 centred at corners, edges and random places, at
-   640x32x32 and 4x17x23, and the eval stack) and the ImageNet stack kernel
+   640x32x32, 4x17x23 and 2x100x90 (read from global memory), and the eval
+   stack) and the ImageNet stack kernel
    (``k6_vs_plain``: the six ColorJitter orders x both flip bits x cutout 0
    and 16, uint8 and float32 inputs, at 128x224x224 and 4x17x23); and every
    sampler's draws on the card against the CPU from the same keys;
@@ -25,16 +33,17 @@ phases, each printing one JSON line:
    sub-policy at 224x224, shapes 1,8, exact dispatch) answer npz, raw and
    concurrent requests; every answer is checked against the plain version
    applied on the card to the same draws; the kernel's launch count in
-   ``/stats`` must equal dispatches x op slots; SIGTERM must drain to exit 0;
+   ``/stats`` must equal dispatches x launches per call (1 on the cluster
+   path); SIGTERM must drain to exit 0;
 4. the TTA policy-scoring path (``tta_main_path``): WRN-40-2 from the
    flagship config (:data:`FLAGSHIP`) with seeded weights, a seeded 20,000
    image uint8 fold uploaded once (157 batches of 128, the last with 32
    real images), then ``eval_tta`` of a 5-sub-policy candidate, the
    identity baseline, ``eval_tta_batched`` of 4 candidates, one audit step
    and ``eval_tta`` under grouped dispatch; the launch counts must be
-   ``num_op`` augmentation launches and 1 CIFAR stack launch per step
-   call; then the same steps with the plain versions of both kernels on the
-   card (augmented lanes bitwise, fields equal under
+   1 augmentation launch and 1 CIFAR stack launch per step call; then
+   the same steps with the plain versions of both kernels on the card
+   (augmented lanes bitwise, fields equal under
    ``cudnn.deterministic``) and each batched candidate against ``eval_tta``
    of that candidate alone;
 5. times beside the card's name and power limit: requests/s and p50/p99
@@ -53,7 +62,7 @@ phases, each printing one JSON line:
    498-sub-policy ``fa_resnet50_rimagenet`` archive) through
    ``make_train_step`` with the ImageNet stack (K1, then K6) as its augment
    function, on seeded uint8 batches: 10 exact steps and one grouped step
-   with finite losses and ``num_op`` K1 and 2 K6 launches per step; then one
+   with finite losses and 1 K1 and 2 K6 launches per step; then one
    step with both kernels against one with both plain versions from the
    same state under deterministic cuDNN (augmented batch, loss and every
    tensor of the model bitwise).  ``train_flagship`` runs ``train_and_eval``
@@ -63,7 +72,8 @@ phases, each printing one JSON line:
    profiler trace split by stage (sampler, K1, K6, model forward and
    backward with the convolutions' TFLOP/s, optimizer) with the device's
    idle share, K1 and K6 at 128x224x224 against their bounds and plain
-   versions, and the peak device memory.
+   versions (K1 also with clusters of 8 and of 16 blocks, and how many such
+   clusters the card holds at once), and the peak device memory.
 
 The last two lines are the ``kernels`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with
@@ -89,7 +99,14 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-SHAPES = ((128, 32, 32), (4, 17, 23), (8, 224, 224))
+#: K1's check shapes: serving and TTA (one block per image), odd sizes, the
+#: train shape (a cluster per image), bands of unequal height, the tallest
+#: image that fits clusters of 16, and an image too large for a cluster (one
+#: launch per slot)
+SHAPES = ((128, 32, 32), (4, 17, 23), (128, 224, 224), (3, 225, 223), (2, 496, 300),
+          (2, 520, 300))
+#: K1's two kernels (csrc/augment.cu): the cluster path and the per-slot path
+K1_KERNELS = ("augment_kernel", "augment_slot_kernel")
 #: the flagship search config: confs/wresnet40x2_cifar.yaml (model, dataset,
 #: batch, cutout; precision f32 by default) and the search CLI's defaults
 #: (fast_autoaugment_tpu/launch/search_cli.py: --num-policy 5, --num-op 2,
@@ -163,7 +180,7 @@ def kernel_counts(prof, parts) -> dict[str, int]:
     return {p: sum(e.count for e in rows if p in e.key) for p in parts}
 
 
-def kernel_device_ms(fn, iters: int = 20, kernel="augment_slot_kernel",
+def kernel_device_ms(fn, iters: int = 20, kernel="augment_kernel",
                      per_call: int = 1) -> float | None:
     """Device time of the kernels named `kernel` (a name part, or a tuple of
     them) per call of `fn`, from the profiler: the kernels' own execution,
@@ -194,6 +211,35 @@ def kernel_device_ms(fn, iters: int = 20, kernel="augment_slot_kernel",
     return us / 1e3 / iters if us else None
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call of `fn`: `iters` calls captured in one CUDA
+    graph, replayed `replays` times between two CUDA events, so the kernels
+    run back to back without the host's launch gaps and without the
+    profiler (which drops kernel records)."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
 
@@ -218,24 +264,44 @@ def _rand_images(g, b, h, w, dev):
     return torch.from_numpy(g.integers(0, 256, (b, h, w, 3)).astype(np.float32)).to(dev)
 
 
-def _compare(aug, imgs, pol, sub, draws) -> tuple[int, float]:
-    """(differing elements, max |diff|) of kernel vs plain version."""
+#: cluster sizes forced at 224x224 beside the plan's own (both fit there)
+FORCED_CLUSTERS = (8, 16)
+
+
+def _compare(aug, imgs, pol, sub, draws, clusters=(None,)) -> tuple[int, float]:
+    """(differing elements, max |diff|) of kernel vs plain version, summed
+    over the plan's cluster size (None) and any forced ones; each call must
+    launch the kernel as often as its plan says."""
     import torch
 
-    got = aug.apply_subpolicy_draws(imgs, pol, sub, draws)
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    h, w = int(imgs.shape[1]), int(imgs.shape[2])
     want = aug.apply_subpolicy_draws_plain(imgs, pol, sub, draws)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(got).all()) or got.shape != imgs.shape:
-        fail("kernel output is not finite or has the wrong shape")
-    if not bool(((got >= 0) & (got <= 255) & (got == torch.trunc(got))).all()):
-        fail("kernel output is not integral in [0, 255]")
-    diff = (got - want).abs()
-    return int((diff > 0).sum()), float(diff.max())
+    n_diff, err = 0, 0.0
+    for c in clusters:
+        before = _kernels.launch_counts()["augment"]
+        if c is None:
+            got = aug.apply_subpolicy_draws(imgs, pol, sub, draws)
+        else:
+            got = _kernels.augment(imgs, aug.slot_records(pol, sub, draws, h, w), cluster=c)
+        launches = _kernels.launch_counts()["augment"] - before
+        torch.cuda.synchronize()
+        if launches != _kernels.augment_plan(h, w, int(pol.shape[1]), c).launches:
+            fail(f"K1 at {h}x{w} (cluster {c}) launched {launches} times in one call")
+        if not bool(torch.isfinite(got).all()) or got.shape != imgs.shape:
+            fail("kernel output is not finite or has the wrong shape")
+        if not bool(((got >= 0) & (got <= 255) & (got == torch.trunc(got))).all()):
+            fail("kernel output is not integral in [0, 255]")
+        diff = (got - want).abs()
+        n_diff, err = n_diff + int((diff > 0).sum()), max(err, float(diff.max()))
+    return n_diff, err
 
 
 def phase_kernel_vs_plain(dev) -> dict:
     import torch
 
+    from fast_autoaugment_tpu_torch.ops import _kernels
     from fast_autoaugment_tpu_torch.ops import augment as aug
     from fast_autoaugment_tpu_torch.policies.archive import ARCHIVES, load_policy, policy_to_tensor
 
@@ -245,6 +311,7 @@ def phase_kernel_vs_plain(dev) -> dict:
     for b, h, w in SHAPES:
         imgs = _rand_images(g, b, h, w, dev)
         imgs[: max(1, b // 4)] = torch.floor(imgs[: max(1, b // 4)] / 4 + 64)  # low range
+        clusters = (None,) + FORCED_CLUSTERS if (h, w) == (224, 224) else (None,)
         per_op = {}
         for op in range(aug.NUM_OPS):
             levels = np.linspace(0.0, 1.0, 5)
@@ -253,21 +320,35 @@ def phase_kernel_vs_plain(dev) -> dict:
             mirror = np.where(np.arange(b) % 2 == 0, 0.25, 0.75)  # both signs
             draws = np.stack([np.zeros(b), mirror, g.uniform(0, w, b), g.uniform(0, h, b)], -1)
             draws = torch.from_numpy(draws.astype(np.float32)[:, None, :]).to(dev)
-            per_op[aug.OP_NAMES[op]] = _compare(aug, imgs, pol, sub, draws)
+            per_op[aug.OP_NAMES[op]] = _compare(aug, imgs, pol, sub, draws, clusters)
         per_archive = {}
         for name in ARCHIVES:
             pol = torch.from_numpy(policy_to_tensor(load_policy(name))).to(dev)
             keys = torch.from_numpy(g.integers(0, 2**32, (b, 2), dtype=np.int64)).to(dev)
             sub, draws = aug.sample_exact(keys, pol.shape[0], pol.shape[1], h, w)
-            per_archive[name] = _compare(aug, imgs, pol, sub, draws)
+            per_archive[name] = _compare(aug, imgs, pol, sub, draws, clusters)
         results = list(per_op.values()) + list(per_archive.values())
         n_diff = sum(r[0] for r in results)
+        plan = _kernels.augment_plan(h, w, 2)
         report["shapes"][f"{b}x{h}x{w}"] = {
+            "path": plan.path, "cluster": plan.cluster, "launches_per_call_2_slots": plan.launches,
+            "forced_clusters": [c for c in clusters if c is not None],
             "ops_differing": {k: v[0] for k, v in per_op.items() if v[0]},
             "archives_differing": {k: v[0] for k, v in per_archive.items() if v[0]},
-            "differing_elements": n_diff, "comparisons": len(results)}
+            "differing_elements": n_diff, "comparisons": len(results) * len(clusters)}
         report["differing_elements"] += n_diff
         report["max_abs_err"] = max(report["max_abs_err"], max(r[1] for r in results))
+    # every cluster size the planner may take, at the most shared memory it
+    # takes it with (the tallest band that fits), must be resident
+    resident = {}
+    for c in _kernels.AUGMENT_CLUSTERS:
+        h = max(h for h in range(1, 2048)
+                if _kernels.augment_smem_bytes(h, 300, c) <= _kernels.MAX_SMEM_BYTES)
+        resident[str(c)] = _kernels.augment_max_active_clusters(h, 300, cluster=c,
+                                                                device=dev.index or 0)
+    report["max_active_clusters_at_largest_band"] = resident
+    if min(resident.values()) < 1:
+        fail(f"a planned cluster size cannot be resident: {resident}")
     # the samplers: bit-identical on the card and the CPU
     keys = torch.from_numpy(g.integers(0, 2**32, (512, 2), dtype=np.int64))
     a = aug.sample_exact(keys.to(dev), 493, 2, 224, 224)
@@ -322,7 +403,8 @@ def phase_k5_vs_plain(dev) -> dict:
         report["differing_elements"] += n_diff
         report["max_abs_err"] = max(report["max_abs_err"], err)
 
-    for b, h, w in ((640, 32, 32), (4, 17, 23)):
+    # staged in shared memory up to 40x24; 100x90 is read from global memory
+    for b, h, w in ((640, 32, 32), (4, 17, 23), (6, 40, 24), (2, 100, 90)):
         imgs = _rand_images(g, b, h, w, dev)
         draws = _stack_draws(g, b, h, w).to(dev)
         for length in (0, 16):
@@ -456,7 +538,7 @@ def phase_main_path(dev, workdir: str) -> dict:
             r.wait_ready()
         before = {id(r): r.get("/stats") for r in replicas}
         for r in replicas:
-            if before[id(r)]["kernel_launches"]["augment_slot"] != 0 or before[id(r)]["dispatches"]:
+            if before[id(r)]["kernel_launches"]["augment"] != 0 or before[id(r)]["dispatches"]:
                 fail("a replica launched the kernel before serving any request")
             if not r.get("/readyz")["ready"]:
                 fail("a replica is not ready")
@@ -539,21 +621,24 @@ def phase_main_path(dev, workdir: str) -> dict:
 
         after = {id(r): r.get("/stats") for r in replicas}
         launches, dispatches = 0, 0
+        per_call = {id(grouped): _kernels.augment_plan(32, 32, int(cifar.shape[1])).launches,
+                    id(exact): _kernels.augment_plan(224, 224, int(single.shape[1])).launches}
         for r in replicas:
             st = after[id(r)]
-            n_launch = st["kernel_launches"]["augment_slot"]
-            if n_launch <= 0 or n_launch != st["dispatches"] * st["num_op"]:
+            n_launch = st["kernel_launches"]["augment"]
+            if n_launch <= 0 or n_launch != st["dispatches"] * per_call[id(r)]:
                 fail(f"launch count {n_launch} != dispatches {st['dispatches']} x "
-                     f"num_op {st['num_op']}")
+                     f"{per_call[id(r)]} launches per call")
             launches += n_launch
             dispatches += st["dispatches"]
-        if _kernels.launch_counts()["augment_slot"] != 0:
+        if _kernels.launch_counts()["augment"] != 0:
             fail("the smoke process itself launched the kernel during the main path")
         served = sum(after[id(r)]["requests"] for r in replicas)
         if served != requests or requests < 16:
             fail(f"replicas served {served} requests, sent {requests}")
         emit({"phase": "main_path", "requests": requests, "dispatches": dispatches,
-              "kernel_launches": launches, "burst_requests": burst_n,
+              "kernel_launches": launches, "launches_per_dispatch": list(per_call.values()),
+              "burst_requests": burst_n,
               "burst_dispatches": burst_dispatches,
               "grouped_stats": {k: after[id(grouped)][k] for k in
                                 ("dispatches", "requests", "images_served", "mean_batch")},
@@ -561,8 +646,8 @@ def phase_main_path(dev, workdir: str) -> dict:
                               ("dispatches", "requests", "images_served", "mean_batch")}})
         serve = phase_serve_burst(grouped)
         final = grouped.get("/stats")
-        if final["kernel_launches"]["augment_slot"] != final["dispatches"] * final["num_op"]:
-            fail("launch count drifted from dispatches x num_op during the burst")
+        if final["kernel_launches"]["augment"] != final["dispatches"] * per_call[id(grouped)]:
+            fail("launch count drifted from dispatches x launches per call during the burst")
         rcs = [r.stop() for r in replicas]
         if rcs != [0, 0]:
             fail(f"SIGTERM drain exit codes {rcs} (want 0): {grouped.tail()} {exact.tail()}")
@@ -648,9 +733,11 @@ def phase_times(dev, card: str) -> list[dict]:
             sub, draws = aug.sample_exact(torch.arange(2 * b, device=dev).reshape(b, 2), 1,
                                           policy.shape[1], img, img)
         rec = aug.slot_records(policy, sub, draws, img, img)
+        plan = _kernels.augment_plan(img, img, int(policy.shape[1]))
         kernel_event_ms = cuda_ms(lambda: _kernels.augment(x, rec))
-        kernel_ms = kernel_device_ms(lambda: _kernels.augment(x, rec),
-                                     per_call=int(policy.shape[1]))
+        kernel_graph_ms = graph_ms(lambda: _kernels.augment(x, rec))
+        kernel_ms = kernel_device_ms(lambda: _kernels.augment(x, rec), kernel=plan.kernel,
+                                     per_call=plan.launches)
         wrapper_ms = cuda_ms(lambda: aug.apply_subpolicy_draws(x, policy, sub, draws))
         plain_ms = cuda_ms(lambda: aug.apply_subpolicy_draws_plain(x, policy, sub, draws),
                            iters=5, warmup=1)
@@ -661,15 +748,17 @@ def phase_times(dev, card: str) -> list[dict]:
                   for k in rec[..., 0][on].to(torch.int64).tolist())
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
         rows.append({"batch": b, "image": img, "dispatch": dispatch,
-                     "num_op": int(policy.shape[1]), "kernel_ms": kernel_ms,
-                     "kernel_event_ms": kernel_event_ms,
+                     "num_op": int(policy.shape[1]), "launches_per_call": plan.launches,
+                     "cluster": plan.cluster, "kernel_ms": kernel_ms,
+                     "kernel_event_ms": kernel_event_ms, "kernel_graph_ms": kernel_graph_ms,
                      "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                      "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                      "bytes": nbytes, "ops": ops, "library_ms": None})
     emit({"phase": "times", "card": card, "rows": rows,
           "timing": "kernel_ms: the kernel's device time per dispatch (all op slots) from "
-                    "torch.profiler over 20 calls; *_event_ms, wrapper_ms, plain_ms: CUDA "
+                    "torch.profiler over 20 calls; kernel_graph_ms: 20 calls in a CUDA graph "
+                    "replayed 5 times; *_event_ms, wrapper_ms, plain_ms: CUDA "
                     "events around 20 back-to-back calls after 3 warm-up calls (plain: 5 "
                     "after 1), host launch gaps included; inputs stay in L2 between calls"})
     return rows
@@ -705,7 +794,7 @@ def phase_trace(dev, card: str) -> dict:
            "device_busy_ms_per_call": busy_us / 1e3 / 20 if busy_us else None,
            "device_idle_share": (1 - busy_us / 1e6 / wall_s) if busy_us else None,
            "device_kernels": len(by_name),
-           "augment_kernel_us_per_call": device_us(prof, "augment_slot_kernel") / 20,
+           "augment_kernel_us_per_call": device_us(prof, K1_KERNELS) / 20,
            "top_device_us_per_call": {k[:80]: v / 20 for k, v in top}}
     emit(out)
     return out
@@ -821,7 +910,8 @@ def phase_tta_main_path(dev, st: dict) -> dict:
     counts = _kernels.launch_counts()
 
     calls = 4 * n_batches + 1
-    want = {"augment_slot": c["num_op"] * calls, "cifar_stack": calls, "imagenet_stack": 0}
+    per_call = _kernels.augment_plan(32, 32, c["num_op"]).launches
+    want = {"augment": per_call * calls, "cifar_stack": calls, "imagenet_stack": 0}
     if counts != want:
         fail(f"TTA launch counts {counts} != {want} ({calls} step calls)")
     for tag, r in [("exact", exact), ("baseline", baseline), ("grouped", grouped)] + \
@@ -908,6 +998,30 @@ def model_flops(model, dev, size: int = 32) -> int:
     return 2 * macs[0]
 
 
+def k1_op_sweep(x) -> dict:
+    """K1's device ms per call (CUDA-graph replay) on the images `x` with one
+    slot of each op forced on, and with the slot gated off (the floor: the
+    image staged and written back, no op)."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+
+    b, h, w = (int(v) for v in x.shape[:3])
+    g = np.random.default_rng(9)
+    draws = np.stack([np.full(b, 0.5), np.full(b, 0.25), g.uniform(0, w, b), g.uniform(0, h, b)],
+                     -1).astype(np.float32)[:, None]
+    draws = torch.from_numpy(draws).to(x.device)
+    sub = torch.zeros(b, dtype=torch.int32, device=x.device)
+    out = {}
+    for op in [None] + list(range(aug.NUM_OPS)):
+        pol = torch.tensor([[[op or 0, 0.0 if op is None else 1.0, 0.7]]], device=x.device)
+        rec = aug.slot_records(pol, sub, draws, h, w)
+        out["gate_off" if op is None else aug.OP_NAMES[op]] = graph_ms(
+            lambda: _kernels.augment(x, rec))
+    return out
+
+
 def phase_tta_times(dev, st: dict, card: str) -> dict:
     """Seconds per trial, both kernels at the TTA shape, and a profiler
     trace of one eval_tta."""
@@ -941,17 +1055,22 @@ def phase_tta_times(dev, st: dict, card: str) -> dict:
     rec = aug.slot_records(pol, d.sub_idx, d.policy, 32, 32)
     y = _kernels.augment(x, rec)
     elems = x.numel()
-    k1 = {"kernel": "augment_slot", "shape": list(x.shape), "num_op": int(pol.shape[1]),
-          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(x, rec),
-                                        per_call=int(pol.shape[1])),
+    plan = _kernels.augment_plan(32, 32, int(pol.shape[1]))
+    k1 = {"kernel": "augment", "shape": list(x.shape), "num_op": int(pol.shape[1]),
+          "launches_per_call": plan.launches, "cluster": plan.cluster,
+          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(x, rec), kernel=plan.kernel,
+                                        per_call=plan.launches),
           "kernel_event_ms": cuda_ms(lambda: _kernels.augment(x, rec)),
+          "kernel_graph_ms": graph_ms(lambda: _kernels.augment(x, rec)),
           "plain_ms": cuda_ms(lambda: aug.apply_subpolicy_draws_plain(x, pol, d.sub_idx, d.policy),
                               iters=5, warmup=1),
-          "bytes": 2 * elems * 4 + rec.numel() * 4}
+          "bytes": 2 * elems * 4 + rec.numel() * 4,
+          "by_op_graph_ms": k1_op_sweep(x)}
     k5 = {"kernel": "cifar_stack", "shape": list(x.shape),
           "kernel_ms": kernel_device_ms(lambda: pre.cifar_stack(y, d.crop, cutout_length=16),
                                         kernel="cifar_stack_kernel"),
           "kernel_event_ms": cuda_ms(lambda: pre.cifar_stack(y, d.crop, cutout_length=16)),
+          "kernel_graph_ms": graph_ms(lambda: pre.cifar_stack(y, d.crop, cutout_length=16)),
           "plain_ms": cuda_ms(lambda: pre.cifar_stack_plain(y, d.crop, cutout_length=16),
                               iters=5, warmup=1),
           "bytes": 2 * elems * 4 + d.crop.numel() * 4, "ops": 3 * elems}
@@ -974,7 +1093,7 @@ def phase_tta_times(dev, st: dict, card: str) -> dict:
     by_name = kernel_device_us(prof)
     busy_us = sum(v for k, v in by_name.items() if not k.startswith("tta."))
     stages = _stage_device_us(prof)
-    k1_us, k5_us = device_us(prof, "augment_slot_kernel"), device_us(prof, "cifar_stack_kernel")
+    k1_us, k5_us = device_us(prof, K1_KERNELS), device_us(prof, "cifar_stack_kernel")
     n = len(traced)
     split_ms = {"sampler": stages["tta.sampler"], "augment_kernel_K1": k1_us,
                 "cifar_stack_kernel_K5": k5_us,
@@ -1004,6 +1123,7 @@ def phase_tta_times(dev, st: dict, card: str) -> dict:
                      "postprocess_s": time.perf_counter() - t_post},
            "timing": "seconds_per_trial: median of 3 eval_tta over the fold, host clock, "
                      "synchronized; kernel_ms: device time from torch.profiler over 20 calls; "
+                     "kernel_graph_ms and by_op_graph_ms: CUDA-graph replay; "
                      "*_event_ms and plain_ms: CUDA events around back-to-back calls, host "
                      "gaps included; the trace runs with the profiler on (host time inflated), "
                      "device_idle_share_at_trial_wall sets its device time per batch against "
@@ -1206,7 +1326,8 @@ def phase_train_main_path(dev, st: dict) -> dict:
     counts = _kernels.launch_counts()
     losses = [float(v) for v in losses]
     calls = TRAIN_STEPS + 1
-    want = {"augment_slot": num_op * calls, "cifar_stack": 0, "imagenet_stack": 2 * calls}
+    per_call = _kernels.augment_plan(st["image"], st["image"], num_op).launches
+    want = {"augment": per_call * calls, "cifar_stack": 0, "imagenet_stack": 2 * calls}
     if counts != want:
         fail(f"train launch counts {counts} != {want} ({calls} steps)")
     grouped_loss = float(mg["loss"] / mg["num"])
@@ -1240,7 +1361,7 @@ def phase_train_main_path(dev, st: dict) -> dict:
            "steps_per_epoch": st["steps_per_epoch"], "steps": TRAIN_STEPS,
            "grouped_steps": 1, "losses": losses, "grouped_loss": grouped_loss,
            "main_path_wall_s": wall, "launches": counts, "expected_launches": want,
-           "launches_per_step": {"augment_slot": num_op, "imagenet_stack": 2},
+           "launches_per_step": {"augment": per_call, "imagenet_stack": 2},
            "plain_vs_kernel": {"augmented_elements_differing": batch_diff,
                                "augmented_max_abs_err": float((xk - xp).abs().max()),
                                "loss_kernel": lk, "loss_plain": lp,
@@ -1269,7 +1390,8 @@ def phase_train_flagship(dev) -> dict:
     result = train_and_eval(conf, "", evaluation_interval=1, device=dev)
     counts = _kernels.launch_counts()
     steps, evals = 2 * (512 // c["batch"]), 2 * -(-256 // c["batch"])
-    want = {"augment_slot": c["num_op"] * steps, "cifar_stack": steps + evals,
+    want = {"augment": _kernels.augment_plan(32, 32, c["num_op"]).launches * steps,
+            "cifar_stack": steps + evals,
             "imagenet_stack": 0}
     keys = {"epoch", "loss_train", "top1_train", "top5_train", "loss_test", "top1_test",
             "top5_test", "num_test", "best_valid_top1", "best_test_top1", "elapsed_sec"}
@@ -1325,15 +1447,16 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
                    if e.key in by_name and device_us_of(e) > 0)
     # K1 and K6 run a known number of times: the profile's rows of them
     # show whether it lost kernel records (then busy time is a floor)
-    rows_seen = kernel_counts(prof, ("augment_slot_kernel",) + K6_KERNELS)
-    rows_want = {"augment_slot_kernel": int(st["policy"].shape[1]) * TRACE_STEPS,
+    plan = _kernels.augment_plan(image, image, int(st["policy"].shape[1]))
+    rows_seen = kernel_counts(prof, (plan.kernel,) + K6_KERNELS)
+    rows_want = {plan.kernel: plan.launches * TRACE_STEPS,
                  K6_KERNELS[0]: TRACE_STEPS, K6_KERNELS[1]: TRACE_STEPS}
     # a range's device time counts the PyTorch operators launched inside it:
     # not the kernels launched through ctypes (K1, K6), and not the backward,
     # which autograd runs on a thread of its own; so the model's share is
     # what remains of the busy time
     stages = _stage_device_us(prof, TRAIN_STAGES)
-    k1_us, k6_us = device_us(prof, "augment_slot_kernel"), device_us(prof, K6_KERNELS)
+    k1_us, k6_us = device_us(prof, K1_KERNELS), device_us(prof, K6_KERNELS)
     conv_us = sum(v for k, v in by_name.items()
                   if "conv" in k.lower() or "fprop" in k or "dgrad" in k or "wgrad" in k)
     flop = 3 * model_flops(st["model"], dev, size=image) * b  # forward + 2 backward
@@ -1355,10 +1478,23 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
     rec = aug.slot_records(pol, d.sub_idx, d.policy, image, image)
     y1 = _kernels.augment(xf, rec)
     elems = xf.numel()
-    k1 = {"kernel": "augment_slot", "shape": list(xf.shape), "num_op": int(pol.shape[1]),
-          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(xf, rec),
-                                        per_call=int(pol.shape[1])),
+    k1 = {"kernel": "augment", "shape": list(xf.shape), "num_op": int(pol.shape[1]),
+          "launches_per_call": plan.launches, "cluster": plan.cluster,
+          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(xf, rec), kernel=plan.kernel,
+                                        per_call=plan.launches),
           "kernel_event_ms": cuda_ms(lambda: _kernels.augment(xf, rec)),
+          "kernel_graph_ms": graph_ms(lambda: _kernels.augment(xf, rec)),
+          "by_op_graph_ms": k1_op_sweep(xf),
+          # both cluster sizes that fit at 224x224, timed alike, and how many
+          # clusters of each the card holds at once
+          "by_cluster": {str(c): {
+              "kernel_ms": kernel_device_ms(lambda c=c: _kernels.augment(xf, rec, cluster=c)),
+              "kernel_event_ms": cuda_ms(lambda c=c: _kernels.augment(xf, rec, cluster=c)),
+              "kernel_graph_ms": graph_ms(lambda c=c: _kernels.augment(xf, rec, cluster=c)),
+              "smem_bytes": _kernels.augment_plan(image, image, 2, c).smem_bytes,
+              "threads": _kernels.augment_plan(image, image, 2, c).threads,
+              "max_active_clusters": _kernels.augment_max_active_clusters(
+                  image, image, cluster=c, device=dev.index or 0)} for c in FORCED_CLUSTERS},
           "plain_ms": cuda_ms(lambda: aug.apply_subpolicy_draws_plain(xf, pol, d.sub_idx,
                                                                      d.policy),
                               iters=3, warmup=1),
@@ -1407,6 +1543,7 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
            "timing": "median_step_ms: host clock around each of 20 steps after 3 warm-up "
                      "steps, synchronized; kernel_ms: device time from torch.profiler over 20 "
                      "calls (K6's per-kernel times over 50 calls of the two launches alone); "
+                     "K1's kernel_graph_ms and by_op_graph_ms: CUDA-graph replay; "
                      "*_event_ms and plain_ms: CUDA events around back-to-back calls "
                      "(K6's kernel_event_ms: the two launches alone, 50 calls); "
                      "the trace runs with the profiler on (host time inflated); "
@@ -1414,6 +1551,89 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
                      "FLOPs against the convolution kernels' device time"}
     emit(out)
     return out
+
+
+# ------------------------------------------------- paired kernel times
+
+#: (name, batch, image) of the paired timings: K1 at the TTA, train and
+#: serving shapes, K5 at the TTA shape
+PAIRED = (("k1_tta", 640, 32), ("k1_train", 128, 224), ("k1_serve", 128, 32),
+          ("k5_tta", 640, 32))
+
+
+def time_kernels_of(tree: str) -> dict:
+    """Time K1 and K5 of the port in checkout `tree` on seeded inputs,
+    through the functions every slice of the port has (``slot_records``,
+    the samplers, ``_kernels.augment``, ``preprocess.cifar_stack``):
+    device ms per call by CUDA-graph replay (median of 3), and launches per
+    call from the launch counters."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+    from fast_autoaugment_tpu_torch.ops import preprocess as pre
+    from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
+
+    dev = torch.device("cuda", 0)
+    _kernels.load_libraries()
+    out = {"tree": tree, "source": _kernels.SOURCES["augment"].as_posix()}
+    for name, b, img in PAIRED:
+        g = np.random.default_rng(b * img)
+        x = _rand_images(g, b, img, img, dev)
+        if name == "k1_train":
+            pol = policy_to_tensor(load_policy("fa_resnet50_rimagenet"))
+        elif name == "k1_serve":
+            pol = policy_to_tensor(load_policy("fa_reduced_cifar10"))
+        else:
+            pol = _tta_policy(g, FLAGSHIP["num_policy"], FLAGSHIP["num_op"])
+        pol = torch.from_numpy(pol).to(dev)
+        keys = torch.from_numpy(g.integers(0, 2**31, (b, 2), dtype=np.int64)).to(dev)
+        if name == "k1_serve":
+            sub, draws = aug.sample_grouped(keys[0], b, 8, pol.shape[0], pol.shape[1], img, img)
+        else:
+            sub, draws = aug.sample_exact(keys, pol.shape[0], pol.shape[1], img, img)
+        rec = aug.slot_records(pol, sub, draws, img, img)
+        if name.startswith("k1"):
+            fn = lambda: _kernels.augment(x, rec)  # noqa: E731
+        else:
+            y, crop = _kernels.augment(x, rec), aug.sample_crop(keys, img, img)
+            fn = lambda: pre.cifar_stack(y, crop, cutout_length=FLAGSHIP["cutout"])  # noqa: E731
+        before = sum(_kernels.launch_counts().values())
+        fn()
+        torch.cuda.synchronize()
+        launches = sum(_kernels.launch_counts().values()) - before
+        out[name] = {"shape": [b, img, img, 3], "num_op": int(pol.shape[1]),
+                     "launches_per_call": launches,
+                     "graph_ms": float(np.median([graph_ms(fn, replays=10) for _ in range(3)]))}
+    return out
+
+
+def paired_kernel_times(other: str) -> dict:
+    """K1 and K5 of checkout `other` against this checkout's, in one call on
+    one card: four worker processes in turns (other, this, this, other),
+    each timing its tree's kernels with :func:`time_kernels_of`."""
+    trees = {"other": os.path.abspath(other), "this": REPO}
+    runs = []
+    for which in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels-of",
+                               trees[which]], capture_output=True, text=True, timeout=900,
+                              cwd=trees[which])
+        if proc.returncode != 0:
+            fail(f"timing the kernels of {trees[which]} failed: {proc.stderr[-3000:]}")
+        runs.append((which, json.loads(proc.stdout.strip().splitlines()[-1])))
+        emit({"phase": "paired_run", "which": which, **runs[-1][1]})
+    summary = {"phase": "paired_kernel_times", "card": nvidia_smi(), "trees": trees,
+               "order": [w for w, _ in runs], "timing": "CUDA-graph replay, median of 3"}
+    for name, _, _ in PAIRED:
+        ms = {w: [r[name]["graph_ms"] for ww, r in runs if ww == w] for w in trees}
+        summary[name] = {"other_ms": ms["other"], "this_ms": ms["this"],
+                         "other_over_this": min(ms["other"]) / min(ms["this"]),
+                         "launches_per_call": {w: next(r[name]["launches_per_call"]
+                                                       for ww, r in runs if ww == w)
+                                               for w in trees}}
+    emit(summary)
+    return summary
 
 
 def main() -> int:
@@ -1426,12 +1646,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False); "
               "this script runs on an NVIDIA GPU only", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--time-kernels-of"]:  # a worker of --pair-with: imports that tree
+        print(json.dumps(time_kernels_of(sys.argv[2])), flush=True)
+        return 0
     sys.path.insert(0, REPO)
     try:
         from fast_autoaugment_tpu_torch.ops import _kernels
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--pair-with"]:
+        paired_kernel_times(sys.argv[2])
+        return 0
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
     t0 = time.perf_counter()
@@ -1460,27 +1686,41 @@ def main() -> int:
     at = next(r for r in rows if r["batch"] == 128)  # the largest serving shape
     k1, k5 = tta_t["k1"], tta_t["k5"]
     k1_train, k6 = train_t["k1"], train_t["k6"]["float32"]
-    timing_keys = ("shape", "kernel_ms", "kernel_event_ms", "plain_ms", "bound_ms", "bound_by")
+    timing_keys = ("shape", "kernel_ms", "kernel_graph_ms", "kernel_event_ms", "plain_ms",
+                   "bound_ms", "bound_by")
+
+    def ms(row):
+        """A kernel's time and its source: the profiler's device time, else
+        CUDA-graph replay, else CUDA events around back-to-back calls."""
+        for key, source in (("kernel_ms", "device"), ("kernel_graph_ms", "graph"),
+                            ("kernel_event_ms", "events")):
+            if row.get(key) is not None:
+                return {"ms": row[key], "ms_source": source}
+        fail("a kernel has no time")
+
     print(card, flush=True)
     emit({"kernels": [{
-        "name": "augment_slot", "route": "cuda",
+        "name": "augment", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/augment.cu",
         "replaces": "fast_autoaugment_tpu/ops/augment.py:409",
-        "launches": main_path["launches"] + tta_path["launches"]["augment_slot"]
-        + train_path["launches"]["augment_slot"] + flagship["launches"]["augment_slot"],
+        "launches": main_path["launches"] + tta_path["launches"]["augment"]
+        + train_path["launches"]["augment"] + flagship["launches"]["augment"],
         "launches_by_path": {"serve": main_path["launches"],
-                             "tta": tta_path["launches"]["augment_slot"],
-                             "train_resnet50": train_path["launches"]["augment_slot"],
-                             "train_and_eval_wrn40_2": flagship["launches"]["augment_slot"]},
+                             "tta": tta_path["launches"]["augment"],
+                             "train_resnet50": train_path["launches"]["augment"],
+                             "train_and_eval_wrn40_2": flagship["launches"]["augment"]},
+        "launches_per_call": {"serve_32": at["launches_per_call"],
+                              "tta_32": k1["launches_per_call"],
+                              "train_224": k1_train["launches_per_call"]},
         "max_abs_err": check["max_abs_err"],
         "differing_elements": check["differing_elements"],
-        "ms": at["kernel_ms"] if at["kernel_ms"] is not None else at["kernel_event_ms"],
-        "ms_source": "device" if at["kernel_ms"] is not None else "events",
+        **ms(at),
         "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"], "library_ms": None,
         "shape": [at["batch"], at["image"], at["image"], 3],
-        "at_tta_shape": {k: k1[k] for k in timing_keys},
-        "at_train_shape": {k: k1_train[k] for k in timing_keys}}, {
+        "at_tta_shape": {k: k1.get(k) for k in timing_keys},
+        "at_train_shape": {k: k1_train.get(k) for k in timing_keys},
+        "at_train_shape_by_cluster": k1_train["by_cluster"]}, {
         "name": "cifar_stack", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/preprocess.cu",
         "replaces": "fast_autoaugment_tpu/ops/preprocess.py:109",
@@ -1491,8 +1731,7 @@ def main() -> int:
                                        f"{flagship['eval_batches']} eval batches",
         "max_abs_err": check5["max_abs_err"],
         "differing_elements": check5["differing_elements"],
-        "ms": k5["kernel_ms"] if k5["kernel_ms"] is not None else k5["kernel_event_ms"],
-        "ms_source": "device" if k5["kernel_ms"] is not None else "events",
+        **ms(k5),
         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": None, "shape": k5["shape"]}, {
         "name": "imagenet_stack", "route": "cuda",
@@ -1503,11 +1742,10 @@ def main() -> int:
         "launches_per_call": 2,
         "max_abs_err": check6["max_abs_err"],
         "differing_elements": check6["differing_elements"],
-        "ms": k6["kernel_ms"] if k6["kernel_ms"] is not None else k6["kernel_event_ms"],
-        "ms_source": "device" if k6["kernel_ms"] is not None else "events",
+        **ms(k6),
         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
         "library_ms": None, "shape": k6["shape"], "input": k6["input"],
-        "at_uint8_input": {k: train_t["k6"]["uint8"][k] for k in timing_keys}}]})
+        "at_uint8_input": {k: train_t["k6"]["uint8"].get(k) for k in timing_keys}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -4,9 +4,12 @@ Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface and bound with
 ``ctypes``:
 
-- ``augment.cu``: the policy augmentation (``augment_slot``);
+- ``augment.cu``: the policy augmentation (``augment``): every op slot in
+  one launch with the image held in shared memory, one thread-block
+  cluster per image, or one launch per slot for images too large for a
+  cluster (:func:`augment_plan` chooses by shape);
 - ``preprocess.cu``: the CIFAR crop/flip/normalize/cutout stack
-  (``cifar_stack``);
+  (``cifar_stack``, one block per image, :func:`cifar_plan`);
 - ``imagenet.cu``: the ImageNet flip/ColorJitter/lighting/normalize/cutout
   stack (``imagenet_stack``, two launches: a grey-sum pass and the
   per-pixel pass).
@@ -27,11 +30,13 @@ import shutil
 import subprocess
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "load_libraries", "augment",
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "AugmentPlan", "CifarPlan", "augment_plan",
+           "cifar_plan", "load_libraries", "augment", "augment_max_active_clusters",
            "cifar_stack", "imagenet_stack", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -48,9 +53,12 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: {C function: argument types} of each library; each returns an int
 _SIGNATURES = {
-    "augment": {"faa_augment_slot": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "augment": {"faa_augment": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                "faa_augment_slot": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                "faa_augment_max_active_clusters": [_I, _I, _I, _I, _I, _I,
+                                                    ctypes.POINTER(_I)]},
     "preprocess": {"faa_cifar_stack": [_P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                       _F, _F, _F, _F, _F, _F, _I, _P]},
+                                       _F, _F, _F, _F, _F, _F, _I, _I, _I, _P]},
     "imagenet": {"faa_imagenet_stack": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                         _F, _F, _F, _F, _F, _F, _I, _P],
                  "faa_imagenet_tiles": [_I, _I]},
@@ -58,10 +66,107 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_launches = {"augment_slot": 0, "cifar_stack": 0, "imagenet_stack": 0}
+_launches = {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0}
 #: wall seconds of the last build of all missing libraries (0.0 when every
 #: library was already built)
 build_seconds = 0.0
+
+
+# ---------------------------------------------------------------- launch plans
+#: the H100's dynamic shared memory per block, after opting in
+MAX_SMEM_BYTES = 232_448
+#: cluster sizes of the augmentation kernel: 8 is the portable limit, 16
+#: needs the non-portable attribute (which the kernel sets)
+AUGMENT_CLUSTERS = (1, 2, 4, 8, 16)
+#: csrc/augment.cu's kScratchBytes: the reductions and the mbarrier
+_AUGMENT_SCRATCH_BYTES = 6400
+#: csrc/preprocess.cu: kHeaderBytes before the image, and the shared memory
+#: a block gets without opting in
+_CIFAR_HEADER_BYTES = 64
+_CIFAR_SMEM_LIMIT = 48 * 1024
+
+
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def augment_smem_bytes(h: int, w: int, cluster: int) -> int:
+    """Dynamic shared memory of one block of the augmentation kernel when
+    clusters of `cluster` blocks hold an ``h x w`` image: the scratch and two
+    float32 buffers of one band of ``ceil(h / cluster)`` rows, each padded to
+    16 bytes with 16 more of slack (``csrc/augment.cu band_floats``)."""
+    rows = -(-h // cluster)
+    return _AUGMENT_SCRATCH_BYTES + 2 * 4 * (_round_up(rows * w * 3, 4) + 4)
+
+
+@dataclass(frozen=True)
+class AugmentPlan:
+    """How :func:`augment` runs on an ``h x w`` image with `num_op` slots.
+
+    ``path`` is ``"cluster"`` (``augment_kernel``: one launch, clusters of
+    `cluster` blocks of `threads` threads with `smem_bytes` of dynamic
+    shared memory each) or ``"per_slot"`` (``augment_slot_kernel``: one
+    launch per slot).  `launches` is the kernel launches per call."""
+
+    path: str
+    cluster: int
+    smem_bytes: int
+    threads: int
+    launches: int
+
+    @property
+    def kernel(self) -> str:
+        return "augment_kernel" if self.path == "cluster" else "augment_slot_kernel"
+
+
+def augment_plan(h: int, w: int, num_op: int, cluster: int | None = None) -> AugmentPlan:
+    """Choose the augmentation kernel's launch from the shape alone.
+
+    The cluster path holds one image per thread-block cluster, a band of
+    ``ceil(h / cluster)`` rows per block in shared memory.  The cluster size
+    is the smallest of :data:`AUGMENT_CLUSTERS` whose block fits in
+    :data:`MAX_SMEM_BYTES` (1 at 32x32; 8 at 224x224, where 8 measured a
+    little faster than 16 on the H100).  A block takes 512 threads when it
+    has an SM's shared memory to itself, else 256.  An image whose band does
+    not fit even at 16 blocks takes the per-slot path.
+
+    `cluster` forces a cluster size (for measurement); one that is not a
+    cluster size or does not fit raises ``ValueError``.  Nothing here looks
+    at a device, and no launch ever falls back from one path to the other."""
+    if h < 1 or w < 1 or num_op < 1:
+        raise ValueError(f"no augmentation plan for {h}x{w} with {num_op} slots")
+    sizes = AUGMENT_CLUSTERS if cluster is None else (cluster,)
+    if cluster is not None and cluster not in AUGMENT_CLUSTERS:
+        raise ValueError(f"cluster must be one of {AUGMENT_CLUSTERS}, got {cluster}")
+    fits = [c for c in sizes if augment_smem_bytes(h, w, c) <= MAX_SMEM_BYTES]
+    if not fits:
+        if cluster is not None:
+            raise ValueError(f"a {h}x{w} image does not fit clusters of {cluster} blocks "
+                             f"({augment_smem_bytes(h, w, cluster)} bytes of shared memory "
+                             f"per block, at most {MAX_SMEM_BYTES})")
+        return AugmentPlan("per_slot", 1, 0, 256, num_op)
+    smem = augment_smem_bytes(h, w, fits[0])
+    return AugmentPlan("cluster", fits[0], smem, 512 if 2 * smem > MAX_SMEM_BYTES else 256, 1)
+
+
+@dataclass(frozen=True)
+class CifarPlan:
+    """How :func:`cifar_stack` runs on an ``h x w`` image: ``staged`` (the
+    image bulk-copied into shared memory) or read from global memory, with
+    `smem_bytes` of dynamic shared memory per block; one launch."""
+
+    staged: bool
+    smem_bytes: int
+
+
+def cifar_plan(h: int, w: int) -> CifarPlan:
+    """Stage the image when it fits in the 48 KB of shared memory a block
+    gets without opting in (a 32x32 image takes 12 KB); otherwise the same
+    kernel reads it from global memory.  Shape alone decides."""
+    staged = _CIFAR_HEADER_BYTES + 4 * (_round_up(h * w * 3, 4) + 4)
+    if staged <= _CIFAR_SMEM_LIMIT:
+        return CifarPlan(True, staged)
+    return CifarPlan(False, _CIFAR_HEADER_BYTES)
 
 
 def _nvcc() -> str:
@@ -150,10 +255,14 @@ def _check_rc(lib, rc: int, what: str) -> None:
                            f"{lib.faa_error_string(rc).decode()}")
 
 
-def augment(images: torch.Tensor, records: torch.Tensor) -> torch.Tensor:
+def augment(images: torch.Tensor, records: torch.Tensor, *,
+            cluster: int | None = None) -> torch.Tensor:
     """Run every op slot of ``records [B, num_op, 16]`` over ``images
-    [B, H, W, 3]`` with the CUDA kernel, one launch per slot, ping-ponging
-    between two buffers so that the last slot writes the result."""
+    [B, H, W, 3]`` with the CUDA kernel as :func:`augment_plan` says: one
+    launch on the cluster path; on the per-slot path one launch per slot,
+    ping-ponging between two buffers so that the last slot writes the
+    result.  `cluster` forces the cluster size (for measurement).  A launch
+    the device refuses raises ``RuntimeError``."""
     if images.device.type != "cuda" or records.device != images.device:
         raise ValueError("the augmentation kernel takes CUDA tensors on one device")
     if images.dtype != torch.float32 or records.dtype != torch.float32:
@@ -170,29 +279,56 @@ def augment(images: torch.Tensor, records: torch.Tensor) -> torch.Tensor:
     num_op = records.shape[1]
     if num_op == 0:
         raise ValueError("records must hold at least one op slot")
+    plan = augment_plan(h, w, num_op, cluster)
     if b == 0:
         return torch.empty_like(images)
     lib = load_libraries()["augment"]
     out = torch.empty_like(images)
-    tmp = torch.empty_like(images) if num_op > 1 else None
+    dev = images.device.index or 0
     stream = torch.cuda.current_stream(images.device).cuda_stream
+    if plan.path == "cluster":
+        rc = lib.faa_augment(images.data_ptr(), out.data_ptr(), records.data_ptr(), num_op,
+                             b, h, w, plan.cluster, plan.smem_bytes, plan.threads, dev,
+                             stream)
+        _check_rc(lib, rc, "augment")
+        with _lock:
+            _launches["augment"] += 1
+        return out
+    tmp = torch.empty_like(images) if num_op > 1 else None
     src = images
     for slot in range(num_op):
         dst = out if (num_op - 1 - slot) % 2 == 0 else tmp
         rc = lib.faa_augment_slot(src.data_ptr(), dst.data_ptr(), records.data_ptr(),
-                                  slot, num_op, b, h, w, images.device.index or 0,
-                                  stream)
+                                  slot, num_op, b, h, w, dev, stream)
         _check_rc(lib, rc, "augment")
         with _lock:
-            _launches["augment_slot"] += 1
+            _launches["augment"] += 1
         src = dst
     return out
+
+
+def augment_max_active_clusters(h: int, w: int, num_op: int = 2, cluster: int | None = None,
+                                device: int = 0) -> int:
+    """How many clusters of :func:`augment_plan`'s cluster path the device
+    holds at once (``cudaOccupancyMaxActiveClusters``); 0 would refuse the
+    launch."""
+    plan = augment_plan(h, w, num_op, cluster)
+    if plan.path != "cluster":
+        raise ValueError(f"a {h}x{w} image takes the per-slot path")
+    lib = load_libraries()["augment"]
+    active = ctypes.c_int(0)
+    rc = lib.faa_augment_max_active_clusters(h, w, plan.cluster, plan.smem_bytes,
+                                             plan.threads, device, ctypes.byref(active))
+    _check_rc(lib, rc, "augment occupancy")
+    return active.value
 
 
 def cifar_stack(images: torch.Tensor, draws: torch.Tensor, *, pad: int,
                 cutout_length: int, scale: float, mean, rstd) -> torch.Tensor:
     """Crop with zero pad, flip, normalize and cut out ``images [N, H, W, 3]``
-    (float32, integral in [0, 255]) with the CUDA kernel, one launch.
+    (float32, integral in [0, 255]) with the CUDA kernel, one launch of one
+    block per image (:func:`cifar_plan` says whether the image is staged in
+    shared memory).
 
     ``draws [N, 5]`` int32 holds (oy, ox, flip, cy, cx) per image.  A
     value is normalized as ``(v * scale - mean[c]) * rstd[c]``, each product
@@ -216,13 +352,15 @@ def cifar_stack(images: torch.Tensor, draws: torch.Tensor, *, pad: int,
         raise ValueError("pad and cutout_length must be >= 0")
     out = torch.empty((n, h, w, 3), dtype=torch.float32, device=images.device)
     if n:
+        plan = cifar_plan(h, w)
         lib = load_libraries()["preprocess"]
         stream = torch.cuda.current_stream(images.device).cuda_stream
         m = [float(v) for v in mean]
         r = [float(v) for v in rstd]
         rc = lib.faa_cifar_stack(images.data_ptr(), out.data_ptr(), draws.data_ptr(),
                                  n, h, w, int(pad), int(cutout_length) // 2,
-                                 float(scale), *m, *r, images.device.index or 0, stream)
+                                 float(scale), *m, *r, int(plan.staged), plan.smem_bytes,
+                                 images.device.index or 0, stream)
         _check_rc(lib, rc, "CIFAR stack")
         with _lock:
             _launches["cifar_stack"] += 1

@@ -31,8 +31,9 @@ JAX references with ``--xla_cpu_max_isa=AVX``, which has no fused
 multiply-add, where every JAX program agrees with the port bit for bit.
 
 On a CUDA tensor :func:`apply_subpolicy_draws` launches the kernel
-(``csrc/augment.cu``, one launch per op slot) or raises; only a CPU
-tensor goes to the plain version.
+(``csrc/augment.cu``: all op slots in one launch, the image held on chip,
+except for images too large for a thread-block cluster, which take one
+launch per slot) or raises; only a CPU tensor goes to the plain version.
 """
 
 from __future__ import annotations
@@ -465,8 +466,9 @@ def apply_subpolicy_draws(images: torch.Tensor, policy: torch.Tensor,
     ``images [B, H, W, 3]`` float32 integral in [0, 255], ``policy
     [num_sub, num_op, 3]`` float32, ``sub_idx [B]`` integer, ``draws
     [B, num_op, 4]`` float32, all on one device.  A CUDA batch goes through
-    the hand-written kernel (one launch per op slot); a CPU batch through
-    the plain version.  Returns a new tensor."""
+    the hand-written kernel (one launch for all op slots, as
+    ``_kernels.augment_plan`` says); a CPU batch through the plain version.
+    Returns a new tensor."""
     if images.device.type == "cpu":
         return apply_subpolicy_draws_plain(images, policy, sub_idx, draws)
     if images.device.type != "cuda":

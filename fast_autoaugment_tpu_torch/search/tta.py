@@ -15,7 +15,7 @@ through the frozen model, and per batch the step records
 
 One step is one pass over the P x B lanes of a batch: the sampler makes
 every lane's draws, the augmentation kernel applies the candidate policy
-(one launch per op slot over all lanes), the CIFAR stack kernel crops,
+(one launch for all op slots over all lanes), the CIFAR stack kernel crops,
 flips, normalizes and cuts out (one launch), the model runs ONE forward
 over the flattened batch in eval mode, and the reductions run as torch
 ops.  With ``num_candidates=K`` the step gains a leading candidate axis:

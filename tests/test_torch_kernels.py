@@ -27,7 +27,12 @@ from fast_autoaugment_tpu_torch.ops import rng
 from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
 from fast_autoaugment_tpu_torch.policies.archive import ARCHIVES, load_policy, policy_to_tensor
 
-SHAPES = [(8, 32, 32), (4, 17, 23), (2, 224, 224)]
+#: 32x32 (one block per image), odd sizes, 224x224 (a cluster of blocks per
+#: image), 225x223 (bands of unequal height that cross odd rows), 496x300 (the
+#: tallest that fits clusters of 16, at one block per SM) and 520x300 (too
+#: large for a cluster: one launch per slot)
+SHAPES = [(8, 32, 32), (4, 17, 23), (2, 224, 224), (3, 225, 223), (2, 496, 300),
+          (2, 520, 300)]
 
 
 @pytest.fixture()
@@ -41,34 +46,119 @@ def _images(g, b, h, w, dev):
     return torch.from_numpy(g.integers(0, 256, (b, h, w, 3)).astype(np.float32)).to(dev)
 
 
+def _forced(g, b, h, w, op, dev):
+    """A 5-sub-policy policy of op `op` at five levels, forced on, with
+    both mirror signs and random cutout centres."""
+    pol = torch.tensor([[[op, 1.0, lv]] for lv in np.linspace(0, 1, 5)],
+                       dtype=torch.float32, device=dev)
+    sub = torch.arange(b, dtype=torch.int32, device=dev) % 5
+    draws = torch.from_numpy(np.stack([
+        np.zeros(b), np.where(np.arange(b) % 2 == 0, 0.25, 0.75),
+        g.uniform(0, w, b), g.uniform(0, h, b)], -1).astype(np.float32)[:, None]).to(dev)
+    return pol, sub, draws
+
+
+def _augment_counted(imgs, pol, sub, draws):
+    """The kernel's result and its launches for one call."""
+    before = _kernels.launch_counts()["augment"]
+    got = T.apply_subpolicy_draws(imgs, pol, sub, draws)
+    return got, _kernels.launch_counts()["augment"] - before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w", SHAPES)
 def test_every_op_bitwise_vs_plain(cuda_device, b, h, w):
     g = np.random.default_rng(h)
     imgs = _images(g, b, h, w, cuda_device)
+    imgs[0] = torch.floor(imgs[0] / 4 + 64)  # a low-range image for the histogram ops
+    plan = _kernels.augment_plan(h, w, 1)
     for op in range(T.NUM_OPS):
-        pol = torch.tensor([[[op, 1.0, lv]] for lv in np.linspace(0, 1, 5)],
-                           dtype=torch.float32, device=cuda_device)
-        sub = torch.arange(b, dtype=torch.int32, device=cuda_device) % 5
-        draws = torch.from_numpy(np.stack([
-            np.zeros(b), np.where(np.arange(b) % 2 == 0, 0.25, 0.75),
-            g.uniform(0, w, b), g.uniform(0, h, b)], -1).astype(np.float32)[:, None]).to(cuda_device)
-        got = T.apply_subpolicy_draws(imgs, pol, sub, draws)
-        assert torch.equal(got, T.apply_subpolicy_draws_plain(imgs, pol, sub, draws)), T.OP_NAMES[op]
+        pol, sub, draws = _forced(g, b, h, w, op, cuda_device)
+        got, launches = _augment_counted(imgs, pol, sub, draws)
+        assert launches == plan.launches == 1
+        want = T.apply_subpolicy_draws_plain(imgs, pol, sub, draws)
+        assert torch.equal(got, want), T.OP_NAMES[op]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,clusters", [(6, 32, 32, (1, 2, 4, 8, 16)),
+                                            (3, 17, 23, (2, 16)),
+                                            (2, 224, 224, (8, 16))])
+def test_every_op_at_every_cluster_size(cuda_device, b, h, w, clusters):
+    """Bands of 2 rows cross at every other row at 16 blocks per 32x32
+    image; at 17 rows, 7 of 16 blocks hold no row at all."""
+    g = np.random.default_rng(w)
+    imgs = _images(g, b, h, w, cuda_device)
+    for op in range(T.NUM_OPS):
+        pol, sub, draws = _forced(g, b, h, w, op, cuda_device)
+        rec = T.slot_records(pol, sub, draws, h, w)
+        want = T.apply_subpolicy_draws_plain(imgs, pol, sub, draws)
+        for c in clusters:
+            got = _kernels.augment(imgs, rec, cluster=c)
+            assert torch.equal(got, want), (T.OP_NAMES[op], c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(16, 32, 32), (2, 224, 224), (4, 225, 223), (2, 520, 300)])
 @pytest.mark.parametrize("name", ARCHIVES)
-def test_archive_draws_bitwise_vs_plain(cuda_device, name):
-    g = np.random.default_rng(len(name))
+def test_archive_draws_bitwise_vs_plain(cuda_device, name, b, h, w):
+    g = np.random.default_rng(len(name) + h)
     pol = torch.from_numpy(policy_to_tensor(load_policy(name))).to(cuda_device)
-    imgs = _images(g, 16, 32, 32, cuda_device)
-    keys = torch.from_numpy(g.integers(0, 2**32, (16, 2), dtype=np.int64)).to(cuda_device)
-    sub, draws = T.sample_exact(keys, pol.shape[0], pol.shape[1], 32, 32)
-    before = _kernels.launch_counts()["augment_slot"]
-    got = T.apply_subpolicy_draws(imgs, pol, sub, draws)
-    assert _kernels.launch_counts()["augment_slot"] == before + pol.shape[1]
+    imgs = _images(g, b, h, w, cuda_device)
+    keys = torch.from_numpy(g.integers(0, 2**32, (b, 2), dtype=np.int64)).to(cuda_device)
+    sub, draws = T.sample_exact(keys, pol.shape[0], pol.shape[1], h, w)
+    got, launches = _augment_counted(imgs, pol, sub, draws)
+    assert launches == _kernels.augment_plan(h, w, pol.shape[1]).launches
+    assert launches == (1 if h * w < 520 * 300 else pol.shape[1])
     assert torch.equal(got, T.apply_subpolicy_draws_plain(imgs, pol, sub, draws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_op", [1, 2, 3])
+@pytest.mark.parametrize("b,h,w", [(64, 32, 32), (4, 224, 224), (2, 520, 300)])
+def test_random_policies_of_1_2_3_slots(cuda_device, num_op, b, h, w):
+    """Random ops, probabilities and levels over all 19 ops: gated-off
+    slots, chains of reductions and warps within one launch."""
+    g = np.random.default_rng(num_op * 100 + h)
+    pol = np.zeros((8, num_op, 3), np.float32)
+    pol[..., 0] = g.integers(0, T.NUM_OPS, (8, num_op))
+    pol[..., 1:] = g.uniform(0, 1, (8, num_op, 2))
+    pol = torch.from_numpy(pol).to(cuda_device)
+    imgs = _images(g, b, h, w, cuda_device)
+    keys = torch.from_numpy(g.integers(0, 2**32, (b, 2), dtype=np.int64)).to(cuda_device)
+    sub, draws = T.sample_exact(keys, 8, num_op, h, w)
+    got, launches = _augment_counted(imgs, pol, sub, draws)
+    assert launches == (1 if h < 520 else num_op)
+    assert torch.equal(got, T.apply_subpolicy_draws_plain(imgs, pol, sub, draws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", _kernels.AUGMENT_CLUSTERS)
+def test_largest_band_of_every_cluster_size_is_resident(cuda_device, cluster):
+    """The planner takes a cluster size only where the smaller ones do not
+    fit, so the most shared memory a cluster size is planned with is that of
+    the tallest image whose band still fits; such a cluster must be resident,
+    or every launch of that shape would be refused."""
+    h = max(h for h in range(1, 2048)
+            if _kernels.augment_smem_bytes(h, 300, cluster) <= _kernels.MAX_SMEM_BYTES)
+    assert _kernels.augment_max_active_clusters(h, 300, cluster=cluster) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(4, 32, 32), (2, 224, 224), (2, 520, 300)])
+def test_histogram_ops_on_constant_and_two_valued_images(cuda_device, b, h, w):
+    """Equalize's identity LUT (one used bin; two bins, where step may be
+    0) and AutoContrast's hi <= lo case, on every path."""
+    imgs = torch.full((b, h, w, 3), 77.0, device=cuda_device)
+    imgs[1, : h // 3] = 200.0  # two values, a third of the image one of them
+    imgs[-1, :, :, 1] = 3.0
+    imgs[-1, h - 1, w - 1, 1] = 250.0  # a single outlier
+    for op in (T.EQUALIZE, T.AUTO_CONTRAST, T.CONTRAST):
+        pol = torch.tensor([[[op, 1.0, 0.6]]], dtype=torch.float32, device=cuda_device)
+        sub = torch.zeros(b, dtype=torch.int32, device=cuda_device)
+        draws = torch.zeros((b, 1, 4), dtype=torch.float32, device=cuda_device)
+        got = T.apply_subpolicy_draws(imgs, pol, sub, draws)
+        assert torch.equal(got, T.apply_subpolicy_draws_plain(imgs, pol, sub, draws)), op
 
 
 @pytest.mark.cuda
@@ -109,9 +199,12 @@ def _stack_draws(b, h, w, g):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w", [(640, 32, 32), (4, 17, 23)])
+#: staged in shared memory at 32x32, 17x23 and 40x24; read from global
+#: memory at 100x90 (108 KB, over the 48 KB a block gets without opting in)
+@pytest.mark.parametrize("b,h,w", [(640, 32, 32), (4, 17, 23), (6, 40, 24), (2, 100, 90)])
 @pytest.mark.parametrize("length", [0, 16])
 def test_cifar_stack_bitwise_vs_plain(cuda_device, b, h, w, length):
+    assert _kernels.cifar_plan(h, w).staged == (h * w < 100 * 90)
     g = np.random.default_rng(b + length)
     imgs = _images(g, b, h, w, cuda_device)
     draws = torch.from_numpy(_stack_draws(b, h, w, g)).to(cuda_device)
