@@ -5,8 +5,8 @@
     python3 chip_smoke.py --pair-with OTHER_CHECKOUT
 
 Run from the root of a checkout; it needs one CUDA card and ``nvcc``.  With
-``--pair-with`` it only times K1 and K5 of the other checkout's port against
-this one's (:func:`paired_kernel_times`).  Without arguments, the phases,
+``--pair-with`` it only times K1, K5 and K6 of the other checkout's port
+against this one's (:func:`paired_kernel_times`).  Without arguments, the phases,
 each printing one JSON line:
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions, and the
@@ -26,8 +26,11 @@ each printing one JSON line:
    640x32x32, 4x17x23 and 2x100x90 (read from global memory), and the eval
    stack) and the ImageNet stack kernel
    (``k6_vs_plain``: the six ColorJitter orders x both flip bits x cutout 0
-   and 16, uint8 and float32 inputs, at 128x224x224 and 4x17x23); and every
-   sampler's draws on the card against the CPU from the same keys;
+   and 16, uint8, float32 and non-integral float32 inputs, at 128x224x224
+   (also at every cluster size that fits), 4x17x23, 3x225x223 (bands of
+   unequal height) and the two-pass path (2x1100x300 float32, 2x4200x300
+   uint8), launches per call against ``ops/_kernels.py imagenet_plan``);
+   and every sampler's draws on the card against the CPU from the same keys;
 3. the serving path: two ``serve_cli`` processes on the card (the shipped
    ``fa_reduced_cifar10`` archive at 32x32, grouped dispatch; one ImageNet
    sub-policy at 224x224, shapes 1,8, exact dispatch) answer npz, raw and
@@ -61,19 +64,23 @@ each printing one JSON line:
    run's 10,009 steps, warmup 5, nesterov, decay 1e-4, clip 0, the
    498-sub-policy ``fa_resnet50_rimagenet`` archive) through
    ``make_train_step`` with the ImageNet stack (K1, then K6) as its augment
-   function, on seeded uint8 batches: 10 exact steps and one grouped step
-   with finite losses and 1 K1 and 2 K6 launches per step; then one
-   step with both kernels against one with both plain versions from the
-   same state under deterministic cuDNN (augmented batch, loss and every
-   tensor of the model bitwise).  ``train_flagship`` runs ``train_and_eval``
+   function, on seeded uint8 batches: 10 exact steps, one grouped step and
+   one step without a policy (the uint8 batch straight into K6, as phase 1
+   trains) with finite losses and 1 K1 and 1 K6 launch per step (as
+   ``augment_plan`` and ``imagenet_plan`` say); then a step with the
+   kernels against one with the plain versions from the same state under
+   deterministic cuDNN, with and without the policy (augmented batch, loss
+   and every tensor of the model bitwise).  ``train_flagship`` runs ``train_and_eval``
    with the flagship WRN-40-2 config on ``synthetic`` (2 epochs of 4 steps,
    evaluation every epoch) and checks its result dict and launch counts;
 7. ``train_times``: the ResNet-50 step's median time and images/s, a
    profiler trace split by stage (sampler, K1, K6, model forward and
    backward with the convolutions' TFLOP/s, optimizer) with the device's
    idle share, K1 and K6 at 128x224x224 against their bounds and plain
-   versions (K1 also with clusters of 8 and of 16 blocks, and how many such
-   clusters the card holds at once), and the peak device memory.
+   versions, also by CUDA-graph replay (K1 also with clusters of 8 and of
+   16 blocks, K6 at every cluster size that fits, on float32 and uint8
+   input, and how many such clusters the card holds at once), and the peak
+   device memory.
 
 The last two lines are the ``kernels`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with
@@ -1138,8 +1145,12 @@ TRAIN_STAGES = ("train.sampler", "train.augment", "train.model", "train.optimize
 TRAIN_STEPS = 10
 TIMED_STEPS = 20
 TRACE_STEPS = 3
-K6_KERNELS = ("grey_sum_kernel", "imagenet_stack_kernel")
-K6_SHAPES = ((128, 224, 224), (4, 17, 23))
+#: K6's kernels (csrc/imagenet.cu): the cluster path and the two-pass path
+K6_KERNELS = ("imagenet_cluster_kernel", "grey_sum_kernel", "imagenet_stack_kernel")
+#: K6's check shapes: the train shape, odd sizes, bands of unequal height,
+#: and images too large for clusters of 16 blocks (the two-pass path) in
+#: both dtypes
+K6_SHAPES = ((128, 224, 224), (4, 17, 23), (3, 225, 223), (2, 1100, 300), (2, 4200, 300))
 
 
 def _imagenet_k6_draws(g, b, h, w, dev):
@@ -1160,35 +1171,95 @@ def _imagenet_k6_draws(g, b, h, w, dev):
     return d
 
 
-def phase_k6_vs_plain(dev) -> dict:
-    """The ImageNet stack kernel against its plain version on the card:
-    the six jitter orders x both flip bits x cutout 0 and 16, uint8 and
-    float32 inputs, at 128x224x224 and 4x17x23; and the stack's draws on the
-    card against the CPU."""
+def _k6_args(d) -> dict:
+    """The arguments of ``_kernels.imagenet_stack`` after the images, for
+    draws `d`, as ``preprocess_imagenet.imagenet_stack`` passes them."""
     import torch
 
+    from fast_autoaugment_tpu_torch.ops import preprocess as pre
+    from fast_autoaugment_tpu_torch.ops import preprocess_imagenet as pi
+
+    mean, rstd = (v.tolist() for v in pi.norm_constants(pi.IMAGENET_MEAN, pi.IMAGENET_STD))
+    return {"ints": torch.stack([d.flip, d.order, d.centre[:, 0], d.centre[:, 1]],
+                                dim=-1).contiguous(),
+            "floats": torch.cat([d.factors, pi.lighting_rgb(d.alpha)], dim=-1).contiguous(),
+            "scale": pre._SCALE, "mean": mean, "rstd": rstd}
+
+
+def _k6_clusters(h: int, w: int, dtype) -> list[int]:
+    """The cluster sizes whose block fits at this shape and dtype."""
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    out = []
+    for c in _kernels.IMAGENET_CLUSTERS:
+        try:
+            _kernels.imagenet_plan(h, w, dtype, c)
+        except ValueError:  # does not fit
+            continue
+        out.append(c)
+    return out
+
+
+def phase_k6_vs_plain(dev) -> dict:
+    """The ImageNet stack kernels against their plain version on the card:
+    the six jitter orders x both flip bits x cutout 0 and 16, uint8,
+    float32 and non-integral float32 inputs (partly outside [0, 255]), at
+    every shape of :data:`K6_SHAPES` (the last two on the two-pass path, in
+    float32 and in uint8), 128x224x224 also at every cluster size that fits;
+    launches per call against ``ops/_kernels.py imagenet_plan``; and the
+    stack's draws on the card against the CPU."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
     from fast_autoaugment_tpu_torch.ops import preprocess_imagenet as pi
     from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
 
     g = np.random.default_rng(6)
     report = {"phase": "k6_vs_plain", "tolerance": "bitwise: 0 differing elements",
-              "cases": {}, "differing_elements": 0, "max_abs_err": 0.0}
+              "cases": {}, "paths": {}, "differing_elements": 0, "max_abs_err": 0.0}
+
+    def compare(tag, got, want, launches, plan):
+        torch.cuda.synchronize()
+        b, h, w = want.shape[0], want.shape[2], want.shape[3]
+        if got.shape != (b, 3, h, w) or not got.is_contiguous(
+                memory_format=torch.channels_last) or not bool(torch.isfinite(got).all()):
+            fail(f"k6 {tag}: shape, layout or finiteness is wrong")
+        if launches != plan.launches:
+            fail(f"k6 {tag}: {launches} launches in one call, the plan says {plan.launches}")
+        diff = (got - want).abs()
+        report["cases"][tag] = int((diff > 0).sum())
+        report["paths"][tag] = f"{plan.path}/{plan.cluster}"
+        report["differing_elements"] += report["cases"][tag]
+        report["max_abs_err"] = max(report["max_abs_err"], float(diff.max()))
+
     for b, h, w in K6_SHAPES:
         u8 = torch.from_numpy(g.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(dev)
+        inputs = {"uint8": u8, "float32": u8.to(torch.float32),
+                  "float32_off_integers": torch.from_numpy(
+                      g.uniform(-40.0, 300.0, (b, h, w, 3)).astype(np.float32)).to(dev)}
+        if h == 4200:  # the uint8 two-pass shape: float32 would take it too, at 4x the bytes
+            inputs = {"uint8": u8}
         for length in (0, 16):
             d = _imagenet_k6_draws(g, b, h, w, dev)
-            for name, imgs in (("uint8", u8), ("float32", u8.to(torch.float32))):
+            for name, imgs in inputs.items():
+                plan = _kernels.imagenet_plan(h, w, imgs.dtype)
+                before = _kernels.launch_counts()["imagenet_stack"]
                 got = pi.imagenet_stack(imgs, d, cutout_length=length)
+                launches = _kernels.launch_counts()["imagenet_stack"] - before
                 want = pi.imagenet_stack_plain(imgs, d, cutout_length=length)
-                torch.cuda.synchronize()
-                if got.shape != (b, 3, h, w) or not got.is_contiguous(
-                        memory_format=torch.channels_last) or not bool(torch.isfinite(got).all()):
-                    fail(f"k6 {b}x{h}x{w}: shape, layout or finiteness is wrong")
-                diff = (got - want).abs()
-                tag = f"{b}x{h}x{w}_cutout{length}_{name}"
-                report["cases"][tag] = int((diff > 0).sum())
-                report["differing_elements"] += report["cases"][tag]
-                report["max_abs_err"] = max(report["max_abs_err"], float(diff.max()))
+                compare(f"{b}x{h}x{w}_cutout{length}_{name}", got, want, launches, plan)
+            if h != 224:
+                continue
+            args = _k6_args(d)
+            for name, imgs in inputs.items():
+                for c in _k6_clusters(h, w, imgs.dtype):
+                    plan = _kernels.imagenet_plan(h, w, imgs.dtype, c)
+                    before = _kernels.launch_counts()["imagenet_stack"]
+                    got = _kernels.imagenet_stack(imgs, **args, cutout_length=length, cluster=c)
+                    launches = _kernels.launch_counts()["imagenet_stack"] - before
+                    want = pi.imagenet_stack_plain(imgs, d, cutout_length=length)
+                    compare(f"{b}x{h}x{w}_cutout{length}_{name}_cluster{c}", got, want,
+                            launches, plan)
     src, same = PhiloxDraws(), []
     for dispatch in ("exact", "grouped"):
         d = {where: src.imagenet_draws(torch.tensor([5, 1]), batch=128, policy_shape=(498, 2),
@@ -1238,8 +1309,9 @@ def resnet50_setup(dev, n_batches: int = 4) -> dict:
             "steps_per_epoch": steps_per_epoch}
 
 
-def _plain_imagenet_augment(cutout):
-    """The ImageNet train stack with the plain versions of K1 and K6."""
+def _plain_imagenet_augment(cutout, use_policy=True):
+    """The ImageNet train stack with the plain versions of K1 and K6 (of K6
+    alone, on the uint8 batch, without a policy)."""
     import torch
 
     from fast_autoaugment_tpu_torch.ops import augment as aug
@@ -1247,10 +1319,14 @@ def _plain_imagenet_augment(cutout):
 
     def fn(images, policy, key, src):
         b, h, w = (int(v) for v in images.shape[:3])
-        d = src.imagenet_draws(key, batch=b, policy_shape=tuple(policy.shape[:2]), height=h,
-                               width=w, dispatch="exact", groups=8, device=images.device)
-        x = aug.apply_subpolicy_draws_plain(images.to(torch.float32), policy, d.sub_idx,
-                                            d.policy)
+        d = src.imagenet_draws(key, batch=b,
+                               policy_shape=tuple(policy.shape[:2]) if use_policy else None,
+                               height=h, width=w, dispatch="exact", groups=8,
+                               device=images.device)
+        x = images
+        if use_policy:
+            x = aug.apply_subpolicy_draws_plain(images.to(torch.float32), policy, d.sub_idx,
+                                                d.policy)
         return pi.imagenet_stack_plain(x, d, cutout_length=cutout)
     return fn
 
@@ -1299,9 +1375,11 @@ def _batchnorm_rule_error(dev) -> float:
 
 def phase_train_main_path(dev, st: dict) -> dict:
     """ResNet-50 train steps through make_train_step with the ImageNet stack
-    (K1, then K6) as its augment_fn, wired as train_and_eval wires it; the
-    launch counts set to 0 just before and read just after; then one step
-    with both kernels against one with both plain versions."""
+    (K1, then K6 on K1's float32 output) as its augment_fn, wired as
+    train_and_eval wires it, and one step without a policy (the uint8 batch
+    straight into K6, as phase 1 trains); the launch counts set to 0 just
+    before and read just after; then a step with the kernels against one
+    with the plain versions, with and without a policy."""
     import torch
 
     from fast_autoaugment_tpu_torch.ops import _kernels
@@ -1311,6 +1389,7 @@ def phase_train_main_path(dev, st: dict) -> dict:
     num_op = int(st["policy"].shape[1])
     step = st["make"]("exact")
     step_g = st["make"]("grouped")
+    step_u8 = st["make"]("exact", steps.imagenet_augment_fn(c["cutout"], False))
     key = torch.tensor([0, 0], device=dev)
     losses = []
     _kernels.reset_launch_counts()
@@ -1321,55 +1400,69 @@ def phase_train_main_path(dev, st: dict) -> dict:
         losses.append(m["loss"] / m["num"])
     x, y = st["batches"][0]
     st["state"], mg = step_g(st["state"], x, y, st["policy"], key)
+    st["state"], mu = step_u8(st["state"], x, y, st["policy"], key)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _kernels.launch_counts()
     losses = [float(v) for v in losses]
     calls = TRAIN_STEPS + 1
     per_call = _kernels.augment_plan(st["image"], st["image"], num_op).launches
-    want = {"augment": per_call * calls, "cifar_stack": 0, "imagenet_stack": 2 * calls}
+    k6_f32 = _kernels.imagenet_plan(st["image"], st["image"], torch.float32).launches
+    k6_u8 = _kernels.imagenet_plan(st["image"], st["image"], torch.uint8).launches
+    want = {"augment": per_call * calls, "cifar_stack": 0,
+            "imagenet_stack": k6_f32 * calls + k6_u8}
     if counts != want:
-        fail(f"train launch counts {counts} != {want} ({calls} steps)")
+        fail(f"train launch counts {counts} != {want} ({calls} steps with a policy, 1 without)")
     grouped_loss = float(mg["loss"] / mg["num"])
-    if not all(np.isfinite(losses + [grouped_loss])):
-        fail(f"a train step's loss is not finite: {losses} {grouped_loss}")
+    u8_loss = float(mu["loss"] / mu["num"])
+    if not all(np.isfinite(losses + [grouped_loss, u8_loss])):
+        fail(f"a train step's loss is not finite: {losses} {grouped_loss} {u8_loss}")
 
-    # one step with both kernels against one with both plain versions, from
-    # the same state, batch and key, under deterministic cuDNN
+    # one step with the kernels against one with the plain versions, from
+    # the same state, batch and key, under deterministic cuDNN: with the
+    # policy (K1, then K6 on float32) and without (K6 on uint8)
     prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    checks = {}
     try:
-        runs = {}
-        for name, fn in (("kernel", steps.imagenet_augment_fn(c["cutout"], True, "exact", 8)),
-                         ("plain", _plain_imagenet_augment(c["cutout"]))):
-            state = _copy_state(st["state"])
-            cap = _CaptureAugment(fn)
-            make = steps.make_train_step(state.model, st["optimizer"], num_classes=st["classes"],
-                                         cutout_length=c["cutout"], augment_fn=cap)
-            state, m = make(state, x, y, st["policy"], key)
-            torch.cuda.synchronize()
-            runs[name] = (cap.out[0], float(m["loss"]), state.model.state_dict())
+        for policy in (True, False):
+            runs = {}
+            for name, fn in (("kernel", steps.imagenet_augment_fn(c["cutout"], policy, "exact",
+                                                                  8)),
+                             ("plain", _plain_imagenet_augment(c["cutout"], policy))):
+                state = _copy_state(st["state"])
+                cap = _CaptureAugment(fn)
+                make = steps.make_train_step(state.model, st["optimizer"],
+                                             num_classes=st["classes"],
+                                             cutout_length=c["cutout"], augment_fn=cap)
+                state, m = make(state, x, y, st["policy"], key)
+                torch.cuda.synchronize()
+                runs[name] = (cap.out[0], float(m["loss"]), state.model.state_dict())
+            (xk, lk, sk), (xp, lp, sp) = runs["kernel"], runs["plain"]
+            checks["with_policy" if policy else "without_policy"] = {
+                "augmented_elements_differing": int((xk != xp).sum()),
+                "augmented_max_abs_err": float((xk - xp).abs().max()),
+                "loss_kernel": lk, "loss_plain": lp, "state_tensors": len(sk),
+                "state_tensors_differing": sorted(k for k in sk if not torch.equal(sk[k], sp[k]))}
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
-    (xk, lk, sk), (xp, lp, sp) = runs["kernel"], runs["plain"]
-    batch_diff = int((xk != xp).sum())
     bn_err = _batchnorm_rule_error(dev)
-    tensors_diff = sorted(k for k in sk if not torch.equal(sk[k], sp[k]))
     out = {"phase": "train_main_path", "model": c["model"]["type"], "dataset": c["dataset"],
            "batch": c["batch"], "image": st["image"], "classes": st["classes"],
            "policy": c["aug"], "num_sub": int(st["policy"].shape[0]), "num_op": num_op,
            "steps_per_epoch": st["steps_per_epoch"], "steps": TRAIN_STEPS,
-           "grouped_steps": 1, "losses": losses, "grouped_loss": grouped_loss,
+           "grouped_steps": 1, "steps_without_policy": 1, "losses": losses,
+           "grouped_loss": grouped_loss, "loss_without_policy": u8_loss,
            "main_path_wall_s": wall, "launches": counts, "expected_launches": want,
-           "launches_per_step": {"augment": per_call, "imagenet_stack": 2},
-           "plain_vs_kernel": {"augmented_elements_differing": batch_diff,
-                               "augmented_max_abs_err": float((xk - xp).abs().max()),
-                               "loss_kernel": lk, "loss_plain": lp,
-                               "state_tensors": len(sk), "state_tensors_differing": tensors_diff},
+           "launches_per_step": {"augment": per_call, "imagenet_stack": k6_f32,
+                                 "imagenet_stack_without_policy": k6_u8},
+           "plain_vs_kernel": checks,
            "batchnorm_running_stats_rel_err": bn_err, "batchnorm_running_stats_tol": 1e-5}
     emit(out)
-    if batch_diff or lk != lp or tensors_diff:
-        fail("the train step with the kernels differs from the step with the plain versions")
+    for r in checks.values():
+        if r["augmented_elements_differing"] or r["loss_kernel"] != r["loss_plain"] \
+                or r["state_tensors_differing"]:
+            fail("the train step with the kernels differs from the step with the plain versions")
     if bn_err > 1e-5:
         fail(f"BatchNorm's running statistics on the card miss the flax rule by {bn_err}")
     return out
@@ -1448,9 +1541,10 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
     # K1 and K6 run a known number of times: the profile's rows of them
     # show whether it lost kernel records (then busy time is a floor)
     plan = _kernels.augment_plan(image, image, int(st["policy"].shape[1]))
-    rows_seen = kernel_counts(prof, (plan.kernel,) + K6_KERNELS)
+    plan6 = _kernels.imagenet_plan(image, image, torch.float32)  # K6 reads K1's output
+    rows_seen = kernel_counts(prof, (plan.kernel,) + plan6.kernel)
     rows_want = {plan.kernel: plan.launches * TRACE_STEPS,
-                 K6_KERNELS[0]: TRACE_STEPS, K6_KERNELS[1]: TRACE_STEPS}
+                 **{k: TRACE_STEPS for k in plan6.kernel}}
     # a range's device time counts the PyTorch operators launched inside it:
     # not the kernels launched through ctypes (K1, K6), and not the backward,
     # which autograd runs on a thread of its own; so the model's share is
@@ -1500,20 +1594,33 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
                               iters=3, warmup=1),
           "bytes": 2 * elems * 4 + rec.numel() * 4}  # images in + out once, records in
     k6 = {}
-    ints = torch.stack([d.flip, d.order, d.centre[:, 0], d.centre[:, 1]], dim=-1).contiguous()
-    floats = torch.cat([d.factors, pi.lighting_rgb(d.alpha)], dim=-1).contiguous()
-    mean, rstd = (v.tolist() for v in pi.norm_constants(pi.IMAGENET_MEAN, pi.IMAGENET_STD))
+    args = _k6_args(d)
+    copy_out = torch.empty(xf.shape, dtype=torch.float32, device=dev)
     for name, inp in (("float32", y1), ("uint8", x)):
-        raw = lambda: _kernels.imagenet_stack(  # noqa: E731  (the two launches alone)
-            inp, ints, floats, cutout_length=0, scale=1 / 255, mean=mean, rstd=rstd)
+        plan6 = _kernels.imagenet_plan(image, image, inp.dtype)
+        raw = lambda c=None: _kernels.imagenet_stack(  # noqa: E731  (the launch alone)
+            inp, **args, cutout_length=0, cluster=c)
         k6[name] = {
             "kernel": "imagenet_stack", "input": name, "shape": list(inp.shape),
-            "kernel_ms": kernel_device_ms(lambda: pi.imagenet_stack(inp, d), kernel=K6_KERNELS),
-            "grey_sum_kernel_ms": kernel_device_ms(raw, iters=50, kernel=K6_KERNELS[0]),
-            "stack_kernel_ms": kernel_device_ms(raw, iters=50, kernel=K6_KERNELS[1]),
+            "launches_per_call": plan6.launches, "cluster": plan6.cluster,
+            "threads": plan6.threads, "smem_bytes": plan6.smem_bytes,
+            "kernel_ms": kernel_device_ms(lambda: pi.imagenet_stack(inp, d), kernel=plan6.kernel),
             "kernel_event_ms": cuda_ms(raw, iters=50),
+            "kernel_graph_ms": graph_ms(raw),
             "wrapper_event_ms": cuda_ms(lambda: pi.imagenet_stack(inp, d)),
+            # every cluster size that fits, timed alike, and how many such
+            # clusters the card holds at once
+            "by_cluster": {str(c): {
+                "kernel_graph_ms": graph_ms(lambda c=c: raw(c)),
+                "smem_bytes": _kernels.imagenet_plan(image, image, inp.dtype, c).smem_bytes,
+                "threads": _kernels.imagenet_plan(image, image, inp.dtype, c).threads,
+                "max_active_clusters": _kernels.imagenet_max_active_clusters(
+                    image, image, inp.dtype, cluster=c, device=dev.index or 0)}
+                for c in _k6_clusters(image, image, inp.dtype)},
             "plain_ms": cuda_ms(lambda: pi.imagenet_stack_plain(inp, d), iters=5, warmup=1),
+            # a yardstick, not the same function: PyTorch copying the same
+            # bytes (the input into a float32 tensor of the output's size)
+            "copy_graph_ms": graph_ms(lambda: copy_out.copy_(inp)),
             "bytes": elems * inp.element_size() + elems * 4 + b * (4 * 4 + 6 * 4),
             "ops": 20 * elems}
     for k in (k1, *k6.values()):
@@ -1542,10 +1649,10 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
                      "top_device_ms_per_step": {k[:90]: v / 1e3 / n for k, v in top}},
            "timing": "median_step_ms: host clock around each of 20 steps after 3 warm-up "
                      "steps, synchronized; kernel_ms: device time from torch.profiler over 20 "
-                     "calls (K6's per-kernel times over 50 calls of the two launches alone); "
-                     "K1's kernel_graph_ms and by_op_graph_ms: CUDA-graph replay; "
+                     "calls; kernel_graph_ms, by_op_graph_ms and by_cluster: CUDA-graph "
+                     "replay, as is K6's copy_graph_ms (PyTorch copying the same bytes); "
                      "*_event_ms and plain_ms: CUDA events around back-to-back calls "
-                     "(K6's kernel_event_ms: the two launches alone, 50 calls); "
+                     "(K6's kernel_event_ms: the launch alone, 50 calls); "
                      "the trace runs with the profiler on (host time inflated); "
                      "convolution TFLOP/s counts 3x the forward's convolution and dense "
                      "FLOPs against the convolution kernels' device time"}
@@ -1556,17 +1663,19 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
 # ------------------------------------------------- paired kernel times
 
 #: (name, batch, image) of the paired timings: K1 at the TTA, train and
-#: serving shapes, K5 at the TTA shape
+#: serving shapes, K5 at the TTA shape, K6 at the train shape on float32
+#: (after K1) and uint8 (no policy) input
 PAIRED = (("k1_tta", 640, 32), ("k1_train", 128, 224), ("k1_serve", 128, 32),
-          ("k5_tta", 640, 32))
+          ("k5_tta", 640, 32), ("k6_train_f32", 128, 224), ("k6_train_u8", 128, 224))
 
 
 def time_kernels_of(tree: str) -> dict:
-    """Time K1 and K5 of the port in checkout `tree` on seeded inputs,
-    through the functions every slice of the port has (``slot_records``,
-    the samplers, ``_kernels.augment``, ``preprocess.cifar_stack``):
-    device ms per call by CUDA-graph replay (median of 3), and launches per
-    call from the launch counters."""
+    """Time K1, K5 and K6 of the port in checkout `tree` on seeded inputs,
+    through the functions every slice of the port since the training slice
+    has (``slot_records``, the samplers, ``_kernels.augment``,
+    ``preprocess.cifar_stack``, ``PhiloxDraws().imagenet_draws``,
+    ``_kernels.imagenet_stack``): device ms per call by CUDA-graph replay
+    (median of 3), and launches per call from the launch counters."""
     sys.path.insert(0, tree)
     import torch
 
@@ -1574,6 +1683,7 @@ def time_kernels_of(tree: str) -> dict:
     from fast_autoaugment_tpu_torch.ops import augment as aug
     from fast_autoaugment_tpu_torch.ops import preprocess as pre
     from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
+    from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
 
     dev = torch.device("cuda", 0)
     _kernels.load_libraries()
@@ -1581,6 +1691,19 @@ def time_kernels_of(tree: str) -> dict:
     for name, b, img in PAIRED:
         g = np.random.default_rng(b * img)
         x = _rand_images(g, b, img, img, dev)
+        if name.startswith("k6"):
+            x = x.to(torch.uint8) if name.endswith("u8") else x
+            d = PhiloxDraws().imagenet_draws(torch.tensor([0, 5], device=dev), batch=b,
+                                             policy_shape=None, height=img, width=img,
+                                             dispatch="exact", groups=8, device=dev)
+            # the wrapper of _kernels, its arguments made as imagenet_stack
+            # makes them: the host-to-card copies of the constants cannot be
+            # captured in a CUDA graph
+            args = _k6_args(d)
+            out[name] = {"shape": [b, img, img, 3], "dtype": str(x.dtype),
+                         **_time_one(lambda: _kernels.imagenet_stack(x, **args, cutout_length=0),
+                                     _kernels)}
+            continue
         if name == "k1_train":
             pol = policy_to_tensor(load_policy("fa_resnet50_rimagenet"))
         elif name == "k1_serve":
@@ -1599,19 +1722,27 @@ def time_kernels_of(tree: str) -> dict:
         else:
             y, crop = _kernels.augment(x, rec), aug.sample_crop(keys, img, img)
             fn = lambda: pre.cifar_stack(y, crop, cutout_length=FLAGSHIP["cutout"])  # noqa: E731
-        before = sum(_kernels.launch_counts().values())
-        fn()
-        torch.cuda.synchronize()
-        launches = sum(_kernels.launch_counts().values()) - before
         out[name] = {"shape": [b, img, img, 3], "num_op": int(pol.shape[1]),
-                     "launches_per_call": launches,
-                     "graph_ms": float(np.median([graph_ms(fn, replays=10) for _ in range(3)]))}
+                     **_time_one(fn, _kernels)}
     return out
 
 
+def _time_one(fn, kernels) -> dict:
+    """Launches in one call of `fn` (from the counters) and its device ms
+    by CUDA-graph replay, median of 3."""
+    import torch
+
+    before = sum(kernels.launch_counts().values())
+    fn()
+    torch.cuda.synchronize()
+    launches = sum(kernels.launch_counts().values()) - before
+    return {"launches_per_call": launches,
+            "graph_ms": float(np.median([graph_ms(fn, replays=10) for _ in range(3)]))}
+
+
 def paired_kernel_times(other: str) -> dict:
-    """K1 and K5 of checkout `other` against this checkout's, in one call on
-    one card: four worker processes in turns (other, this, this, other),
+    """K1, K5 and K6 of checkout `other` against this checkout's, in one call
+    on one card: four worker processes in turns (other, this, this, other),
     each timing its tree's kernels with :func:`time_kernels_of`."""
     trees = {"other": os.path.abspath(other), "this": REPO}
     runs = []
@@ -1739,7 +1870,8 @@ def main() -> int:
         "replaces": "fast_autoaugment_tpu/ops/preprocess_imagenet.py:191",
         "launches": train_path["launches"]["imagenet_stack"],
         "launches_by_path": {"train_resnet50": train_path["launches"]["imagenet_stack"]},
-        "launches_per_call": 2,
+        "launches_per_call": {"train_224_float32": k6["launches_per_call"],
+                              "train_224_uint8": train_t["k6"]["uint8"]["launches_per_call"]},
         "max_abs_err": check6["max_abs_err"],
         "differing_elements": check6["differing_elements"],
         **ms(k6),

@@ -11,8 +11,11 @@ shared library of its own with a plain C interface and bound with
 - ``preprocess.cu``: the CIFAR crop/flip/normalize/cutout stack
   (``cifar_stack``, one block per image, :func:`cifar_plan`);
 - ``imagenet.cu``: the ImageNet flip/ColorJitter/lighting/normalize/cutout
-  stack (``imagenet_stack``, two launches: a grey-sum pass and the
-  per-pixel pass).
+  stack (``imagenet_stack``): one launch with the image held in shared
+  memory by one block or by a thread-block cluster that reduces the
+  contrast mean through distributed shared memory, or a grey-sum pass and
+  a per-pixel pass for images too large for a cluster
+  (:func:`imagenet_plan` chooses by shape and dtype).
 
 The build happens on first use, into ``fast_autoaugment_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the source and the flags, so
@@ -35,9 +38,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "AugmentPlan", "CifarPlan", "augment_plan",
-           "cifar_plan", "load_libraries", "augment", "augment_max_active_clusters",
-           "cifar_stack", "imagenet_stack", "launch_counts", "reset_launch_counts"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "AugmentPlan", "CifarPlan", "ImageNetPlan",
+           "augment_plan", "cifar_plan", "imagenet_plan", "load_libraries", "augment",
+           "augment_max_active_clusters", "cifar_stack", "imagenet_stack",
+           "imagenet_max_active_clusters", "launch_counts", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"augment": _PKG / "csrc" / "augment.cu",
@@ -60,8 +64,10 @@ _SIGNATURES = {
     "preprocess": {"faa_cifar_stack": [_P, _P, _P, _I, _I, _I, _I, _I, _F,
                                        _F, _F, _F, _F, _F, _F, _I, _I, _I, _P]},
     "imagenet": {"faa_imagenet_stack": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                        _F, _F, _F, _F, _F, _F, _I, _P],
-                 "faa_imagenet_tiles": [_I, _I]},
+                                        _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _P],
+                 "faa_imagenet_tiles": [_I, _I],
+                 "faa_imagenet_max_active_clusters": [_I, _I, _I, _I, _I, _I, _I,
+                                                      ctypes.POINTER(_I)]},
 }
 
 _lock = threading.Lock()
@@ -84,6 +90,12 @@ _AUGMENT_SCRATCH_BYTES = 6400
 #: a block gets without opting in
 _CIFAR_HEADER_BYTES = 64
 _CIFAR_SMEM_LIMIT = 48 * 1024
+#: cluster sizes of the ImageNet stack's cluster kernel, and
+#: csrc/imagenet.cu's kHeaderBytes before the staged band and
+#: kScratchPerThread, the per-warp scratch of the stores
+IMAGENET_CLUSTERS = (1, 2, 4, 8, 16)
+_IMAGENET_HEADER_BYTES = 256
+_IMAGENET_SCRATCH_PER_THREAD = 48
 
 
 def _round_up(n: int, k: int) -> int:
@@ -167,6 +179,95 @@ def cifar_plan(h: int, w: int) -> CifarPlan:
     if staged <= _CIFAR_SMEM_LIMIT:
         return CifarPlan(True, staged)
     return CifarPlan(False, _CIFAR_HEADER_BYTES)
+
+
+def imagenet_smem_bytes(h: int, w: int, itemsize: int, cluster: int, threads: int) -> int:
+    """Dynamic shared memory of one block of `threads` threads of the
+    ImageNet stack's cluster kernel when clusters of `cluster` blocks hold an
+    ``h x w`` image of `itemsize`-byte values: the header, a band of
+    ``ceil(h / cluster)`` rows in the input's dtype, padded to 16 bytes with
+    16 more of slack, and each warp's scratch of 128 pixels
+    (``csrc/imagenet.cu cluster_smem_bytes``)."""
+    rows = -(-h // cluster)
+    return (_IMAGENET_HEADER_BYTES + _round_up(rows * w * 3 * itemsize, 16) + 16
+            + _IMAGENET_SCRATCH_PER_THREAD * threads)
+
+
+@dataclass(frozen=True)
+class ImageNetPlan:
+    """How :func:`imagenet_stack` runs on an ``h x w`` image.
+
+    ``path`` is ``"cluster"`` (``imagenet_cluster_kernel``: one launch,
+    clusters of `cluster` blocks of `threads` threads with `smem_bytes` of
+    dynamic shared memory each) or ``"two_pass"`` (``grey_sum_kernel`` then
+    ``imagenet_stack_kernel``; `cluster`, `smem_bytes` and `threads` are 0).
+    `launches` is the kernel launches per call."""
+
+    path: str
+    cluster: int
+    smem_bytes: int
+    threads: int
+    launches: int
+
+    @property
+    def kernel(self) -> tuple[str, ...]:
+        """The names of the kernels one call launches."""
+        if self.path == "cluster":
+            return ("imagenet_cluster_kernel",)
+        return ("grey_sum_kernel", "imagenet_stack_kernel")
+
+
+def imagenet_plan(h: int, w: int, dtype: torch.dtype, cluster: int | None = None) -> ImageNetPlan:
+    """Choose the ImageNet stack's launch from the shape and dtype alone.
+
+    The cluster path holds one image per thread-block cluster, a band of
+    ``ceil(h / cluster)`` rows per block in shared memory in the input's
+    dtype (uint8 or float32).  The rule, measured on the H100 at 224x224
+    (PERF.md): one block per image when the whole image fits a block, with
+    1024 threads (uint8 at 224x224); otherwise the smallest cluster of
+    :data:`IMAGENET_CLUSTERS` at which two blocks of 512 threads share an
+    SM's shared memory, so that one block's copy overlaps the other's work
+    (8 for float32 at 224x224); otherwise the smallest cluster whose block of
+    1024 threads fits alone.  An image whose band fits no cluster of 16
+    blocks takes the two-pass path.
+
+    `cluster` forces a cluster size (for measurement), with 512 threads when
+    two such blocks share an SM and 1024 otherwise; one that is not a
+    cluster size or does not fit raises ``ValueError``.  Nothing here looks
+    at a device, and no launch ever falls back from one path to the other."""
+    if h < 1 or w < 1:
+        raise ValueError(f"no ImageNet stack plan for {h}x{w}")
+    if dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"the ImageNet stack takes uint8 or float32 images, not {dtype}")
+    if cluster is not None and cluster not in IMAGENET_CLUSTERS:
+        raise ValueError(f"cluster must be one of {IMAGENET_CLUSTERS}, got {cluster}")
+    itemsize = 1 if dtype == torch.uint8 else 4
+
+    def plan(c: int, threads: int) -> ImageNetPlan:
+        return ImageNetPlan("cluster", c, imagenet_smem_bytes(h, w, itemsize, c, threads),
+                            threads, 1)
+
+    def shared(c: int) -> bool:  # two blocks of 512 threads share an SM
+        return 2 * imagenet_smem_bytes(h, w, itemsize, c, 512) <= MAX_SMEM_BYTES
+
+    def alone(c: int) -> bool:  # one block of 1024 threads fits
+        return imagenet_smem_bytes(h, w, itemsize, c, 1024) <= MAX_SMEM_BYTES
+
+    if cluster is not None:
+        if shared(cluster) or alone(cluster):
+            return plan(cluster, 512 if shared(cluster) else 1024)
+        raise ValueError(f"a {h}x{w} {dtype} image does not fit clusters of {cluster} blocks "
+                         f"({imagenet_smem_bytes(h, w, itemsize, cluster, 1024)} bytes of "
+                         f"shared memory per block, at most {MAX_SMEM_BYTES})")
+    if alone(1) and not shared(1):
+        return plan(1, 1024)
+    for c in IMAGENET_CLUSTERS:
+        if shared(c):
+            return plan(c, 512)
+    for c in IMAGENET_CLUSTERS:
+        if alone(c):
+            return plan(c, 1024)
+    return ImageNetPlan("two_pass", 0, 0, 0, 2)
 
 
 def _nvcc() -> str:
@@ -368,10 +469,14 @@ def cifar_stack(images: torch.Tensor, draws: torch.Tensor, *, pad: int,
 
 
 def imagenet_stack(images: torch.Tensor, ints: torch.Tensor, floats: torch.Tensor, *,
-                   cutout_length: int, scale: float, mean, rstd) -> torch.Tensor:
+                   cutout_length: int, scale: float, mean, rstd,
+                   cluster: int | None = None) -> torch.Tensor:
     """Flip, ColorJitter, scale, light, normalize and cut out ``images
-    [N, H, W, 3]`` (uint8, or float32 integral in [0, 255]) with the CUDA
-    kernel: two launches, a grey-sum pass and the per-pixel pass.
+    [N, H, W, 3]`` (uint8 or float32) with the CUDA kernels as
+    :func:`imagenet_plan` says: one launch on the cluster path, a grey-sum
+    pass and a per-pixel pass on the two-pass path.  `cluster` forces the
+    cluster size (for measurement).  A launch the device refuses, or a
+    cluster that cannot be resident, raises ``RuntimeError``.
 
     ``ints [N, 4]`` int32 holds (flip, jitter order, cutout centre y, x),
     ``floats [N, 6]`` float32 (brightness, contrast, saturation factors,
@@ -397,19 +502,41 @@ def imagenet_stack(images: torch.Tensor, ints: torch.Tensor, floats: torch.Tenso
         raise ValueError(f"batch of {n}x{h}x{w} is too large for the kernel")
     if cutout_length < 0:
         raise ValueError("cutout_length must be >= 0")
+    plan = imagenet_plan(h, w, images.dtype, cluster)
     out = torch.empty((n, h, w, 3), dtype=torch.float32, device=images.device)
     if n:
         lib = load_libraries()["imagenet"]
-        partial = torch.empty((n, lib.faa_imagenet_tiles(h, w)), dtype=torch.int64,
-                              device=images.device)
+        partial = None
+        if plan.path == "two_pass":
+            partial = torch.empty((n, lib.faa_imagenet_tiles(h, w)), dtype=torch.int64,
+                                  device=images.device)
         stream = torch.cuda.current_stream(images.device).cuda_stream
         m = [float(v) for v in mean]
         r = [float(v) for v in rstd]
         rc = lib.faa_imagenet_stack(images.data_ptr(), int(images.dtype == torch.uint8),
                                     out.data_ptr(), ints.data_ptr(), floats.data_ptr(),
-                                    partial.data_ptr(), n, h, w, int(cutout_length) // 2,
-                                    float(scale), *m, *r, images.device.index or 0, stream)
+                                    None if partial is None else partial.data_ptr(), n, h, w,
+                                    int(cutout_length) // 2, float(scale), *m, *r,
+                                    plan.cluster, plan.smem_bytes, plan.threads,
+                                    images.device.index or 0, stream)
         _check_rc(lib, rc, "ImageNet stack")
         with _lock:
-            _launches["imagenet_stack"] += 2
+            _launches["imagenet_stack"] += plan.launches
     return out.permute(0, 3, 1, 2)
+
+
+def imagenet_max_active_clusters(h: int, w: int, dtype: torch.dtype, cluster: int | None = None,
+                                 device: int = 0) -> int:
+    """How many clusters of :func:`imagenet_plan`'s cluster path the device
+    holds at once (``cudaOccupancyMaxActiveClusters``); 0 would refuse the
+    launch."""
+    plan = imagenet_plan(h, w, dtype, cluster)
+    if plan.path != "cluster":
+        raise ValueError(f"a {h}x{w} {dtype} image takes the two-pass path")
+    lib = load_libraries()["imagenet"]
+    active = ctypes.c_int(0)
+    rc = lib.faa_imagenet_max_active_clusters(int(dtype == torch.uint8), h, w, plan.cluster,
+                                              plan.smem_bytes, plan.threads, device,
+                                              ctypes.byref(active))
+    _check_rc(lib, rc, "ImageNet stack occupancy")
+    return active.value

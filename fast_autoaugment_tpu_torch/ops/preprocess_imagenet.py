@@ -171,8 +171,9 @@ def imagenet_stack(images: torch.Tensor, draws: ImageNetDraws, *, cutout_length:
                    mean: Sequence[float] = IMAGENET_MEAN,
                    std: Sequence[float] = IMAGENET_STD) -> torch.Tensor:
     """Flip, jitter, light, normalize and cut out a batch: on a CUDA tensor
-    the hand-written kernel (two launches), on a CPU tensor the plain
-    version.  Same contract as :func:`imagenet_stack_plain`."""
+    the hand-written kernel (one launch, or two for images too large for a
+    thread-block cluster; ``ops/_kernels.py imagenet_plan``), on a CPU
+    tensor the plain version.  Same contract as :func:`imagenet_stack_plain`."""
     if images.device.type == "cpu":
         return imagenet_stack_plain(images, draws, cutout_length=cutout_length, mean=mean,
                                     std=std)

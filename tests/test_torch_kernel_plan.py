@@ -5,7 +5,8 @@ between the augmentation kernel's cluster path (every op slot in one
 launch, the image held in shared memory by a thread-block cluster) and its
 per-slot path (one launch per slot, for images too large for a cluster);
 ``cifar_plan`` whether the CIFAR stack kernel stages its image in shared
-memory.  The kernels check the plan they are handed against their own
+memory; ``imagenet_plan``, from the shape and dtype, between the ImageNet
+stack's cluster path (one launch) and its two-pass path.  The kernels check the plan they are handed against their own
 layout and refuse a mismatch; these tests hold the planners to the
 documented rule and to the constants in the CUDA sources.  Exact integer
 checks: no tolerance.
@@ -36,6 +37,9 @@ def test_constants_match_the_cuda_sources():
     assert K.MAX_SMEM_BYTES == _source_constant("kMaxSmemBytes", "augment") == 232_448
     assert K._CIFAR_HEADER_BYTES == _source_constant("kHeaderBytes", "preprocess")
     assert K._CIFAR_SMEM_LIMIT == _source_constant("kMaxSmemBytes", "preprocess")
+    assert K._IMAGENET_HEADER_BYTES == _source_constant("kHeaderBytes", "imagenet")
+    assert K._IMAGENET_SCRATCH_PER_THREAD == _source_constant("kScratchPerThread", "imagenet")
+    assert K.MAX_SMEM_BYTES == _source_constant("kMaxSmemBytes", "imagenet")
 
 
 def test_32x32_is_one_block_per_image_in_one_launch():
@@ -121,3 +125,111 @@ def test_wrappers_refuse_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA"):
         K.cifar_stack(torch.zeros((1, 8, 8, 3)), torch.zeros((1, 5), dtype=torch.int32),
                       pad=4, cutout_length=0, scale=1 / 255, mean=(0, 0, 0), rstd=(1, 1, 1))
+
+
+# ------------------------------------------------------------- ImageNet stack
+
+DTYPES = [(torch.uint8, 1), (torch.float32, 4)]
+
+
+def _shared(h, w, itemsize, c):
+    """Two blocks of 512 threads share an SM's shared memory."""
+    return 2 * K.imagenet_smem_bytes(h, w, itemsize, c, 512) <= K.MAX_SMEM_BYTES
+
+
+def _alone(h, w, itemsize, c):
+    """One block of 1024 threads fits."""
+    return K.imagenet_smem_bytes(h, w, itemsize, c, 1024) <= K.MAX_SMEM_BYTES
+
+
+def test_imagenet_plan_at_224x224():
+    """The main path's shapes: float32 after the policy (clusters of 8, two
+    blocks of 512 threads an SM), uint8 without one (the whole image in one
+    block of 1024 threads)."""
+    f32 = K.imagenet_plan(224, 224, torch.float32)
+    u8 = K.imagenet_plan(224, 224, torch.uint8)
+    assert f32 == K.ImageNetPlan("cluster", 8, K.imagenet_smem_bytes(224, 224, 4, 8, 512), 512, 1)
+    assert u8 == K.ImageNetPlan("cluster", 1, K.imagenet_smem_bytes(224, 224, 1, 1, 1024), 1024, 1)
+    assert f32.kernel == u8.kernel == ("imagenet_cluster_kernel",)
+    # the header, one band in the input's dtype, 16 bytes of slack, and a
+    # warp's scratch of 128 pixels (48 bytes a thread)
+    assert f32.smem_bytes == 256 + 28 * 224 * 3 * 4 + 16 + 48 * 512
+    assert u8.smem_bytes == 256 + 224 * 224 * 3 + 16 + 48 * 1024
+    assert 2 * f32.smem_bytes <= K.MAX_SMEM_BYTES and u8.smem_bytes <= K.MAX_SMEM_BYTES
+    # a float32 224x224 image is 602,112 bytes: no band of 56 rows or more
+    # lets two blocks share an SM
+    assert not any(_shared(224, 224, 4, c) for c in (1, 2, 4))
+
+
+@pytest.mark.parametrize("h,w", SHAPES)
+@pytest.mark.parametrize("dtype,itemsize", DTYPES)
+def test_imagenet_plan_is_the_documented_rule(h, w, dtype, itemsize):
+    """One block of 1024 threads when the image fits one alone; else the
+    smallest cluster at which two blocks of 512 threads share an SM; else the
+    smallest whose block of 1024 threads fits; else two passes."""
+    plan = K.imagenet_plan(h, w, dtype)
+    shared = [c for c in K.IMAGENET_CLUSTERS if _shared(h, w, itemsize, c)]
+    alone = [c for c in K.IMAGENET_CLUSTERS if _alone(h, w, itemsize, c)]
+    if _alone(h, w, itemsize, 1) and not _shared(h, w, itemsize, 1):
+        want = (1, 1024)
+    elif shared:
+        want = (shared[0], 512)
+    elif alone:
+        want = (alone[0], 1024)
+    else:
+        assert plan == K.ImageNetPlan("two_pass", 0, 0, 0, 2)
+        assert plan.kernel == ("grey_sum_kernel", "imagenet_stack_kernel")
+        return
+    assert (plan.path, plan.cluster, plan.threads, plan.launches) == ("cluster", *want, 1)
+    assert plan.smem_bytes == K.imagenet_smem_bytes(h, w, itemsize, *want) <= K.MAX_SMEM_BYTES
+    assert plan == K.imagenet_plan(h, w, dtype)  # the shape and dtype alone decide
+
+
+def test_imagenet_shared_memory_grows_with_the_band():
+    for itemsize in (1, 4):
+        for w in (1, 23, 224, 300):
+            sizes = [K.imagenet_smem_bytes(h, w, itemsize, 4, 512) for h in range(1, 200)]
+            assert sizes == sorted(sizes)
+            assert all(s % 16 == 0 for s in sizes)  # the scratch stays 16-byte aligned
+
+
+@pytest.mark.parametrize("dtype,itemsize", DTYPES)
+def test_imagenet_forced_cluster_sizes(dtype, itemsize):
+    for c in K.IMAGENET_CLUSTERS:
+        if _shared(224, 224, itemsize, c) or _alone(224, 224, itemsize, c):
+            plan = K.imagenet_plan(224, 224, dtype, cluster=c)
+            threads = 512 if _shared(224, 224, itemsize, c) else 1024
+            assert plan == K.ImageNetPlan(
+                "cluster", c, K.imagenet_smem_bytes(224, 224, itemsize, c, threads), threads, 1)
+        else:
+            with pytest.raises(ValueError, match="does not fit"):
+                K.imagenet_plan(224, 224, dtype, cluster=c)
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        K.imagenet_plan(224, 224, dtype, cluster=3)
+    with pytest.raises(ValueError):
+        K.imagenet_plan(0, 224, dtype)
+    with pytest.raises(TypeError):
+        K.imagenet_plan(224, 224, torch.float64)
+
+
+@pytest.mark.parametrize("h,w,dtype", [(1100, 300, torch.float32), (4200, 300, torch.uint8)])
+def test_imagenet_image_too_large_for_16_blocks_takes_two_passes(h, w, dtype):
+    plan = K.imagenet_plan(h, w, dtype)
+    assert (plan.path, plan.launches) == ("two_pass", 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        K.imagenet_plan(h, w, dtype, cluster=16)
+    # the tallest image whose band of 16 blocks still fits takes the cluster path
+    itemsize = 1 if dtype == torch.uint8 else 4
+    tallest = max(hh for hh in range(1, h) if _alone(hh, w, itemsize, 16))
+    assert K.imagenet_plan(tallest, w, dtype).path == "cluster"
+    assert K.imagenet_plan(tallest + 1, w, dtype).path == "two_pass"
+
+
+def test_imagenet_wrapper_refuses_cpu_tensors_before_building():
+    ints = torch.zeros((1, 4), dtype=torch.int32)
+    floats = torch.zeros((1, 6))
+    before = K.launch_counts()["imagenet_stack"]
+    with pytest.raises(ValueError, match="CUDA"):
+        K.imagenet_stack(torch.zeros((1, 8, 8, 3), dtype=torch.uint8), ints, floats,
+                         cutout_length=0, scale=1 / 255, mean=(0, 0, 0), rstd=(1, 1, 1))
+    assert K.launch_counts()["imagenet_stack"] == before

@@ -255,7 +255,7 @@ def _imagenet_draws(n, h, w, dev, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w", [(128, 224, 224), (4, 17, 23), (24, 32, 32)])
+@pytest.mark.parametrize("b,h,w", [(128, 224, 224), (4, 17, 23), (24, 32, 32), (3, 225, 223)])
 @pytest.mark.parametrize("length", [0, 16])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 def test_imagenet_stack_bitwise_vs_plain(cuda_device, b, h, w, length, dtype):
@@ -263,12 +263,112 @@ def test_imagenet_stack_bitwise_vs_plain(cuda_device, b, h, w, length, dtype):
     imgs = torch.from_numpy(g.integers(0, 256, (b, h, w, 3)).astype(np.uint8)).to(cuda_device)
     imgs = imgs.to(dtype)
     d = _imagenet_draws(b, h, w, cuda_device, seed=length)
-    before = _kernels.launch_counts()["imagenet_stack"]
-    got = PI.imagenet_stack(imgs, d, cutout_length=length)
-    assert _kernels.launch_counts()["imagenet_stack"] == before + 2
+    got, launches = _imagenet_counted(imgs, d, length)
+    assert launches == _kernels.imagenet_plan(h, w, dtype).launches
     want = PI.imagenet_stack_plain(imgs, d, cutout_length=length)
     assert got.shape == (b, 3, h, w) and got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got, want)
+
+
+def _imagenet_counted(imgs, d, length, cluster=None):
+    """The stack's result through the wrapper of ``_kernels`` (with a forced
+    cluster size) or through ``imagenet_stack``, and its launches."""
+    before = _kernels.launch_counts()["imagenet_stack"]
+    if cluster is None:
+        got = PI.imagenet_stack(imgs, d, cutout_length=length)
+    else:
+        ints = torch.stack([d.flip, d.order, d.centre[:, 0], d.centre[:, 1]], -1).contiguous()
+        floats = torch.cat([d.factors, PI.lighting_rgb(d.alpha)], -1).contiguous()
+        mean, rstd = (v.tolist() for v in P.norm_constants(P.IMAGENET_MEAN, P.IMAGENET_STD))
+        got = _kernels.imagenet_stack(imgs, ints, floats, cutout_length=length, scale=P._SCALE,
+                                      mean=mean, rstd=rstd, cluster=cluster)
+    return got, _kernels.launch_counts()["imagenet_stack"] - before
+
+
+def _imagenet_cases():
+    """(b, h, w, dtype, cluster): every cluster size that fits at 224x224 and
+    at 225x223 (bands of unequal height), for both dtypes."""
+    return [(b, h, w, dtype, c) for b, h, w in ((16, 224, 224), (3, 225, 223))
+            for dtype in (torch.uint8, torch.float32) for c in _kernels.IMAGENET_CLUSTERS
+            if _imagenet_fits(h, w, dtype, c)]
+
+
+def _imagenet_fits(h, w, dtype, cluster):
+    try:
+        _kernels.imagenet_plan(h, w, dtype, cluster)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,dtype,cluster", _imagenet_cases())
+def test_imagenet_stack_at_every_cluster_size(cuda_device, b, h, w, dtype, cluster):
+    g = np.random.default_rng(cluster)
+    imgs = torch.from_numpy(g.integers(0, 256, (b, h, w, 3)).astype(np.uint8)).to(cuda_device)
+    imgs = imgs.to(dtype)
+    for length in (0, 16):
+        d = _imagenet_draws(b, h, w, cuda_device, seed=cluster + length)
+        got, launches = _imagenet_counted(imgs, d, length, cluster)
+        assert launches == 1
+        assert torch.equal(got, PI.imagenet_stack_plain(imgs, d, cutout_length=length))
+
+
+#: the two-pass path: images whose band does not fit clusters of 16 blocks
+TWO_PASS = [(2, 1100, 300, torch.float32), (2, 4200, 300, torch.uint8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,dtype", TWO_PASS)
+def test_imagenet_stack_two_pass_path(cuda_device, b, h, w, dtype):
+    assert _kernels.imagenet_plan(h, w, dtype).path == "two_pass"
+    g = np.random.default_rng(h)
+    imgs = torch.from_numpy(g.integers(0, 256, (b, h, w, 3)).astype(np.uint8)).to(cuda_device)
+    imgs = imgs.to(dtype)
+    d = _imagenet_draws(b, h, w, cuda_device, seed=h)
+    got, launches = _imagenet_counted(imgs, d, 16)
+    assert launches == 2
+    assert torch.equal(got, PI.imagenet_stack_plain(imgs, d, cutout_length=16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(12, 224, 224), (12, 17, 23), (2, 1100, 300)])
+def test_imagenet_stack_on_float_input_off_the_integers(cuda_device, b, h, w):
+    """float32 input that is not integral and lies partly outside [0, 255]:
+    every blend clips and truncates what it is given, as PIL's uint8 store
+    does, on the cluster and the two-pass path."""
+    g = np.random.default_rng(b * h)
+    imgs = torch.from_numpy(g.uniform(-40.0, 300.0, (b, h, w, 3)).astype(np.float32))
+    imgs = imgs.to(cuda_device)
+    for length in (0, 16):
+        d = _imagenet_draws(b, h, w, cuda_device, seed=7 + length)
+        got, _ = _imagenet_counted(imgs, d, length)
+        assert torch.equal(got, PI.imagenet_stack_plain(imgs, d, cutout_length=length))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(12, 224, 224), (12, 17, 23)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_imagenet_stack_on_constant_and_two_valued_images(cuda_device, b, h, w, dtype):
+    """The contrast mean of a constant image is that value; of a two-valued
+    one, a rounded mean between them."""
+    imgs = torch.full((b, h, w, 3), 77, dtype=dtype, device=cuda_device)
+    imgs[b // 2:, : h // 3] = 200  # two values, a third of the image one of them
+    imgs[-1] = 0
+    imgs[-2] = 255
+    d = _imagenet_draws(b, h, w, cuda_device, seed=3)
+    got, _ = _imagenet_counted(imgs, d, 16)
+    assert torch.equal(got, PI.imagenet_stack_plain(imgs, d, cutout_length=16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", _kernels.IMAGENET_CLUSTERS)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_imagenet_largest_band_of_every_cluster_size_is_resident(cuda_device, cluster, dtype):
+    """The most shared memory a cluster size is planned with is that of the
+    tallest image whose band still fits; such a cluster must be resident."""
+    h = max(h for h in range(1, 4096) if _imagenet_fits(h, 300, dtype, cluster))
+    assert _kernels.imagenet_max_active_clusters(h, 300, dtype, cluster=cluster) >= 1
 
 
 @pytest.mark.cuda
