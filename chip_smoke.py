@@ -30,7 +30,9 @@ each printing one JSON line:
    (also at every cluster size that fits), 4x17x23, 3x225x223 (bands of
    unequal height) and the two-pass path (2x1100x300 float32, 2x4200x300
    uint8), launches per call against ``ops/_kernels.py imagenet_plan``);
-   and every sampler's draws on the card against the CPU from the same keys;
+   and every sampler's draws on the card against the CPU from the same keys,
+   the ImageNet draws (lighting normals included) over 2^20 keys
+   (``lighting_cpu_vs_card``);
 3. the serving path: two ``serve_cli`` processes on the card (the shipped
    ``fa_reduced_cifar10`` archive at 32x32, grouped dispatch; one ImageNet
    sub-policy at 224x224, shapes 1,8, exact dispatch) answer npz, raw and
@@ -73,7 +75,16 @@ each printing one JSON line:
    and every tensor of the model bitwise).  ``train_flagship`` runs ``train_and_eval``
    with the flagship WRN-40-2 config on ``synthetic`` (2 epochs of 4 steps,
    evaluation every epoch) and checks its result dict and launch counts;
-7. ``train_times``: the ResNet-50 step's median time and images/s, a
+7. the search (``search_main_path``): ``launch/search_cli.py main`` with
+   ``confs/wresnet40x2_cifar.yaml`` at full width (WRN-40-2) on the offline
+   ``synthetic_shapes`` data, cut in depth (:data:`SEARCH_FLAGS`,
+   :data:`SEARCH_EPOCHS`): phase 1 trains 2 fold models, phase 2 runs 4 TPE
+   trials per fold and the audit, phase 3 retrains the default and the
+   augmented arm; the fold checkpoints load back with their digests; two
+   trials re-scored with the plain versions of K1 and K5 equal the kernels'
+   bitwise; the same command again trains and dispatches nothing; seconds
+   per fold, per trial and per run and the device's idle share over phase 2;
+8. ``train_times``: the ResNet-50 step's median time and images/s, a
    profiler trace split by stage (sampler, K1, K6, model forward and
    backward with the convolutions' TFLOP/s, optimizer) with the device's
    idle share, K1 and K6 at 128x224x224 against their bounds and plain
@@ -1139,6 +1150,313 @@ def phase_tta_times(dev, st: dict, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------- lighting normals
+
+#: keys of the lighting check: 2^20 and an odd remainder
+LIGHTING_KEYS = (1 << 20) + 37
+
+
+def phase_lighting_cpu_vs_card(dev) -> dict:
+    """The ImageNet stack's draws (``ops/augment.py sample_imagenet``: flip,
+    jitter order, cutout centre, jitter factors and the Box-Muller lighting
+    normals) from the same keys on the CPU and on the card: ``ints`` and
+    ``floats`` must be the same bits."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops.augment import sample_imagenet
+
+    n = LIGHTING_KEYS
+    keys = torch.stack([torch.full((n,), 11, dtype=torch.int64),
+                        torch.arange(n, dtype=torch.int64) * 7919], dim=1)
+    t0 = time.perf_counter()
+    ints_cpu, floats_cpu = sample_imagenet(keys, 224, 224)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ints_gpu, floats_gpu = sample_imagenet(keys.to(dev), 224, 224)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    ints_diff = int((ints_gpu.cpu() != ints_cpu).sum())
+    bits_diff = int((floats_gpu.cpu().view(torch.int32) != floats_cpu.view(torch.int32)).sum())
+    normals_diff = int((floats_gpu.cpu()[:, 3:].view(torch.int32)
+                        != floats_cpu[:, 3:].view(torch.int32)).sum())
+    out = {"phase": "lighting_cpu_vs_card", "keys": n, "ints_differing": ints_diff,
+           "float_bits_differing": bits_diff, "normal_bits_differing": normals_diff,
+           "normals_std": float(floats_cpu[:, 3:].std()), "cpu_s": cpu_s, "card_s": card_s}
+    emit(out)
+    if ints_diff or bits_diff:
+        fail(f"ImageNet draws differ between the CPU and the card: {out}")
+    return out
+
+
+# --------------------------------------------------------- search path
+
+#: the search's main path (search_main_path): confs/wresnet40x2_cifar.yaml
+#: at full width, on the offline synthetic_shapes data (600 train images of
+#: 32x32, 2,000 test), with the depth of a run cut by these flags and
+#: overrides; the quality gate is off (a shallow oracle fails the "auto"
+#: floor of 0.415 and phase 3 would have nothing to retrain), the audit at
+#: its default floor of 0.95.  30 epochs: at 10 the fold models' identity
+#: baselines (0.15 and 0.17 on an H100) stay under the audit's 2 x chance,
+#: and the audit would score nothing
+SEARCH_CONF = "confs/wresnet40x2_cifar.yaml"
+SEARCH_EPOCHS = 30
+SEARCH_FLAGS = ["--num-fold", "2", "--cv-ratio", "0.4", "--num-policy", "5", "--num-op", "2",
+                "--num-search", "4", "--num-top", "2", "--num-result-per-cv", "1",
+                "--until", "3", "--fold-quality-floor", "off"]
+SEARCH_STAGES = ("search.phase1", "search.phase2", "search.audit", "search.phase3")
+
+
+class _LogLines:
+    """The search's log lines while a block runs."""
+
+    def __enter__(self):
+        import logging
+
+        self.lines: list[str] = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+        self.loggers = [logging.getLogger(n) for n in ("faa_torch.search",
+                                                       "faa_torch.search_cli")]
+        for lg in self.loggers:
+            lg.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        for lg in self.loggers:
+            lg.removeHandler(self.handler)
+
+    def count(self, part: str) -> int:
+        return sum(part in line for line in self.lines)
+
+
+def _search_argv(save_dir: str, epochs: int, until: int = 3) -> list[str]:
+    flags = list(SEARCH_FLAGS)
+    flags[flags.index("--until") + 1] = str(until)
+    return (["-c", os.path.join(REPO, SEARCH_CONF), "--save-dir", save_dir] + flags
+            + ["dataset=synthetic_shapes", f"epoch={epochs}"])
+
+
+def _search_expected_launches(epochs: int, audited: int, audit_folds: int) -> dict:
+    """K1 and K5 launches of one search run at :data:`SEARCH_FLAGS` on
+    ``synthetic_shapes`` (600 train images, 2,000 test; batch 128): phase 1
+    trains 2 folds of 360 images (2 steps an epoch, K5 only) and evaluates
+    every 5th and the last epoch (2 valid and 16 test batches); phase 2
+    scores 2 x 4 trials over 2 padded batches; the audit scores the folds'
+    identity baselines (2 x 2 batches), then `audited` sub-policies on the
+    `audit_folds` folds that pass its floor (up to 4 through the TTA step,
+    one per call; more in chunks of 8 through the audit step); phase 3
+    trains 2 arms on 600 images (4 steps an epoch; the
+    augmented arm through K1 too) with the test evaluations."""
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    evals = len([e for e in range(1, epochs + 1) if e % 5 == 0 or e == epochs])
+    folds, valid, test = 2, 2, 16
+    phase1 = folds * (2 * epochs + evals * (valid + test))
+    trials = folds * 4 * valid
+    audit_calls = folds * valid + audit_folds * valid * (
+        audited if audited <= 4 else -(-audited // 8))
+    phase3_steps = 4 * epochs
+    phase3_evals = evals * test
+    per_call = _kernels.augment_plan(32, 32, 2).launches
+    return {"augment": per_call * (trials + audit_calls + phase3_steps),
+            "cifar_stack": phase1 + trials + audit_calls + 2 * (phase3_steps + phase3_evals),
+            "imagenet_stack": 0}
+
+
+def _read_json(path):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EPOCHS) -> dict:
+    """The three-phase search through ``launch/search_cli.py main`` on the
+    card (:data:`SEARCH_CONF`, :data:`SEARCH_FLAGS`), with the launch counts
+    set to 0 just before and read just after; then the checks: all three
+    phases ran, both phase-3 arms have a ``top1_test``, the final policy is
+    not empty, no trial was quarantined, the audit scored sub-policies, the
+    fold checkpoints load back through ``load_checkpoint_chain`` with their
+    digests; two trials re-scored with the plain versions of K1 and K5 equal
+    the kernels' bitwise; the same command again resumes (phase 1 trains
+    nothing, phase 2 dispatches no trial); a profiled replay of phase 2 from
+    the fold checkpoints gives the device's idle share over phase 2."""
+    import hashlib
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_autoaugment_tpu_torch.core.checkpoint import load_checkpoint_chain, read_metadata
+    from fast_autoaugment_tpu_torch.core.config import load_config
+    from fast_autoaugment_tpu_torch.launch import search_cli
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.policies.archive import policy_decoder
+    from fast_autoaugment_tpu_torch.search import driver, tta
+
+    save = os.path.join(workdir, "search")
+    argv = _search_argv(save, epochs)
+    conf = load_config(argv[1], overrides=[a for a in argv[2:] if "=" in a])
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _LogLines() as log:
+        result = search_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+
+    # ---- what the run produced
+    folds = [0, 1]
+    trials = _read_json(os.path.join(save, "search_trials.json"))
+    final = _read_json(os.path.join(save, "final_policy.json"))
+    audit = _read_json(os.path.join(save, "audit.json"))
+    p3 = result.get("phase3", {})
+    problems = []
+    if log.count("phase1: training fold") != len(folds):
+        problems.append(f"phase 1 trained {log.count('phase1: training fold')} folds, not 2")
+    if sorted(trials) != ["0", "1"] or any(len(t) != 4 for t in trials.values()):
+        problems.append(f"phase 2 trial log is not 2 folds x 4 trials: {trials}")
+    if result.get("num_quarantined_trials"):
+        problems.append(f"quarantined trials: {result['quarantined_trials']}")
+    if not final:
+        problems.append("final_policy.json is empty")
+    if not audit.get("audit_folds") or not audit.get("scores"):
+        problems.append(f"the audit scored nothing (fold baselines {audit.get('fold_baselines')})")
+    for arm in ("default", "augment"):
+        vals = p3.get(arm, {}).get("per_seed", [])
+        if len(vals) != 1 or not 0.0 <= vals[0] <= 1.0:
+            problems.append(f"phase-3 {arm} arm has no top1_test: {p3}")
+    want = _search_expected_launches(epochs, len(audit.get("scores", [])),
+                                     len(audit.get("audit_folds", [])))
+    if counts != want:
+        problems.append(f"search launch counts {counts} != {want}")
+    ckpts = {}
+    for f in folds:
+        path = driver._fold_ckpt_path(save, conf, f, 0.4)
+        got = load_checkpoint_chain(path)
+        with open(path, "rb") as fh:
+            digest = hashlib.sha256(fh.read()).hexdigest()
+        meta = read_metadata(path)
+        ok = got is not None and got[2] == path and digest == meta["digest"] == got[1]["digest"]
+        ckpts[f] = {"epoch": meta["epoch"], "step": meta["step"], "digest_ok": ok,
+                    "nbytes": meta["nbytes"], "metrics": meta["metrics"]}
+        if not ok or meta["epoch"] != epochs:
+            problems.append(f"fold {f} checkpoint does not load back intact: {ckpts[f]}")
+    if problems:
+        fail("search_main_path: " + "; ".join(problems))
+
+    # ---- two trials re-scored: through the driver's own entry
+    # (``_FoldEval.evaluate``, the search's settings), which must give the
+    # trial log's reward; then with the kernels and with the plain versions
+    # of K1 and K5 under deterministic cuDNN, which must agree bitwise
+    ev = driver._FoldEval(conf, "", num_policy=5, num_op=2, cv_ratio=0.4, device=dev)
+    cutout = int(conf["cutout"])
+    rescored = []
+    for f, t in ((0, 0), (1, 3)):
+        path = driver._fold_ckpt_path(save, conf, f, 0.4)
+        proposal, reward = trials[str(f)][t][:2]
+        pol = ev.policy_tensor(policy_decoder(proposal, 5, 2))
+        key = ev.draw_source.fold_in(tta.prng_key(77 * 0 + f), t, dev)
+        rescored.append({"fold": f, "trial": t, "trial_log_reward": reward,
+                         "driver": ev.evaluate(f, path, pol, key), "pol": pol, "key": key})
+        if rescored[-1]["driver"]["top1_valid"] != reward:
+            fail(f"search trial re-scored through _FoldEval.evaluate differs from the trial "
+                 f"log: {rescored[-1]}")
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for r in rescored:
+            f, pol, key = r["fold"], r.pop("pol"), r.pop("key")
+            ev.load_fold(driver._fold_ckpt_path(save, conf, f, 0.4))
+            keep = (0, len(ev.batches(f)) - 1)
+            fns = {"kernel": _Capture(tta.cifar_augment_fn(cutout), keep),
+                   "plain": _Capture(_plain_augment(cutout), keep)}
+            res = {k: tta.eval_tta(tta.make_tta_step(ev.model, num_policy=5, cutout_length=cutout,
+                                                     augment_fn=fn), ev.batches(f), pol, key)
+                   for k, fn in fns.items()}
+            lanes = sum(int((fns["kernel"].out[i] != fns["plain"].out[i]).sum()) for i in keep)
+            r.update({"kernel": res["kernel"], "plain": res["plain"],
+                      "lane_elements_differing": lanes,
+                      "deterministic_equal_to_trial_log":
+                      res["kernel"]["top1_valid"] == r["trial_log_reward"]})
+            if lanes or any(res["kernel"][k] != res["plain"][k] for k in TTA_FIELDS):
+                fail(f"search trial re-scored with plain K1/K5 differs: {r}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+    # ---- the same command again resumes
+    with open(os.path.join(save, "search_trials.json"), "rb") as fh:
+        trial_bytes = fh.read()
+    t0 = time.perf_counter()
+    with _LogLines() as relog:
+        again = search_cli.main(argv)
+    resume_s = time.perf_counter() - t0
+    with open(os.path.join(save, "search_trials.json"), "rb") as fh:
+        trials_unchanged = fh.read() == trial_bytes
+    resume = {"trained": relog.count("phase1: training fold"),
+              "already_trained": relog.count("already trained")
+              + relog.count("already searched"),
+              "trials_already_complete": relog.count("trials already complete"),
+              "trial_log_unchanged": trials_unchanged, "seconds": resume_s,
+              "final_policy_equal": again["final_policy_set"] == result["final_policy_set"]}
+    if resume["trained"] or resume["already_trained"] != 2 or \
+            resume["trials_already_complete"] != 2 or not trials_unchanged:
+        fail(f"search resume trained or dispatched again: {resume}")
+
+    # ---- the device's idle share over phase 2 (trials and audit): a
+    # profiled replay of phases 1-2 from copies of the fold checkpoints
+    replay = os.path.join(workdir, "search_replay")
+    os.makedirs(replay)
+    for name in os.listdir(save):
+        if name.startswith(conf["model"]["type"]):
+            shutil.copy(os.path.join(save, name), replay)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rep = search_cli.main(_search_argv(replay, epochs, until=2))
+        torch.cuda.synchronize()
+    t_post = time.perf_counter()
+    by_range = _stage_device_us(prof, SEARCH_STAGES)
+    busy_us = by_range["search.phase2"] + by_range["search.audit"]
+    rep_wall = rep["device_secs_phase2"] + rep.get("device_secs_audit", 0.0)
+    main_wall = result["device_secs_phase2"] + result.get("device_secs_audit", 0.0)
+    idle_by_range = {name: 1 - by_range[f"search.{name}"] / 1e6 / rep[f"device_secs_{name}"]
+                     for name in ("phase2", "audit")
+                     if by_range[f"search.{name}"] and rep.get(f"device_secs_{name}")}
+    n_trials = sum(len(t) for t in trials.values())
+    phase3_s = result["device_hours_total"] * 3600 - result["elapsed_total"]
+    out = {"phase": "search_main_path", "card": card, "conf": SEARCH_CONF,
+           "model": conf["model"]["type"], "dataset": conf["dataset"], "epochs": epochs,
+           "flags": SEARCH_FLAGS, "wall_s": wall, "launches": counts,
+           "phase1_seconds_per_fold": result["device_secs_phase1_per_fold"],
+           "phase2_seconds_per_trial": result["device_secs_phase2"] / n_trials,
+           "audit_seconds": result.get("device_secs_audit"),
+           "phase3_seconds_per_run": phase3_s / 2,
+           "phase2_device_idle_share": 1 - busy_us / 1e6 / rep_wall if busy_us else None,
+           "phase2_device_idle_share_at_unprofiled_wall":
+           1 - busy_us / 1e6 / main_wall if busy_us else None,
+           "phase2_device_busy_s": busy_us / 1e6, "phase2_wall_s": rep_wall,
+           "phase2_unprofiled_wall_s": main_wall,
+           "device_idle_share_by_range": idle_by_range,
+           "device_busy_s_by_range": {k: v / 1e6 for k, v in by_range.items()},
+           "expected_launches": want,
+           "replay_trial_log_equal": _read_json(os.path.join(replay, "search_trials.json"))
+           == trials, "profile_postprocess_s": time.perf_counter() - t_post,
+           "fold_checkpoints": ckpts, "fold_baselines": audit.get("fold_baselines"),
+           "audit": {"folds": audit["audit_folds"], "scored": len(audit["scores"]),
+                     "dropped": len(audit["dropped"])},
+           "final_policy": final, "phase3": p3, "rescored_trials": rescored,
+           "resume": resume,
+           "timing": "host clock, synchronized at the ends; phase-1 seconds per fold and "
+                     "phase-2 seconds are the driver's device_secs_* (wall x 1 device); "
+                     "phase-3 seconds per run = (device_hours_total x 3600 - the driver's "
+                     "elapsed_total) / 2 runs; idle share = 1 - the device time under the "
+                     "search.phase2 and search.audit ranges of a profiled replay of phase 2 / "
+                     "the replay's own wall of those ranges (the profiler inflates it); "
+                     "_at_unprofiled_wall: the same device time over the first, unprofiled, "
+                     "run's phase-2 wall"}
+    emit(out)
+    return out
+
+
 # ------------------------------------------------------------ train path
 
 TRAIN_STAGES = ("train.sampler", "train.augment", "train.model", "train.optimizer")
@@ -1801,6 +2119,7 @@ def main() -> int:
     check = phase_kernel_vs_plain(dev)
     check5 = phase_k5_vs_plain(dev)
     check6 = phase_k6_vs_plain(dev)
+    lighting = phase_lighting_cpu_vs_card(dev)
     with tempfile.TemporaryDirectory() as workdir:
         main_path = phase_main_path(dev, workdir)
     st = tta_setup(dev)
@@ -1813,6 +2132,8 @@ def main() -> int:
     rn = resnet50_setup(dev)
     train_path = phase_train_main_path(dev, rn)
     flagship = phase_train_flagship(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        search = phase_search_main_path(dev, workdir, card)
     train_t = phase_train_times(dev, rn, card)
     at = next(r for r in rows if r["batch"] == 128)  # the largest serving shape
     k1, k5 = tta_t["k1"], tta_t["k5"]
@@ -1835,11 +2156,13 @@ def main() -> int:
         "source": "fast_autoaugment_tpu_torch/csrc/augment.cu",
         "replaces": "fast_autoaugment_tpu/ops/augment.py:409",
         "launches": main_path["launches"] + tta_path["launches"]["augment"]
-        + train_path["launches"]["augment"] + flagship["launches"]["augment"],
+        + train_path["launches"]["augment"] + flagship["launches"]["augment"]
+        + search["launches"]["augment"],
         "launches_by_path": {"serve": main_path["launches"],
                              "tta": tta_path["launches"]["augment"],
                              "train_resnet50": train_path["launches"]["augment"],
-                             "train_and_eval_wrn40_2": flagship["launches"]["augment"]},
+                             "train_and_eval_wrn40_2": flagship["launches"]["augment"],
+                             "search_wrn40_2": search["launches"]["augment"]},
         "launches_per_call": {"serve_32": at["launches_per_call"],
                               "tta_32": k1["launches_per_call"],
                               "train_224": k1_train["launches_per_call"]},
@@ -1855,9 +2178,11 @@ def main() -> int:
         "name": "cifar_stack", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/preprocess.cu",
         "replaces": "fast_autoaugment_tpu/ops/preprocess.py:109",
-        "launches": tta_path["launches"]["cifar_stack"] + flagship["launches"]["cifar_stack"],
+        "launches": tta_path["launches"]["cifar_stack"] + flagship["launches"]["cifar_stack"]
+        + search["launches"]["cifar_stack"],
         "launches_by_path": {"tta": tta_path["launches"]["cifar_stack"],
-                             "train_and_eval_wrn40_2": flagship["launches"]["cifar_stack"]},
+                             "train_and_eval_wrn40_2": flagship["launches"]["cifar_stack"],
+                             "search_wrn40_2": search["launches"]["cifar_stack"]},
         "train_and_eval_launches_are": f"{flagship['train_steps']} train steps + "
                                        f"{flagship['eval_batches']} eval batches",
         "max_abs_err": check5["max_abs_err"],
@@ -1874,6 +2199,8 @@ def main() -> int:
                               "train_224_uint8": train_t["k6"]["uint8"]["launches_per_call"]},
         "max_abs_err": check6["max_abs_err"],
         "differing_elements": check6["differing_elements"],
+        "draws_bits_differing_cpu_vs_card": lighting["float_bits_differing"]
+        + lighting["ints_differing"],
         **ms(k6),
         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
         "library_ms": None, "shape": k6["shape"], "input": k6["input"],

@@ -254,5 +254,5 @@ def load_dataset(dataset: str, dataroot: str):
             "JPEG decode are ROADMAP Queue 1 item 11")
     if dataset in ("svhn", "reduced_svhn", "cifar10.1"):
         raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet (ROADMAP Queue 1 item 8)")
+            f"dataset {dataset!r} is not ported yet (ROADMAP Queue 1 item 8b)")
     raise ValueError(f"invalid dataset name {dataset!r}")

@@ -38,6 +38,8 @@ launch per slot) or raises; only a CPU tensor goes to the plain version.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -49,6 +51,7 @@ __all__ = [
     "op_index", "augment_list", "run_op", "slot_records",
     "apply_subpolicy_draws", "apply_subpolicy_draws_plain",
     "sample_exact", "sample_grouped", "sample_draws", "sample_crop", "sample_imagenet",
+    "log_unit", "cos_sin_turn",
     "check_policy",
     "shear_x", "shear_y", "translate_x", "translate_y", "rotate",
     "auto_contrast", "invert", "equalize", "solarize", "posterize",
@@ -566,9 +569,69 @@ def sample_crop(keys: torch.Tensor, height: int, width: int,
                         _pick(w[0][:, 1], width)], dim=-1)
 
 
-def _unit64(word: torch.Tensor) -> torch.Tensor:
-    """A 32-bit word -> float64 uniform in [0, 1) on 24 bits (exact)."""
-    return (word >> 8).to(torch.float64) * 2.0**-24
+# Box-Muller from correctly rounded float64 operations only: every +, -, x,
+# / and sqrt below is its own torch op (no op that a compiler may contract
+# into a fused multiply-add, no division by a scalar, which CUDA turns into
+# a product with its reciprocal), so the CPU and the card round each one the
+# same way and give the same bits.  log and cos/sin are fixed polynomials
+# after a range reduction that is exact on the integer draws.
+_LN2 = 0.6931471805599453  # ln 2 rounded to float64
+_SQRT2 = 1.4142135623730951
+_HALF_PI = 1.5707963267948966
+# ln m = 2 atanh(s), s = (m - 1) / (m + 1): 2 s sum_i s^(2i) / (2i + 1); |s| <= 0.172
+# on [sqrt(1/2), sqrt(2)], so 12 terms leave a relative error below 2^-60
+_ATANH = [1.0 / (2 * i + 1) for i in range(12)]
+# sin a = a sum_i (-1)^i a^(2i) / (2i + 1)!, cos a = sum_i (-1)^i a^(2i) / (2i)!
+# on [0, pi/4]: 10 terms each leave an error below 2^-60
+_SIN = [(-1.0) ** i / math.factorial(2 * i + 1) for i in range(10)]
+_COS = [(-1.0) ** i / math.factorial(2 * i) for i in range(10)]
+
+
+def _horner(z: torch.Tensor, coeffs: list[float]) -> torch.Tensor:
+    """``sum_i coeffs[i] * z^i``, one product and one sum per step."""
+    p = torch.full_like(z, coeffs[-1])
+    for c in reversed(coeffs[:-1]):
+        p = p * z
+        p = p + c
+    return p
+
+
+def log_unit(k: torch.Tensor) -> torch.Tensor:
+    """``ln(k * 2^-24)`` in float64 for int64 ``k`` in ``[1, 2^24]``.
+
+    ``k = m * 2^e`` with ``m`` in ``[sqrt(1/2), sqrt(2))`` is found on the
+    integers and by exact halvings, then ``ln = (e - 24) ln 2 + 2 atanh(s)``."""
+    e = torch.zeros_like(k)
+    v = k
+    for shift in (16, 8, 4, 2, 1):  # e = floor(log2 k), by bisection on the bits
+        hi = (v >> shift) > 0
+        e = e + hi.to(torch.int64) * shift
+        v = torch.where(hi, v >> shift, v)
+    m = k.to(torch.float64) / (torch.ones_like(k) << e).to(torch.float64)  # [1, 2), exact
+    big = m > _SQRT2
+    m = torch.where(big, m * 0.5, m)
+    e = e + big.to(torch.int64)
+    s = (m - 1.0) / (m + 1.0)
+    log_m = _horner(s * s, _ATANH) * s
+    log_m = log_m * 2.0
+    return (e - 24).to(torch.float64) * _LN2 + log_m
+
+
+def cos_sin_turn(j: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(cos, sin)`` of the angle ``2 pi j 2^-24`` in float64, for int64 ``j``
+    in ``[0, 2^24)``.  The quadrant and the reflection to ``[0, pi/4]`` are
+    taken on the integer ``j``, exactly."""
+    q = j >> 22
+    x = (j & (2**22 - 1)).to(torch.float64) * 2.0**-22  # the turn within the quadrant
+    refl = x > 0.5
+    a = torch.where(refl, 1.0 - x, x) * _HALF_PI  # [0, pi/4]
+    z = a * a
+    s = _horner(z, _SIN) * a
+    c = _horner(z, _COS)
+    s, c = torch.where(refl, c, s), torch.where(refl, s, c)  # pi/2 - a for the upper half
+    cos = torch.where(q == 0, c, torch.where(q == 1, -s, torch.where(q == 2, -c, s)))
+    sin = torch.where(q == 0, s, torch.where(q == 1, c, torch.where(q == 2, -s, -c)))
+    return cos, sin
 
 
 def sample_imagenet(keys: torch.Tensor, height: int, width: int, strength: float = 0.4,
@@ -584,10 +647,11 @@ def sample_imagenet(keys: torch.Tensor, height: int, width: int, strength: float
       ``U(1 - strength, 1 + strength)``, the PCA lighting noise
       ``N(0, alphastd)`` x 3).
 
-    The normals are Box-Muller in float64, rounded once to float32, so the
-    CPU and the card give the same values (their float64 ``log``/``cos``
-    may differ in the last double place, which rounding to float32
-    removes); the rest is integer arithmetic and exact."""
+    The normals are Box-Muller on ``u = 1 - j 2^-24`` in (0, 1] and the turn
+    ``j' 2^-24``, evaluated in float64 by :func:`log_unit` and
+    :func:`cos_sin_turn` from correctly rounded operations only and rounded
+    once to float32, so the CPU and the card give the same bits; the rest is
+    integer arithmetic and exact."""
     keys = keys.to(torch.int64).reshape(-1, 2)
     k1, k0 = keys[:, 0:1], keys[:, 1:2]
     block = torch.arange(3, dtype=torch.int64, device=keys.device)
@@ -599,12 +663,12 @@ def sample_imagenet(keys: torch.Tensor, height: int, width: int, strength: float
     span = np.float32(1.0 + strength) - lo
     factors = torch.stack([uniform24(w[i][:, 1]) for i in range(3)], dim=-1) * float(span) \
         + float(lo)
-    # Box-Muller on (0, 1] x [0, 1): the third block's four words give four normals
-    r0 = torch.sqrt(-2.0 * torch.log(1.0 - _unit64(w[0][:, 2])))
-    r1 = torch.sqrt(-2.0 * torch.log(1.0 - _unit64(w[2][:, 2])))
-    t0 = 2.0 * np.pi * _unit64(w[1][:, 2])
-    t1 = 2.0 * np.pi * _unit64(w[3][:, 2])
-    normals = torch.stack([r0 * torch.cos(t0), r0 * torch.sin(t0), r1 * torch.cos(t1)], dim=-1)
+    # the third block's four words give the radii and the angles
+    r0 = torch.sqrt(log_unit((1 << 24) - (w[0][:, 2] >> 8)) * -2.0)
+    r1 = torch.sqrt(log_unit((1 << 24) - (w[2][:, 2] >> 8)) * -2.0)
+    c0, s0 = cos_sin_turn(w[1][:, 2] >> 8)
+    c1, _ = cos_sin_turn(w[3][:, 2] >> 8)
+    normals = torch.stack([r0 * c0, r0 * s0, r1 * c1], dim=-1)
     alpha = (normals * float(alphastd)).to(torch.float32)
     return ints, torch.cat([factors, alpha], dim=-1)
 

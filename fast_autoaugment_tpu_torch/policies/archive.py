@@ -4,7 +4,9 @@
 The policies are data: JSON files under ``policies/data/``, copies of the
 JAX package's.  The codec turns them into the ``[num_sub, num_op, 3]``
 float32 tensor of (op_idx, prob, level) rows that the augmentation path
-consumes, byte-equal to the JAX package's tensor.
+consumes, byte-equal to the JAX package's tensor.  :func:`policy_decoder`
+turns a TPE proposal into sub-policies and :func:`remove_duplicates` drops
+repeated op sequences, as the search driver needs them.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ import os
 
 import numpy as np
 
-from fast_autoaugment_tpu_torch.ops.augment import OP_NAMES, op_index
+from fast_autoaugment_tpu_torch.ops.augment import OP_NAMES, SEARCH_OP_NAMES, op_index
 
-__all__ = ["ARCHIVES", "load_policy", "policy_to_tensor", "tensor_to_policy"]
+__all__ = ["ARCHIVES", "load_policy", "policy_to_tensor", "tensor_to_policy",
+           "policy_decoder", "remove_duplicates"]
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 
@@ -72,4 +75,29 @@ def tensor_to_policy(tensor: np.ndarray) -> Policy:
                 continue  # padding
             ops.append((OP_NAMES[int(op_idx)], float(prob), float(level)))
         out.append(ops)
+    return out
+
+
+def policy_decoder(augment: dict, num_policy: int, num_op: int) -> Policy:
+    """Decode a flat search sample into policies (reference ``archive.py:
+    296-307``): keys ``policy_{i}_{j}`` (an index into the 15 searchable
+    ops), ``prob_{i}_{j}`` and ``level_{i}_{j}``."""
+    policies: Policy = []
+    for i in range(num_policy):
+        policies.append([(SEARCH_OP_NAMES[int(augment[f"policy_{i}_{j}"])],
+                          float(augment[f"prob_{i}_{j}"]), float(augment[f"level_{i}_{j}"]))
+                         for j in range(num_op)])
+    return policies
+
+
+def remove_duplicates(policies: Policy) -> Policy:
+    """Drop sub-policies whose op-name sequence was already seen (reference
+    ``remove_deplicates``, ``archive.py:264-278``)."""
+    seen: set[str] = set()
+    out: Policy = []
+    for ops in policies:
+        key = "_".join(op[0] for op in ops)
+        if key not in seen:
+            seen.add(key)
+            out.append(ops)
     return out

@@ -66,7 +66,7 @@ from fast_autoaugment_tpu_torch.ops.augment import (
 from fast_autoaugment_tpu_torch.ops.preprocess import cifar_train_batch
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import ImageNetDraws
 
-__all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "cifar_augment_fn",
+__all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "prng_key", "cifar_augment_fn",
            "make_tta_step", "make_audit_step", "eval_tta", "eval_tta_batched"]
 
 AUG_DISPATCH_MODES = ("exact", "grouped")
@@ -152,6 +152,12 @@ class PhiloxDraws:
         return ImageNetDraws(sub, pol, flip=ints[:, 0].contiguous(),
                              order=ints[:, 1].contiguous(), factors=floats[:, :3].contiguous(),
                              alpha=floats[:, 3:].contiguous(), centre=ints[:, 2:].contiguous())
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """The words of ``jax.random.PRNGKey(seed)`` as a ``[2]`` uint32 array:
+    a key every draw source takes."""
+    return np.asarray([(int(seed) >> 32) & 0xFFFFFFFF, int(seed) & 0xFFFFFFFF], np.uint32)
 
 
 def check_aug_dispatch(mode: str) -> str:

@@ -17,23 +17,38 @@ normalization for eval) is here, but ImageNet data is not:
 ``load_dataset`` raises for it until the lazy loader is ported (ROADMAP
 Queue 1 item 11).
 
+Checkpoints (``:447-522``, ``:836-850``): with ``save_path`` the state is
+saved at each new best metric in the JAX package's format
+(``core/checkpoint.py``, with ``epoch``, ``step`` and ``metrics`` in the
+sidecar and a restore chain of ``ckpt_keep`` links), and the scalar logs
+``{save_path}_{train,valid,test}.jsonl`` are written beside it.  A run
+resumes from the newest intact link at the epoch after it, and turns into an
+evaluation (``only_eval``) when that link's epoch is the last.  The
+mid-epoch (``in_epoch``) records of the device cache and the
+``imported_from`` records of the reference importer are refused by name.
+
 Arguments whose machinery is not ported raise and name the ROADMAP item
-that ports it: checkpoints (``save_path``, ``only_eval``; item 6), the
-device cache and multistep dispatch (``device_cache="on"``,
-``steps_per_dispatch > 1``; item 10), the watchdog, the compile cache and
-divergence retries (item 12).  The entry point runs on ``cuda`` unless the
-caller passes ``device="cpu"`` (the plain versions of the kernels; for
-tests).
+that ports it: the device cache and multistep dispatch
+(``device_cache="on"``, ``steps_per_dispatch > 1``; item 10), the
+watchdog, the compile cache and divergence retries (item 12).  The entry
+point runs on ``cuda`` unless the caller passes ``device="cpu"`` (the
+plain versions of the kernels; for tests).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from fast_autoaugment_tpu_torch.core.checkpoint import (
+    load_checkpoint_chain,
+    read_metadata,
+    save_checkpoint,
+)
 from fast_autoaugment_tpu_torch.core.device import resolve_device
 from fast_autoaugment_tpu_torch.core.metrics import Accumulator
 from fast_autoaugment_tpu_torch.data.datasets import cv_split, load_dataset
@@ -43,6 +58,7 @@ from fast_autoaugment_tpu_torch.ops.optim import build_optimizer
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import imagenet_eval_batch
 from fast_autoaugment_tpu_torch.ops.schedules import build_schedule
 from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
+from fast_autoaugment_tpu_torch.search.tta import prng_key
 from fast_autoaugment_tpu_torch.train.steps import (
     create_train_state,
     imagenet_augment_fn,
@@ -50,7 +66,8 @@ from fast_autoaugment_tpu_torch.train.steps import (
     make_train_step,
     swapped_weights,
 )
-from fast_autoaugment_tpu_torch.utils.logging import get_logger
+from fast_autoaugment_tpu_torch.utils.interop import load_flax_train_state, train_state_to_flax
+from fast_autoaugment_tpu_torch.utils.logging import get_logger, make_writers
 
 __all__ = ["AUG_ALIASES", "resolve_policy_tensor", "train_and_eval"]
 
@@ -99,7 +116,8 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                    evaluation_interval: int = 5, target_lb: int = -1, seed: int = 0,
                    aug_dispatch: str = "exact", aug_groups: int = 8,
                    device_cache: str = "auto", steps_per_dispatch: int = 1,
-                   divergence_retries: int = 0, watchdog="off", heartbeat: Callable | None = None,
+                   divergence_retries: int = 0, ckpt_keep: int = 2, watchdog="off",
+                   heartbeat: Callable | None = None,
                    compile_cache: str = "off", device="cuda", draw_source=None) -> dict:
     """Train one model under `conf` and evaluate it.
 
@@ -112,9 +130,8 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     words are those of ``jax.random.PRNGKey(seed)``, through `draw_source`
     (the port's Philox draws by default).
     ``device_cache="auto"`` means the host-fed path here, the only one
-    ported."""
-    if save_path is not None or only_eval:
-        _refuse("checkpoints (save_path, only_eval)", "6")
+    ported.  `save_path`, `only_eval` and `ckpt_keep` are the checkpoint
+    options of the module docstring."""
     if device_cache in (True, 1, "on"):
         _refuse("the device-resident dataset cache (device_cache='on')", "10")
     if device_cache not in ("auto", "off", False, None, 0, "0"):
@@ -127,8 +144,6 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
         _refuse("the compile cache", "12")
     if int(divergence_retries) > 0:
         _refuse("divergence retries (they roll back to checkpoints)", "12")
-    if metric not in ("last", "train", "valid", "test"):
-        raise ValueError(f"unknown metric {metric!r}: use last/train/valid/test")
     dev = resolve_device(device)
 
     dataset_name = conf["dataset"]
@@ -144,15 +159,9 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     train_it = BatchIterator(total_train, train_idx)
     valid_it = BatchIterator(total_train, valid_idx)
     test_it = BatchIterator(testset)
-    if metric == "valid" and len(valid_it) == 0:
-        raise ValueError("metric='valid' with an empty validation split (test_ratio=0): "
-                         "pass metric='last'/'train'/'test' or a test_ratio > 0")
-    if metric == "test" and len(test_it) == 0:
-        raise ValueError("metric='test' with an empty test split")
-
     is_imagenet = dataset_name.endswith("imagenet")
     global_batch = int(conf["batch"])
-    if len(train_idx) < global_batch:
+    if not only_eval and len(train_idx) < global_batch:
         raise ValueError(
             f"training set has {len(train_idx)} examples < batch {global_batch}: every "
             "epoch would be empty (train batches drop the last partial batch, reference "
@@ -187,8 +196,7 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                                preprocess_fn=eval_preprocess)
     pol = torch.as_tensor(policy if use_policy else np.zeros((1, 1, 3), np.float32),
                           device=dev)
-    key = np.asarray([(int(seed) >> 32) & 0xFFFFFFFF, int(seed) & 0xFFFFFFFF],
-                     np.uint32)  # the words of jax.random.PRNGKey(seed)
+    key = prng_key(seed)
     if draw_source is None:
         key = torch.as_tensor(key.astype(np.int64), device=dev)
 
@@ -209,10 +217,47 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                 out[split + "_raw"], out[split + "_ema"], out[split] = norm, norm_ema, norm_ema
         return out
 
-    result: dict = {"epoch": 0}
+    ckpt_keep = max(1, int(ckpt_keep))
+    epoch_start = 1
+    restored = None
+    if save_path:
+        meta = read_metadata(save_path) or {}
+        for record, item in (("in_epoch", "10"), ("imported_from", "12")):
+            if record in meta:
+                _refuse(f"resuming from a checkpoint with an {record!r} record ({save_path})",
+                        item)
+        restored = load_checkpoint_chain(save_path, keep=ckpt_keep)
+    if restored is not None:
+        tree, meta, used_path = restored
+        load_flax_train_state(tree, state, optimizer)
+        epoch_start = int(meta.get("epoch", 0)) + 1
+        logger.info("resumed %s at epoch %d", used_path, epoch_start - 1)
+        if epoch_start > epochs:
+            only_eval = True
+    elif only_eval and save_path:
+        raise FileNotFoundError(f"only_eval requires a checkpoint at {save_path}")
+
+    result: dict = {"epoch": epoch_start - 1}
+    if only_eval:
+        for split, m in evaluate().items():
+            for k, v in m.items():
+                result[f"{k}_{split}"] = v
+        return result
+    # eval-only runs never consult `metric` (the JAX trainer's order)
+    if metric not in ("last", "train", "valid", "test"):
+        raise ValueError(f"unknown metric {metric!r}: use last/train/valid/test")
+    if metric == "valid" and len(valid_it) == 0:
+        raise ValueError("metric='valid' with an empty validation split (test_ratio=0): "
+                         "pass metric='last'/'train'/'test' or a test_ratio > 0")
+    if metric == "test" and len(test_it) == 0:
+        raise ValueError("metric='test' with an empty test split")
+
+    # line-buffered: what a run logs is on disk even if it stops early
+    writers = make_writers(os.path.dirname(save_path) if save_path else None,
+                           os.path.basename(save_path or "run"))
     best_metric = -1e9
     t_start = time.time()
-    for epoch in range(1, epochs + 1):
+    for epoch in range(epoch_start, epochs + 1):
         acc = Accumulator()
         for x, y in train_it.train_epoch(global_batch, epoch, seed=seed):
             xs, ys = _upload(x, y, dev)
@@ -230,6 +275,8 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                 for k, v in model.state_dict(keep_vars=True).items():
                     if k in state.ema:
                         v.copy_(state.ema[k])
+        for k in ("loss", "top1", "top5"):
+            writers[0].add_scalar(k, train_metrics[k], epoch)
         logger.info("[train %3d/%3d] loss=%.4f top1=%.4f lr=%.5f", epoch, epochs,
                     train_metrics["loss"], train_metrics["top1"], lr_fn(state.step - 1))
         result.update({f"{k}_train": v for k, v in train_metrics.items() if k != "num"})
@@ -238,6 +285,10 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
         if epoch % evaluation_interval == 0 or epoch == epochs:
             evals = evaluate()
             for split, m in evals.items():
+                suffix = next((x for x in ("_ema", "_raw") if split.endswith(x)), "")
+                for k in ("loss", "top1", "top5"):
+                    writers[1 if split.startswith("valid") else 2].add_scalar(
+                        k + suffix, m.get(k, 0.0), epoch)
                 for k, v in m.items():
                     result[f"{k}_{split}"] = v
                 logger.info("[%s %3d/%3d] %s", split, epoch, epochs,
@@ -252,10 +303,17 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                 best_metric = cur
                 result["best_valid_top1"] = evals.get("valid", {}).get("top1", 0.0)
                 result["best_test_top1"] = evals.get("test", {}).get("top1", 0.0)
+                if save_path:
+                    save_checkpoint(save_path, train_state_to_flax(state, optimizer), {
+                        "epoch": epoch, "step": int(state.step),
+                        "metrics": {k: float(v) for k, v in result.items()
+                                    if isinstance(v, (int, float))}}, keep=ckpt_keep)
             if reporter is not None:
                 reporter(loss_valid=evals.get("valid", {}).get("loss", 0.0),
                          top1_valid=evals.get("valid", {}).get("top1", 0.0),
                          loss_train=train_metrics["loss"], top1_train=train_metrics["top1"],
                          epoch=epoch)
     result["elapsed_sec"] = time.time() - t_start
+    for w in writers:
+        w.close()
     return result

@@ -406,3 +406,16 @@ def test_imagenet_stack_wrapper_rejects_what_the_kernel_does_not_take(cuda_devic
         _kernels.imagenet_stack(imgs, ints.cpu(), floats, **kw)
     with pytest.raises(ValueError):
         _kernels.imagenet_stack(imgs, ints[:1], floats, **kw)
+
+
+@pytest.mark.cuda
+def test_lighting_draws_bitwise_on_the_card(cuda_device):
+    """The ImageNet draws (the lighting normals among them) of 2^20 keys are
+    the same bits on the card and the CPU."""
+    n = 1 << 20
+    keys = torch.stack([torch.full((n,), 3, dtype=torch.int64),
+                        torch.arange(n, dtype=torch.int64)], dim=1)
+    ints, floats = T.sample_imagenet(keys, 224, 224)
+    ints_g, floats_g = T.sample_imagenet(keys.to(cuda_device), 224, 224)
+    assert torch.equal(ints_g.cpu(), ints)
+    assert torch.equal(floats_g.cpu().view(torch.int32), floats.view(torch.int32))

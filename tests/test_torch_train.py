@@ -534,8 +534,7 @@ def test_train_and_eval_matches_jax(refs, monkeypatch):
 
 
 def test_train_and_eval_refuses_what_is_not_ported():
-    for kw, item in [({"save_path": "/nonexistent/ckpt"}, "item 6"),
-                     ({"only_eval": True}, "item 6"), ({"device_cache": "on"}, "item 10"),
+    for kw, item in [({"device_cache": "on"}, "item 10"),
                      ({"steps_per_dispatch": 4}, "item 10"), ({"watchdog": "auto"}, "item 12"),
                      ({"compile_cache": "/tmp/cc"}, "item 12"),
                      ({"divergence_retries": 2}, "item 12")]:
@@ -664,14 +663,19 @@ def test_chip_smoke_resnet50_constants_match_the_config():
 
 
 def test_training_modules_import_nothing_the_card_lacks():
-    """The training slice's modules and ``chip_smoke.py`` import in a fresh
+    """The training and search slices' modules and ``chip_smoke.py`` import in a fresh
     interpreter without JAX, flax, the JAX package, sklearn, PyYAML,
     msgpack or PIL."""
     mods = ["fast_autoaugment_tpu_torch.train.trainer", "fast_autoaugment_tpu_torch.train.steps",
             "fast_autoaugment_tpu_torch.ops.optim", "fast_autoaugment_tpu_torch.ops.schedules",
             "fast_autoaugment_tpu_torch.ops.preprocess_imagenet",
             "fast_autoaugment_tpu_torch.models.resnet", "fast_autoaugment_tpu_torch.data.datasets",
-            "fast_autoaugment_tpu_torch.data.pipeline", "chip_smoke"]
+            "fast_autoaugment_tpu_torch.data.pipeline"]
+    # the search slice's modules
+    mods += ["fast_autoaugment_tpu_torch." + m for m in (
+        "core.resilience", "core.msgpack", "core.checkpoint", "core.config", "utils.interop",
+        "utils.logging", "utils.stats", "policies.archive", "search.tpe", "search.driver",
+        "launch.search_cli", "launch.train_cli")] + ["chip_smoke"]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
