@@ -91,7 +91,20 @@ each printing one JSON line:
    versions, also by CUDA-graph replay (K1 also with clusters of 8 and of
    16 blocks, K6 at every cluster size that fits, on float32 and uint8
    input, and how many such clusters the card holds at once), and the peak
-   device memory.
+   device memory;
+9. the model zoo (:data:`ZOO`): ``zoo_noise_cpu_vs_card`` draws one step's
+   model noise of Shake-Shake 26 2x96d, PyramidNet-272 and EfficientNet-b0
+   with 8 CondConv experts, mixup's draws and 4096 Beta(0.2) draws on the
+   CPU and on the card from the same keys (bitwise); ``zoo_train_main_path``
+   trains each at the full width of its preset through ``make_train_step``
+   with K1 and K5 (CIFAR) or K1 and K6 (EfficientNet, mixup 0.2, seeded
+   uint8 224x224 batches): 3 steps with the kernels against 3 with the
+   plain versions under deterministic cuDNN (bitwise), launches against
+   the plans, then the median of 10 timed steps, images/s, peak memory and
+   a profiled trace of 3 steps (idle share, stages, CondConv's share);
+   ``zoo_train_cli`` runs ``launch/train_cli.py`` on
+   ``confs/shake26_2x96d_cifar.yaml`` with ``dataset=synthetic epoch=1``,
+   saving, then with ``--only-eval`` (result keys, digest, equal metrics).
 
 The last two lines are the ``kernels`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with
@@ -147,6 +160,10 @@ RESNET50 = {"model": {"type": "resnet50"}, "dataset": "imagenet", "aug": "fa_red
             "optimizer": {"type": "sgd", "nesterov": True, "decay": 0.0001, "clip": 0,
                           "ema": 0}}
 IMAGENET_TRAIN_IMAGES = 1_281_167
+#: the keys of a train_and_eval result (the JAX package's)
+TRAIN_RESULT_KEYS = {"epoch", "loss_train", "top1_train", "top5_train", "loss_test",
+                     "top1_test", "top5_test", "num_test", "best_valid_top1", "best_test_top1",
+                     "elapsed_sec"}
 
 
 def emit(obj) -> None:
@@ -160,6 +177,15 @@ def fail(msg: str) -> None:
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def card_clocks() -> str:
+    """The card's SM clock, its maximum, power draw and the active throttle
+    reasons, as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
@@ -196,6 +222,45 @@ def kernel_counts(prof, parts) -> dict[str, int]:
 
     rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
     return {p: sum(e.count for e in rows if p in e.key) for p in parts}
+
+
+#: the record_function ranges of the port: kineto projects each onto the
+#: device's timeline as a span over its kernels, which is no device work
+ANNOTATIONS = ("train.", "tta.", "search.")
+
+
+def device_busy(prof, launched_by=None) -> dict:
+    """The device's work in a profile (kernels, copies, fills; not the
+    ranges of `ANNOTATIONS`), or only that launched by the operators for
+    which ``launched_by(name, input_shapes)`` holds: the summed durations in
+    µs, their union on the device's clock (the time the card was busy: the
+    sum counts an overlap twice, and cuDNN runs some convolutions on streams
+    of its own), the count of activities and of streams."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.profiler.kineto_results.events())
+    ops = {e.correlation_id(): e for e in events  # the operators (no runtime calls)
+           if e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0}
+    spans, streams = [], set()
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0 \
+                or e.is_user_annotation() or e.name().startswith(ANNOTATIONS):
+            continue
+        if launched_by is not None:
+            op = ops.get(e.linked_correlation_id())
+            if op is None or not launched_by(op.name(), op.shapes()):
+                continue
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        streams.add(e.device_resource_id())
+    spans.sort()
+    union_ns, end = 0, None
+    for a, b in spans:
+        if end is None or a >= end:
+            union_ns, end = union_ns + b - a, b
+        elif b > end:
+            union_ns, end = union_ns + b - end, b
+    return {"sum_us": sum(b - a for a, b in spans) / 1e3, "union_us": union_ns / 1e3,
+            "activities": len(spans), "streams": len(streams)}
 
 
 def kernel_device_ms(fn, iters: int = 20, kernel="augment_kernel",
@@ -1660,14 +1725,16 @@ class _CaptureAugment:
 
 
 def _copy_state(state):
-    """A separate copy of a train state: its own model and optimizer state."""
+    """A separate copy of a train state: its own model, optimizer state and
+    EMA shadow."""
     import copy
 
     from fast_autoaugment_tpu_torch.train import steps
 
-    model = copy.deepcopy(state.model)
-    opt_state = copy.deepcopy(state.opt_state)
-    return steps.TrainState(step=state.step, model=model, opt_state=opt_state, ema=None)
+    return steps.TrainState(step=state.step, model=copy.deepcopy(state.model),
+                            opt_state=copy.deepcopy(state.opt_state),
+                            ema=None if state.ema is None else
+                            {k: v.clone() for k, v in state.ema.items()})
 
 
 def _batchnorm_rule_error(dev) -> float:
@@ -1804,12 +1871,10 @@ def phase_train_flagship(dev) -> dict:
     want = {"augment": _kernels.augment_plan(32, 32, c["num_op"]).launches * steps,
             "cifar_stack": steps + evals,
             "imagenet_stack": 0}
-    keys = {"epoch", "loss_train", "top1_train", "top5_train", "loss_test", "top1_test",
-            "top5_test", "num_test", "best_valid_top1", "best_test_top1", "elapsed_sec"}
     out = {"phase": "train_flagship", "conf": conf, "result": result, "launches": counts,
            "expected_launches": want, "train_steps": steps, "eval_batches": evals}
     emit(out)
-    if set(result) != keys or not all(np.isfinite(list(result.values()))):
+    if set(result) != TRAIN_RESULT_KEYS or not all(np.isfinite(list(result.values()))):
         fail(f"train_and_eval result is malformed: {sorted(result)}")
     if counts != want or result["epoch"] != 2 or result["num_test"] != 256:
         fail(f"train_and_eval launch counts {counts} != {want}, or epochs/counts wrong")
@@ -1978,6 +2043,375 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ the model zoo
+
+#: the zoo's presets at full width: (name, config, overrides).  EfficientNet's
+#: preset names the type ``efficientnet-b0``, which builds no CondConv in
+#: either package (the registry reads ``condconv_num_expert`` only for a type
+#: ending in ``-condconv``); the smoke asks for the CondConv model by that
+#: type and keeps the rest of the preset (8 experts, mixup 0.2, RMSprop, EMA)
+ZOO = (("shakeshake26_2x96d", "confs/shake26_2x96d_cifar.yaml", {}),
+       ("pyramid272", "confs/pyramid272_cifar.yaml", {}),
+       ("efficientnet_b0_condconv8", "confs/efficientnet_b0_condconv.yaml",
+        {"model.type": "efficientnet-b0-condconv"}))
+ZOO_EQUAL_STEPS = 3
+ZOO_WARMUP_STEPS = 3
+ZOO_TIMED_STEPS = 10
+ZOO_TRACE_STEPS = 3
+#: the train_cli run of the zoo: the paper's Shake-Shake preset, one epoch
+ZOO_CLI_CONF = "confs/shake26_2x96d_cifar.yaml"
+
+
+def zoo_setup(dev, name: str, path: str, overrides: dict) -> dict:
+    """A zoo model of its preset at full width with seeded weights, its
+    optimizer and schedule over the real run's steps per epoch (CIFAR-10's
+    50,000 or ImageNet-1k's train images), its policy, and two seeded uint8
+    batches on the card (standing in for host-cropped images on ImageNet)."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.core.config import load_config
+    from fast_autoaugment_tpu_torch.models import get_model, input_image_size, num_class
+    from fast_autoaugment_tpu_torch.ops.optim import build_optimizer
+    from fast_autoaugment_tpu_torch.ops.schedules import build_schedule
+    from fast_autoaugment_tpu_torch.train import steps
+    from fast_autoaugment_tpu_torch.train.trainer import resolve_policy_tensor
+
+    conf = load_config(os.path.join(REPO, path), overrides=overrides)
+    dataset = conf["dataset"]
+    classes, imagenet = num_class(dataset), dataset.endswith("imagenet")
+    image = input_image_size(dataset, conf["model"]["type"])
+    model = get_model(dict(conf["model"], dataset=dataset), classes, device=dev, seed=0)
+    b = int(conf["batch"])
+    steps_per_epoch = (IMAGENET_TRAIN_IMAGES if imagenet else 50_000) // b
+    optimizer = build_optimizer(conf["optimizer"], build_schedule(conf, steps_per_epoch))
+    ema = float(conf["optimizer"].get("ema", 0.0) or 0.0)
+    state = steps.create_train_state(model, optimizer, use_ema=ema > 0)
+    policy = torch.from_numpy(resolve_policy_tensor(conf["aug"])).to(dev)
+    cutout = int(conf.get("cutout", 0) or 0)
+    g = np.random.default_rng(9)
+    batches = [(torch.from_numpy(g.integers(0, 256, (b, image, image, 3), dtype=np.uint8)).to(dev),
+                torch.from_numpy(g.integers(0, classes, (b,))).to(dev)) for _ in range(2)]
+    kernel_fn = (steps.imagenet_augment_fn if imagenet else steps.cifar_augment_fn)(
+        cutout, True, "exact", 8)
+    plain_fn = (_plain_imagenet_augment(cutout) if imagenet else _plain_cifar_augment(cutout))
+    make = lambda model, fn: steps.make_train_step(  # noqa: E731
+        model, optimizer, num_classes=classes, mixup_alpha=float(conf.get("mixup", 0) or 0),
+        lb_smooth=float(conf.get("lb_smooth", 0) or 0), ema_mu=ema, cutout_length=cutout,
+        augment_fn=fn)
+    return {"name": name, "conf": conf, "model": model, "optimizer": optimizer, "state": state,
+            "policy": policy, "batches": batches, "classes": classes, "image": image,
+            "imagenet": imagenet, "batch": b, "kernel_fn": kernel_fn, "plain_fn": plain_fn,
+            "make": make, "steps_per_epoch": steps_per_epoch}
+
+
+def _plain_cifar_augment(cutout):
+    """The CIFAR train stack with the plain versions of K1 and K5."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+    from fast_autoaugment_tpu_torch.ops import preprocess as pre
+
+    def fn(images, policy, key, src):
+        b, h, w = (int(v) for v in images.shape[:3])
+        d = src.draws(key, batch=b, num_sub=int(policy.shape[0]), num_op=int(policy.shape[1]),
+                      height=h, width=w, dispatch="exact", groups=8, device=images.device)
+        x = aug.apply_subpolicy_draws_plain(images.to(torch.float32).contiguous(), policy,
+                                            d.sub_idx, d.policy)
+        return pre.cifar_stack_plain(x, d.crop, cutout_length=cutout)
+    return fn
+
+
+def phase_zoo_noise_cpu_vs_card(dev) -> dict:
+    """One step's model noise of each zoo model (every site at the preset's
+    batch) and mixup's draws (also 4096 Beta(0.2) draws and a permutation of
+    the batch per key), drawn on the CPU and on the card from the same keys:
+    bitwise."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.core.config import load_config
+    from fast_autoaugment_tpu_torch.models import get_model, num_class
+    from fast_autoaugment_tpu_torch.ops import rng
+    from fast_autoaugment_tpu_torch.ops.shake import noise_sites
+    from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
+
+    src, cpu = PhiloxDraws(), torch.device("cpu")
+    out = {"phase": "zoo_noise_cpu_vs_card", "tolerance": "bitwise: 0 differing bits",
+           "models": {}, "bits_differing": 0}
+
+    def differ(a, b) -> int:
+        a, b = a.cpu(), b
+        if a.dtype == torch.bool:
+            return int((a != b).sum())
+        bits = {torch.float32: torch.int32, torch.float64: torch.int64,
+                torch.int64: torch.int64}[a.dtype]
+        return int((a.view(bits) != b.view(bits)).sum())
+
+    for name, path, overrides in ZOO:
+        conf = load_config(os.path.join(REPO, path), overrides=overrides)
+        model = get_model(dict(conf["model"], dataset=conf["dataset"]),
+                          num_class(conf["dataset"]), device="meta")
+        sites, b = noise_sites(model), int(conf["batch"])
+        row = {"sites": len(sites), "kinds": sorted({s.kind for s in sites}), "tensors": 0,
+               "bits_differing": 0}
+        for k in range(2):
+            ks, kd = torch.tensor([k, 101]), torch.tensor([k, 202])
+            card = src.model_noise(sites, b, ks.to(dev), kd.to(dev), dev)
+            host = src.model_noise(sites, b, ks, kd, cpu)
+            for tc, th in zip(card.tensors, host.tensors):
+                for a, h in zip(tc, th):
+                    row["tensors"] += 1
+                    row["bits_differing"] += differ(a, h)
+            alpha = float(conf.get("mixup", 0) or 0)
+            if alpha > 0:
+                for a, h in zip(src.mixup_draws(torch.tensor([k, 303]), b, alpha, dev),
+                                src.mixup_draws(torch.tensor([k, 303]), b, alpha, cpu)):
+                    row["tensors"] += 1
+                    row["bits_differing"] += differ(a, h)
+        out["models"][name] = row
+        out["bits_differing"] += row["bits_differing"]
+    keys = rng.fold_in_range(torch.tensor([4, 4]), 4096)
+    lam_card, lam_cpu = rng.beta_symmetric(keys.to(dev), 0.2), rng.beta_symmetric(keys, 0.2)
+    perm_card = torch.stack([rng.permutation(k, 128) for k in keys[:64].to(dev)])
+    perm_cpu = torch.stack([rng.permutation(k, 128) for k in keys[:64]])
+    out["beta_draws"] = {"draws": 4096, "bits_differing": differ(lam_card, lam_cpu),
+                         "min": float(lam_cpu.min()), "max": float(lam_cpu.max())}
+    out["permutations"] = {"draws": 64, "elements_differing": differ(perm_card, perm_cpu)}
+    out["bits_differing"] += out["beta_draws"]["bits_differing"] \
+        + out["permutations"]["elements_differing"]
+    emit(out)
+    if out["bits_differing"]:
+        fail("the model noise or mixup draws differ between the CPU and the card")
+    return out
+
+
+def _zoo_expected_launches(st: dict, steps: int) -> dict:
+    """K1, K5 and K6 launches of `steps` train steps, from the plans."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    img, num_op = st["image"], int(st["policy"].shape[1])
+    k1 = _kernels.augment_plan(img, img, num_op).launches * steps
+    if st["imagenet"]:  # K6 reads K1's float32 output
+        return {"augment": k1, "cifar_stack": 0,
+                "imagenet_stack": _kernels.imagenet_plan(img, img, torch.float32).launches * steps}
+    return {"augment": k1, "cifar_stack": steps, "imagenet_stack": 0}
+
+
+def _is_condconv(name: str, shapes) -> bool:
+    """Whether an operator is one of CondConv's grouped convolutions, forward
+    or backward: a convolution whose first 4-D input has the batch folded
+    into the channels (a batch of 1; every other convolution of the step has
+    the step's batch)."""
+    shapes = [s for s in (shapes or []) if isinstance(s, (list, tuple)) and len(s) == 4]
+    return "conv" in name and bool(shapes) and shapes[0][0] == 1
+
+
+def phase_zoo_train_main_path(dev, st: dict, card: str) -> dict:
+    """One zoo model at the full width of its preset: 3 train steps through
+    ``make_train_step`` with K1 and K5 (CIFAR) or K1 and K6 (ImageNet), the
+    launch counts set to 0 just before and read just after, against 3 steps
+    with the plain versions from the same state and keys under deterministic
+    cuDNN (parameters, BatchNorm statistics, EMA and metric sums bitwise);
+    then the median of 10 timed steps after 3 warm-up steps, images/s, the
+    peak device memory, and a profiled trace of 3 steps (idle share, device
+    time by stage, CondConv's share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    key = torch.tensor([0, 7], device=dev)
+    x0, y0 = st["batches"][0]
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for which in ("kernel", "plain"):
+            state = _copy_state(st["state"])
+            step = st["make"](state.model, st[f"{which}_fn"])
+            sums = []
+            if which == "kernel":
+                _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            for i in range(ZOO_EQUAL_STEPS):
+                x, y = st["batches"][i % 2]
+                state, m = step(state, x, y, st["policy"], key)
+                sums.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            if which == "kernel":
+                counts = _kernels.launch_counts()
+                main_wall = time.perf_counter() - t0
+            tensors = dict(state.model.state_dict())
+            tensors.update({"ema." + k: v for k, v in (state.ema or {}).items()})
+            runs[which] = (sums, tensors)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    (sk, tk), (sp, tp) = runs["kernel"], runs["plain"]
+    differing = sorted(k for k in tk if not torch.equal(tk[k], tp[k]))
+    want = _zoo_expected_launches(st, ZOO_EQUAL_STEPS)
+    losses = [s["loss"] / s["num"] for s in sk]
+
+    # timing: the preset's freshly initialized state (the equality runs
+    # stepped copies of it), the default cuDNN settings; each step on the
+    # host's clock and by CUDA events around it on the step's stream
+    state = st["state"]
+    step = st["make"](state.model, st["kernel_fn"])
+    for i in range(ZOO_WARMUP_STEPS):
+        state, _ = step(state, *st["batches"][i % 2], st["policy"], key)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(steps: int, state):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        host = []
+        torch.cuda.synchronize()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            events[i].record()
+            state, _ = step(state, *st["batches"][i % 2], st["policy"], key)
+            events[i + 1].record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        return state, host, [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+
+    state, times, event_times = timed(ZOO_TIMED_STEPS, state)
+    clocks = card_clocks()
+    step_ms = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=st["imagenet"]) as prof:
+        state, traced_host, traced_events = timed(ZOO_TRACE_STEPS, state)
+    wall_s = sum(traced_host) / 1e3
+    n = ZOO_TRACE_STEPS
+    by_name = {k: v for k, v in kernel_device_us(prof).items() if not k.startswith("train.")}
+    busy_us = sum(by_name.values())
+    union = device_busy(prof)
+    stages = _stage_device_us(prof, TRAIN_STAGES)
+    k1_us, k5_us, k6_us = (device_us(prof, K1_KERNELS), device_us(prof, "cifar_stack_kernel"),
+                           device_us(prof, K6_KERNELS))
+    split = {"sampler": stages["train.sampler"], "augment_kernels_K1_K5_K6": k1_us + k5_us + k6_us,
+             "augment_other": stages["train.augment"],
+             "optimizer_and_metrics": stages["train.optimizer"]}
+    split["model_forward_backward"] = busy_us - sum(split.values())
+    split = {k: v / 1e3 / n for k, v in split.items()}
+    condconv = device_busy(prof, _is_condconv) if st["imagenet"] else None
+    # the traced device work against the unprofiled step: None where the
+    # profiler made that work outlast the step it was not on
+    idle_unprofiled = 1 - union["union_us"] / 1e3 / n / float(np.median(event_times))
+    idle_unprofiled = idle_unprofiled if union["union_us"] and idle_unprofiled >= 0 else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"phase": "zoo_train_main_path", "card": card, "model": st["name"],
+           "type": st["conf"]["model"]["type"], "dataset": st["conf"]["dataset"],
+           "batch": st["batch"], "image": st["image"], "classes": st["classes"],
+           "parameters": sum(p.numel() for p in st["model"].parameters()),
+           "mixup": float(st["conf"].get("mixup", 0) or 0),
+           "steps_per_epoch": st["steps_per_epoch"], "equal_steps": ZOO_EQUAL_STEPS,
+           "losses": losses, "main_path_wall_s": main_wall, "launches": counts,
+           "expected_launches": want, "plain_vs_kernel": {
+               "metric_sums_equal": sk == sp, "state_tensors": len(tk),
+               "state_tensors_differing": differing[:20],
+               "state_tensors_differing_count": len(differing)},
+           "median_step_ms": step_ms, "step_ms": times, "card_after_timed_steps": clocks,
+           "median_step_event_ms": float(np.median(event_times)), "step_event_ms": event_times,
+           "images_per_s": st["batch"] / step_ms * 1e3, "max_memory_allocated_bytes": peak,
+           "trace": {"steps": n, "wall_ms_per_step": wall_s * 1e3 / n,
+                     "step_ms": traced_host, "step_event_ms": traced_events,
+                     "device_busy_ms_per_step": busy_us / 1e3 / n,
+                     "device_busy_union_ms_per_step": union["union_us"] / 1e3 / n,
+                     "device_activities_per_step": union["activities"] / n,
+                     "device_streams": union["streams"],
+                     "device_idle_share": 1 - union["union_us"] / 1e6 / wall_s
+                     if union["union_us"] else None,
+                     "device_idle_share_at_step_event_ms": idle_unprofiled,
+                     "device_ms_per_step_by_stage": split,
+                     "condconv_ms_per_step": condconv["sum_us"] / 1e3 / n if condconv else None,
+                     "condconv_union_ms_per_step": condconv["union_us"] / 1e3 / n
+                     if condconv else None,
+                     "condconv_streams": condconv["streams"] if condconv else None,
+                     "condconv_share_of_busy_union": condconv["union_us"] / union["union_us"]
+                     if condconv and union["union_us"] else None,
+                     "stage_ranges_found": any(v > 0 for v in stages.values()),
+                     "top_device_ms_per_step": {k[:90]: v / 1e3 / n for k, v in top}},
+           "timing": "median_step_ms: host clock around each of 10 steps after 3 warm-up steps, "
+                     "synchronized; step_event_ms: CUDA events around the same steps; the trace "
+                     "runs the next 3 steps with the profiler on, timed the same way; busy: the "
+                     "summed durations of the device's activities (by stage too), busy_union: "
+                     "their union on the device's clock (streams overlap); idle shares: 1 - "
+                     "busy_union over the traced steps' wall, and over step_event_ms"}
+    emit(out)
+    if counts != want:
+        fail(f"{st['name']}: launch counts {counts} != {want} over {ZOO_EQUAL_STEPS} steps")
+    if not all(np.isfinite(losses)):
+        fail(f"{st['name']}: a train step's loss is not finite: {losses}")
+    if differing or sk != sp:
+        fail(f"{st['name']}: the steps with the kernels differ from the plain ones: "
+             f"{differing[:5]}, sums {sk} vs {sp}")
+    return out
+
+
+def phase_zoo_train_cli(dev, workdir: str) -> dict:
+    """``launch/train_cli.py`` on the Shake-Shake preset at full width on
+    ``synthetic`` data for one epoch, saving its checkpoint; then again with
+    ``--only-eval``: both return the JAX result keys, the checkpoint loads
+    back with its digest, and the evaluation equals the first run's test
+    metrics.  The CLI's ``main`` is called as ``python -m`` calls it."""
+    from fast_autoaugment_tpu_torch.core.checkpoint import load_checkpoint, read_metadata
+    from fast_autoaugment_tpu_torch.launch import train_cli
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    from fast_autoaugment_tpu_torch.core.config import load_config
+    from fast_autoaugment_tpu_torch.train.trainer import resolve_policy_tensor
+
+    conf = load_config(os.path.join(REPO, ZOO_CLI_CONF))
+    num_op = int(resolve_policy_tensor(conf["aug"]).shape[1])
+    save = os.path.join(workdir, "shake.msgpack")
+    argv = ["-c", os.path.join(REPO, ZOO_CLI_CONF), "--save", save, "dataset=synthetic", "epoch=1"]
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    meta = read_metadata(save)
+    tree = load_checkpoint(save)  # checks the digest
+    again = train_cli.main(argv + ["--only-eval"])
+    test_keys = ("loss_test", "top1_test", "top5_test", "num_test")
+    steps, evals = 512 // int(conf["batch"]), -(-256 // int(conf["batch"]))
+    want = {"augment": _kernels.augment_plan(32, 32, num_op).launches * steps,
+            "cifar_stack": steps + evals, "imagenet_stack": 0}
+    out = {"phase": "zoo_train_cli", "argv": argv, "result": first, "only_eval": again,
+           "wall_s": wall, "checkpoint_step": int(tree["step"]), "digest": meta.get("digest"),
+           "launches": counts, "expected_launches": want}
+    emit(out)
+    if set(first) != TRAIN_RESULT_KEYS or not all(np.isfinite(list(first.values()))):
+        fail(f"train_cli result is malformed: {sorted(first)}")
+    if set(again) != {"epoch"} | set(test_keys):
+        fail(f"train_cli --only-eval result is malformed: {sorted(again)}")
+    if any(again[k] != first[k] for k in test_keys) or int(tree["step"]) != steps:
+        fail("train_cli --only-eval does not reproduce the first run's test metrics")
+    if counts != want:
+        fail(f"train_cli launch counts {counts} != {want}")
+    return out
+
+
+def zoo_phases(dev, card: str) -> tuple[dict, dict]:
+    """The zoo's phases: the noise on the CPU and the card, each model's
+    train path, and train_cli."""
+    import torch
+
+    torch.cuda.empty_cache()
+    phase_zoo_noise_cpu_vs_card(dev)
+    zoo = {}
+    for name, path, overrides in ZOO:
+        st = zoo_setup(dev, name, path, overrides)
+        zoo[name] = phase_zoo_train_main_path(dev, st, card)
+        del st
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        cli = phase_zoo_train_cli(dev, workdir)
+    return zoo, cli
+
+
 # ------------------------------------------------- paired kernel times
 
 #: (name, batch, image) of the paired timings: K1 at the TTA, train and
@@ -2109,6 +2543,7 @@ def main() -> int:
         return 0
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
+
     t0 = time.perf_counter()
     _kernels.load_libraries()
     emit({"phase": "environment", "card": card, "torch": torch.__version__,
@@ -2135,6 +2570,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         search = phase_search_main_path(dev, workdir, card)
     train_t = phase_train_times(dev, rn, card)
+    del rn
+    zoo, zoo_cli = zoo_phases(dev, card)
     at = next(r for r in rows if r["batch"] == 128)  # the largest serving shape
     k1, k5 = tta_t["k1"], tta_t["k5"]
     k1_train, k6 = train_t["k1"], train_t["k6"]["float32"]
@@ -2150,6 +2587,14 @@ def main() -> int:
                 return {"ms": row[key], "ms_source": source}
         fail("a kernel has no time")
 
+    def zoo_by_path(kernel):
+        """The zoo paths' launches of `kernel`, by path, where it ran."""
+        paths = {f"train_{name}": r["launches"][kernel] for name, r in zoo.items()}
+        paths["train_cli_shakeshake26_2x96d"] = zoo_cli["launches"][kernel]
+        return {k: v for k, v in paths.items() if v}
+
+    zoo_launches = {k: sum(zoo_by_path(k).values())
+                    for k in ("augment", "cifar_stack", "imagenet_stack")}
     print(card, flush=True)
     emit({"kernels": [{
         "name": "augment", "route": "cuda",
@@ -2157,12 +2602,13 @@ def main() -> int:
         "replaces": "fast_autoaugment_tpu/ops/augment.py:409",
         "launches": main_path["launches"] + tta_path["launches"]["augment"]
         + train_path["launches"]["augment"] + flagship["launches"]["augment"]
-        + search["launches"]["augment"],
+        + search["launches"]["augment"] + zoo_launches["augment"],
         "launches_by_path": {"serve": main_path["launches"],
                              "tta": tta_path["launches"]["augment"],
                              "train_resnet50": train_path["launches"]["augment"],
                              "train_and_eval_wrn40_2": flagship["launches"]["augment"],
-                             "search_wrn40_2": search["launches"]["augment"]},
+                             "search_wrn40_2": search["launches"]["augment"],
+                             **zoo_by_path("augment")},
         "launches_per_call": {"serve_32": at["launches_per_call"],
                               "tta_32": k1["launches_per_call"],
                               "train_224": k1_train["launches_per_call"]},
@@ -2179,10 +2625,11 @@ def main() -> int:
         "source": "fast_autoaugment_tpu_torch/csrc/preprocess.cu",
         "replaces": "fast_autoaugment_tpu/ops/preprocess.py:109",
         "launches": tta_path["launches"]["cifar_stack"] + flagship["launches"]["cifar_stack"]
-        + search["launches"]["cifar_stack"],
+        + search["launches"]["cifar_stack"] + zoo_launches["cifar_stack"],
         "launches_by_path": {"tta": tta_path["launches"]["cifar_stack"],
                              "train_and_eval_wrn40_2": flagship["launches"]["cifar_stack"],
-                             "search_wrn40_2": search["launches"]["cifar_stack"]},
+                             "search_wrn40_2": search["launches"]["cifar_stack"],
+                             **zoo_by_path("cifar_stack")},
         "train_and_eval_launches_are": f"{flagship['train_steps']} train steps + "
                                        f"{flagship['eval_batches']} eval batches",
         "max_abs_err": check5["max_abs_err"],
@@ -2193,8 +2640,9 @@ def main() -> int:
         "name": "imagenet_stack", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/imagenet.cu",
         "replaces": "fast_autoaugment_tpu/ops/preprocess_imagenet.py:191",
-        "launches": train_path["launches"]["imagenet_stack"],
-        "launches_by_path": {"train_resnet50": train_path["launches"]["imagenet_stack"]},
+        "launches": train_path["launches"]["imagenet_stack"] + zoo_launches["imagenet_stack"],
+        "launches_by_path": {"train_resnet50": train_path["launches"]["imagenet_stack"],
+                             **zoo_by_path("imagenet_stack")},
         "launches_per_call": {"train_224_float32": k6["launches_per_call"],
                               "train_224_uint8": train_t["k6"]["uint8"]["launches_per_call"]},
         "max_abs_err": check6["max_abs_err"],

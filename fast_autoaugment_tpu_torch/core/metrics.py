@@ -9,16 +9,19 @@
   ``normalize``/``__getitem__`` time, so the device is never stalled
   mid-loop.
 
-Mixup (``core/metrics.py:58``, ``:73``) is not ported yet: no ported
-configuration uses it, and it needs a Beta sampler (ROADMAP Queue 1 item 6).
+- mixup (reference ``aug_mixup.py:13-32``): :func:`mixup_batch` mixes a
+  batch with itself under a permutation, with ``lam <- max(lam, 1 - lam)``,
+  and :func:`mixup_cross_entropy` weighs the two label sets.  The draws (the
+  Beta scalar and the permutation) enter as tensors; the train step makes
+  them from its key (``ops/rng.py beta_symmetric``, ``permutation``).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["cross_entropy", "smooth_cross_entropy", "top_k_correct", "accuracy",
-           "Accumulator"]
+__all__ = ["cross_entropy", "smooth_cross_entropy", "mixup_batch", "mixup_cross_entropy",
+           "top_k_correct", "accuracy", "Accumulator"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -42,6 +45,25 @@ def smooth_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, epsilon: fl
     targets = (1.0 - epsilon) * onehot + epsilon / num_classes
     nll = -(targets * logp).sum(dim=-1)
     return nll.mean() if reduce_mean else nll
+
+
+def mixup_batch(images: torch.Tensor, labels: torch.Tensor, lam: torch.Tensor,
+                perm: torch.Tensor):
+    """Mix a batch with itself (``core/metrics.py:58-70``): ``lam`` (a 0-dim
+    Beta draw) becomes ``max(lam, 1 - lam)`` so the original image dominates,
+    and ``mixed = lam x + (1 - lam) x[perm]``.  Returns ``(mixed, labels_a,
+    labels_b, lam)``."""
+    lam = torch.maximum(lam, 1.0 - lam)
+    mixed = lam * images + (1.0 - lam) * images[perm]
+    return mixed, labels, labels[perm], lam
+
+
+def mixup_cross_entropy(logits: torch.Tensor, labels_a: torch.Tensor, labels_b: torch.Tensor,
+                        lam: torch.Tensor, epsilon: float = 0.0) -> torch.Tensor:
+    """``lam CE(a) + (1 - lam) CE(b)`` (reference ``aug_mixup.py:26-32``)."""
+    loss_a = smooth_cross_entropy(logits, labels_a, epsilon)
+    loss_b = smooth_cross_entropy(logits, labels_b, epsilon)
+    return lam * loss_a + (1.0 - lam) * loss_b
 
 
 def top_k_correct(logits: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Tensor:

@@ -6,7 +6,14 @@ linear weights and biases ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``
 (kaiming-uniform with ``a = sqrt(5)``).  :func:`torch_default_init_`
 applies it explicitly, from a ``torch.Generator``, so a seed fixes the
 weights.  ImageNet ResNet draws its convolutions He-normal with fan-out
-(``resnet.py:126-132``): :func:`he_normal_fanout_`.
+(``resnet.py:126-132``): :func:`he_normal_fanout_`.  The other families use
+flax's initializers (:func:`normal_`, :func:`uniform_`, :func:`lecun_normal_`
+on one tensor with its fans given), each the JAX package's choice.
+
+:class:`Conv2dSame` is a convolution with TensorFlow's ``SAME`` padding, which
+XLA pads asymmetrically at stride 2: ``total = max((ceil(H/s) - 1) s + k - H,
+0)``, ``total // 2`` before and the rest after (EfficientNet,
+``models/efficientnet.py:164-177``).
 
 BatchNorm keeps the torch momentum convention (``momentum`` is the weight
 of the NEW batch statistic), ``eps = 1e-5`` and statistics in at least
@@ -28,7 +35,8 @@ from torch import nn
 from torch.nn import functional as F
 
 __all__ = ["BatchNorm", "at_least_float32", "global_avg_pool", "torch_default_init_",
-           "he_normal_fanout_"]
+           "he_normal_fanout_", "Conv2dSame", "same_padding", "normal_", "uniform_",
+           "lecun_normal_"]
 
 
 def at_least_float32(x: torch.Tensor) -> torch.Tensor:
@@ -108,3 +116,55 @@ def he_normal_fanout_(module: nn.Module, generator: torch.Generator | None = Non
                 0.0, math.sqrt(2.0 / fan_out), generator=generator)
             m.weight.copy_(w)
     return module
+
+
+def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """TensorFlow ``SAME`` padding of one axis: (before, after)."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2dSame(nn.Conv2d):
+    """``nn.Conv2d`` with TensorFlow ``SAME`` padding: symmetric padding
+    goes to the convolution, an asymmetric one is applied by ``F.pad``
+    first."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1,
+                 groups: int = 1, bias: bool = False):
+        super().__init__(in_channels, out_channels, kernel, stride=stride, padding=0,
+                         groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s = self.kernel_size[0], self.stride[0]
+        (top, bottom), (left, right) = (same_padding(int(n), k, s) for n in x.shape[2:])
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, s, (top, left), 1, self.groups)
+        x = F.pad(x, (left, right, top, bottom))
+        return F.conv2d(x, self.weight, self.bias, s, 0, 1, self.groups)
+
+
+@torch.no_grad()
+def normal_(t: torch.Tensor, std: float, generator: torch.Generator | None = None) -> None:
+    """``t <- N(0, std^2)``, drawn on the CPU from `generator` (flax
+    ``variance_scaling(..., "normal")``: not truncated)."""
+    t.copy_(torch.empty(t.shape, dtype=torch.float32).normal_(0.0, std, generator=generator))
+
+
+@torch.no_grad()
+def uniform_(t: torch.Tensor, limit: float, generator: torch.Generator | None = None) -> None:
+    """``t <- U(-limit, limit)``, drawn on the CPU from `generator`."""
+    t.copy_(torch.empty(t.shape, dtype=torch.float32).uniform_(-limit, limit,
+                                                                generator=generator))
+
+
+@torch.no_grad()
+def lecun_normal_(linear: nn.Linear, generator: torch.Generator | None = None) -> None:
+    """flax's default dense init: ``lecun_normal`` (a normal truncated at 2
+    standard deviations, scaled to variance ``1 / fan_in``) for the kernel,
+    zeros for the bias."""
+    std = math.sqrt(1.0 / linear.in_features) / 0.87962566103423978
+    w = torch.empty(linear.weight.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    linear.weight.copy_(w)
+    if linear.bias is not None:
+        linear.bias.zero_()

@@ -65,6 +65,7 @@ from fast_autoaugment_tpu_torch.ops.augment import (
 )
 from fast_autoaugment_tpu_torch.ops.preprocess import cifar_train_batch
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import ImageNetDraws
+from fast_autoaugment_tpu_torch.ops.shake import ModelNoise
 
 __all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "prng_key", "cifar_augment_fn",
            "make_tta_step", "make_audit_step", "eval_tta", "eval_tta_batched"]
@@ -89,8 +90,9 @@ class LaneDraws:
 class PhiloxDraws:
     """The port's draw source: Philox4x32-10 keys (``[..., 2]`` int64
     tensors of 32-bit words), bit-identical on the CPU and the card.  It
-    makes the draws of the CIFAR stack (:meth:`draws`) and of the ImageNet
-    stack (:meth:`imagenet_draws`).
+    makes the draws of the CIFAR stack (:meth:`draws`), of the ImageNet
+    stack (:meth:`imagenet_draws`), and a train step's model noise
+    (:meth:`model_noise`) and mixup draws (:meth:`mixup_draws`).
 
     A draw key's lanes are its images: lane b's key is ``split(draw_key,
     B)[b]``, which gives the exact sampler's sub-policy and op-slot draws
@@ -124,6 +126,20 @@ class PhiloxDraws:
         else:
             sub, pol = sample_exact(lanes, num_sub, num_op, height, width)
         return LaneDraws(sub, pol, crop)
+
+    def model_noise(self, sites, batch: int, key_shake, key_drop, device) -> ModelNoise:
+        """The model's noise of one train step (``ops/shake.py ModelNoise.draw``)."""
+        return ModelNoise.draw(sites, batch, self.key(key_shake, device),
+                               self.key(key_drop, device))
+
+    def mixup_draws(self, key, batch: int, alpha: float, device):
+        """``(lam, perm)`` of one ``mixup_batch`` call (``core/metrics.py:66-68``)
+        at ``alpha > 0``: the key splits into ``(key_lam, key_perm)``; ``lam``
+        is a 0-dim ``Beta(alpha, alpha)`` draw rounded once to float32,
+        ``perm`` a permutation of the batch."""
+        key_lam, key_perm = rng.split(self.key(key, device).reshape(2), 2)
+        return (rng.beta_symmetric(key_lam, alpha).to(torch.float32),
+                rng.permutation(key_perm, batch))
 
     def imagenet_draws(self, key, *, batch: int, policy_shape: tuple[int, int] | None,
                        height: int, width: int, dispatch: str, groups: int,

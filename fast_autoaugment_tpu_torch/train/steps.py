@@ -11,9 +11,14 @@ top-5 counts, ``num``) as 0-dim float32 tensors left on the device.
 
 Randomness comes from a draw source (the port's Philox one by default,
 ``search/tta.py PhiloxDraws``).  The key tree is the JAX step's
-(``:154-196``): step s's key is ``fold_in(key, s)``, split into
-``(key_aug, key_model)``; ``key_aug`` makes the augmentation's draws.  No
-ported model draws from ``key_model`` (it feeds mixup, shake and dropout).
+(``:137-196``): step s's key is ``fold_in(key, s)``, split into
+``(key_aug, key_model)``; ``key_aug`` makes the augmentation's draws, and
+``key_model`` splits into ``(key_mix, key_shake, key_drop)``: mixup's Beta
+scalar and permutation (``mixup_alpha > 0``: the augmented batch is mixed
+and the loss is ``mixup_cross_entropy``), and the model's noise
+(``ops/shake.py``: ShakeShake, ShakeDrop and drop-connect from
+``key_shake``, dropout from ``key_drop``), which a model with noise sites
+takes as ``model(x, noise=...)``.
 
 The JAX step is a pure function of its state; here the state holds the
 model, and a step updates the model's parameters and BatchNorm statistics,
@@ -35,7 +40,12 @@ from typing import Callable
 import torch
 from torch.profiler import record_function
 
-from fast_autoaugment_tpu_torch.core.metrics import smooth_cross_entropy, top_k_correct
+from fast_autoaugment_tpu_torch.core.metrics import (
+    mixup_batch,
+    mixup_cross_entropy,
+    smooth_cross_entropy,
+    top_k_correct,
+)
 from fast_autoaugment_tpu_torch.models.layers import at_least_float32
 from fast_autoaugment_tpu_torch.ops.optim import (
     OptState,
@@ -47,6 +57,7 @@ from fast_autoaugment_tpu_torch.ops.optim import (
 )
 from fast_autoaugment_tpu_torch.ops.preprocess import cifar_eval_batch, cifar_train_batch
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import imagenet_train_batch
+from fast_autoaugment_tpu_torch.ops.shake import noise_sites
 from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws, check_aug_dispatch
 
 __all__ = ["TrainState", "create_train_state", "cifar_augment_fn", "imagenet_augment_fn",
@@ -133,12 +144,12 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, *, num_classes
     draw_source) -> [B, 3, H, W]` defaults to the CIFAR/SVHN stack
     (:func:`cifar_augment_fn` with ``aug_dispatch``/``aug_groups``); pass
     :func:`imagenet_augment_fn` for that family.  A custom `augment_fn`
-    owns its own dispatch."""
-    if mixup_alpha > 0.0:
-        raise NotImplementedError(
-            "mixup is not ported yet (ROADMAP Queue 1 item 6): it needs a Beta sampler "
-            "and no ported configuration uses it")
+    owns its own dispatch.  A model with noise sites gets its noise from
+    ``key_shake`` and ``key_drop`` of the draw source
+    (``draw_source.model_noise``), mixup its draws from ``key_mix``
+    (``draw_source.mixup_draws``)."""
     src = draw_source or PhiloxDraws()
+    sites = noise_sites(model)
     if augment_fn is None:
         augment_fn = cifar_augment_fn(cutout_length, use_policy, aug_dispatch, aug_groups)
     params = list(model.parameters())
@@ -150,13 +161,26 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, *, num_classes
             raise ValueError("the state holds another model than the step was built for")
         model.train()
         dev = images.device
+        b = int(images.shape[0])
+        noise = lam = None
         with record_function("train.sampler"):
-            key_aug = src.split(src.fold_in(key, state.step, dev), 2, dev)[0]
+            key_aug, key_model = src.split(src.fold_in(key, state.step, dev), 2, dev)
+            if sites or mixup_alpha > 0.0:
+                key_mix, key_shake, key_drop = src.split(key_model, 3, dev)
+            if sites:
+                noise = src.model_noise(sites, b, key_shake, key_drop, dev)
+            if mixup_alpha > 0.0:
+                lam, perm = src.mixup_draws(key_mix, b, mixup_alpha, dev)
         x = augment_fn(images, policy, key_aug, src)
         labels = labels.to(device=dev, dtype=torch.int64)
         with record_function("train.model"):
-            logits = at_least_float32(model(x))
-            loss = smooth_cross_entropy(logits, labels, lb_smooth)
+            if lam is not None:
+                x, labels_a, labels_b, lam = mixup_batch(x, labels, lam, perm)
+            logits = at_least_float32(model(x, noise=noise) if sites else model(x))
+            if lam is not None:
+                loss = mixup_cross_entropy(logits, labels_a, labels_b, lam, lb_smooth)
+            else:
+                loss = smooth_cross_entropy(logits, labels, lb_smooth)
             grads = list(torch.autograd.grad(loss, params))
         with record_function("train.optimizer"):
             optimizer.step(params, grads, state.opt_state, mask)

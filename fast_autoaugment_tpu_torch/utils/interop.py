@@ -1,23 +1,30 @@
 """JAX (flax) variables and train states <-> the port's models and states.
 
-The inverse of the JAX package's importers
-(``fast_autoaugment_tpu/utils/interop.py:100 _import_wideresnet`` and
-``:117 _import_resnet``): it
-takes a flax variables tree ``{"params", "batch_stats"}`` whose leaves are
-numpy arrays (``jax.tree.map(np.asarray, variables)``) and returns the
-``state_dict`` of the port's model of the same family, so that both
-packages can run the same weights.  Layouts:
+The counterpart of the JAX package's importers
+(``fast_autoaugment_tpu/utils/interop.py:100-290``): it takes a flax
+variables tree ``{"params", "batch_stats"}`` whose leaves are numpy arrays
+(``jax.tree.map(np.asarray, variables)``) and returns the ``state_dict`` of
+the port's model of the same family, so that both packages can run the same
+weights.  Layouts:
 
-- conv kernels HWIO -> OIHW;
-- the dense kernel ``[in, out]`` -> ``[out, in]``;
+- conv kernels HWIO -> OIHW (a depthwise ``[k, k, 1, C]`` -> ``[C, 1, k, k]``);
+- CondConv experts ``[E, k, k, Cin/g, Cout]`` -> ``[E, Cout Cin/g k k]`` (each
+  expert an OIHW kernel, flattened);
+- dense kernels ``[in, out]`` -> ``[out, in]``;
 - ``{block}/BatchNorm_0/{scale,bias}`` -> ``{block}.{weight,bias}`` and the
   matching ``batch_stats`` ``{mean,var}`` -> ``running_{mean,var}``
   (``num_batches_tracked`` is 0: eval mode does not read it).
 
 ResNet's blocks map ``layer{s}_{i}/conv{k}`` and ``bn{k}`` to
 ``layer{s}.{i}.conv{k}`` and ``bn{k}``, and ``downsample_conv`` and
-``downsample_bn`` to ``downsample.0`` and ``downsample.1``.  The WideResNet
-and ResNet families are ported (ROADMAP item 9 adds the others).
+``downsample_bn`` to ``downsample.0`` and ``downsample.1``.  The Shake-Shake,
+PyramidNet and EfficientNet models carry the flax module names themselves
+(``s{stage}_{i}_branch1``, ``block{idx}``, ``routing_fn``, ...), so a module
+name is its flax path.  The families are those of the JAX importer:
+``wideresnet``, ``resnet``, ``shakeshake``, ``shakeshake_next``, ``pyramid``
+and ``efficientnet``; PyramidNet's alpha and EfficientNet's variant cannot
+be read back from a tree, so those two take the target model (``model=``,
+as the JAX ``import_state_dict`` does).
 
 One table, :func:`flax_layout`, names the flax place of every tensor of a
 port model's ``state_dict``; :func:`flax_to_state_dict` reads through it
@@ -51,7 +58,10 @@ import numpy as np
 import torch
 
 __all__ = ["flax_to_state_dict", "flax_layout", "tensors_to_flax", "flax_to_tensors",
-           "train_state_to_flax", "load_flax_train_state"]
+           "train_state_to_flax", "load_flax_train_state", "FAMILIES"]
+
+FAMILIES = ("wideresnet", "resnet", "shakeshake", "shakeshake_next", "pyramid",
+            "efficientnet")
 
 
 def _blocks(params: Mapping) -> dict[int, int]:
@@ -69,10 +79,19 @@ def _model_of(params: Mapping, family: str) -> torch.nn.Module:
     """The port's model of `family` whose tensors the flax `params` tree
     holds, built on the meta device (only its names and layers are read)."""
     from fast_autoaugment_tpu_torch.models.resnet import IMAGENET_LAYERS, ResNet
+    from fast_autoaugment_tpu_torch.models.shake_resnet import ShakeResNet, ShakeResNeXt
     from fast_autoaugment_tpu_torch.models.wideresnet import WideResNet
 
     counts = _blocks(params)
     with torch.device("meta"):
+        if family in ("shakeshake", "shakeshake_next"):
+            n_units = sum(1 for k in params if re.fullmatch(r"s0_\d+_branch1", k))
+            num_classes = params["fc_out"]["kernel"].shape[1]
+            conv1 = params["s0_0_branch1"]["conv1"]["kernel"]
+            if family == "shakeshake":
+                return ShakeResNet(6 * n_units + 2, conv1.shape[3], num_classes)
+            # only w_base // 64 shapes the ResNeXt: mid = 64 (w_base // 64) 4
+            return ShakeResNeXt(9 * n_units + 2, 64 * (conv1.shape[3] // 256), 4, num_classes)
         if family == "wideresnet":
             widen = params["layer1_0"]["conv1"]["kernel"].shape[3] // 16
             return WideResNet(6 * counts[1] + 4, widen, params["linear"]["kernel"].shape[1])
@@ -87,17 +106,22 @@ def _model_of(params: Mapping, family: str) -> torch.nn.Module:
         return ResNet("imagenet", depth, num_classes)
 
 
-def flax_to_state_dict(variables: Mapping, family: str = "wideresnet") -> dict[str, torch.Tensor]:
+def flax_to_state_dict(variables: Mapping, family: str = "wideresnet",
+                       model: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
     """Convert flax variables (numpy leaves) of a `family` model into the
     port's ``state_dict`` (float32 CPU tensors; ``load_state_dict`` copies
     them to the model's device): :func:`flax_to_tensors` on the
-    :func:`flax_layout` of the model the variables describe, with
-    BatchNorm's ``num_batches_tracked`` at 0."""
-    if family not in ("wideresnet", "resnet"):
-        raise NotImplementedError(
-            f"family {family!r} is not ported yet; have ['resnet', 'wideresnet'] "
-            f"(ROADMAP Queue 1 item 9)")
-    model = _model_of(variables["params"], family)
+    :func:`flax_layout` of the model the variables describe (`model`, a port
+    model of any device, or built from the tree; ``pyramid`` and
+    ``efficientnet`` need `model`), with BatchNorm's ``num_batches_tracked``
+    at 0."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown family {family!r}; have {sorted(FAMILIES)}")
+    if model is None:
+        if family in ("pyramid", "efficientnet"):
+            raise ValueError(f"a {family} tree does not say its model: pass model= "
+                             "(e.g. get_model(conf, classes, device='meta'))")
+        model = _model_of(variables["params"], family)
     arrays = flax_to_tensors(variables, flax_layout(model))
     return {name: (torch.from_numpy(arrays[name]) if name in arrays
                    else torch.tensor(0, dtype=torch.int64))
@@ -128,13 +152,15 @@ def _flax_module_path(name: str) -> list[str]:
 
 
 #: (collection, path, layout) of one state_dict tensor; layout "oihw" is a
-#: conv kernel (flax HWIO), "io" the dense kernel (flax [in, out]), "" as is
+#: conv kernel (flax HWIO), "io" a dense kernel (flax [in, out]),
+#: "experts:O,I,KH,KW" CondConv's flat experts (flax [E, KH, KW, I, O]), "" as is
 Place = tuple[str, tuple[str, ...], str]
 
 
 def flax_layout(model: torch.nn.Module) -> dict[str, Place]:
     """The flax place of every tensor of ``model.state_dict()`` except
     BatchNorm's ``num_batches_tracked``, in ``state_dict`` order."""
+    from fast_autoaugment_tpu_torch.models.efficientnet import CondConv
     from fast_autoaugment_tpu_torch.models.layers import BatchNorm
 
     layout: dict[str, Place] = {}
@@ -155,14 +181,15 @@ def flax_layout(model: torch.nn.Module) -> dict[str, Place]:
             kind = "oihw" if isinstance(mod, torch.nn.Conv2d) else "io"
             places = {"weight": ("params", path + ("kernel",), kind),
                       "bias": ("params", path + ("bias",), "")}
+        elif isinstance(mod, CondConv):
+            kind = "experts:" + ",".join(map(str, mod.kernel_shape))
+            places = {"experts": ("params", path + ("experts",), kind)}
         else:
             places = {}
         for attr in own:
             if attr not in places:
-                raise NotImplementedError(
-                    f"{type(mod).__name__} {name!r} has a tensor {attr!r} with no flax place; "
-                    "only the WideResNet and ResNet families are ported (ROADMAP Queue 1 "
-                    "item 9)")
+                raise ValueError(
+                    f"{type(mod).__name__} {name!r} has a tensor {attr!r} with no flax place")
             if places[attr] is not None:
                 layout[f"{name}.{attr}" if name else attr] = places[attr]
     return layout
@@ -174,6 +201,9 @@ def _to_flax_array(t: torch.Tensor, kind: str) -> np.ndarray:
         a = np.transpose(a, (2, 3, 1, 0))
     elif kind == "io":
         a = np.transpose(a, (1, 0))
+    elif kind.startswith("experts:"):
+        shape = tuple(int(v) for v in kind[len("experts:"):].split(","))
+        a = np.transpose(a.reshape((a.shape[0],) + shape), (0, 3, 4, 2, 1))
     return np.ascontiguousarray(a)
 
 
@@ -183,6 +213,8 @@ def _from_flax_array(a, kind: str) -> np.ndarray:
         a = np.transpose(a, (3, 2, 0, 1))
     elif kind == "io":
         a = np.transpose(a, (1, 0))
+    elif kind.startswith("experts:"):
+        a = np.ascontiguousarray(np.transpose(a, (0, 4, 3, 1, 2))).reshape(a.shape[0], -1)
     return a
 
 

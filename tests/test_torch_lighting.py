@@ -1,5 +1,5 @@
 """The ImageNet stack's lighting normals (``ops/augment.py sample_imagenet``,
-``log_unit``, ``cos_sin_turn``): built only from correctly rounded float64
+``ops/rng.py log_unit``, ``cos_sin_turn``): built only from correctly rounded float64
 operations, so that the CPU and the card give the same bits.
 
 The oracle is numpy's float64 ``log``, ``cos`` and ``sin`` on the same
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from fast_autoaugment_tpu_torch.ops import augment as A
-from fast_autoaugment_tpu_torch.ops.rng import philox4x32
+from fast_autoaugment_tpu_torch.ops.rng import cos_sin_turn, log_unit, philox4x32
 
 LANES = 1 << 20
 
@@ -31,7 +31,7 @@ LANES = 1 << 20
 def test_log_unit_against_float64():
     k = torch.cat([torch.arange(1, 1 << 24, 17, dtype=torch.int64),
                    torch.tensor([1, 2, 3, (1 << 24) - 1, 1 << 24])])
-    got = A.log_unit(k).numpy()
+    got = log_unit(k).numpy()
     want = np.log(k.numpy() * 2.0**-24)
     rel = np.abs(got - want) / np.maximum(np.abs(want), 2.0**-24)
     assert rel.max() <= 2.0**-50, rel.max()
@@ -41,7 +41,7 @@ def test_log_unit_against_float64():
 def test_cos_sin_turn_against_float64():
     j = torch.cat([torch.arange(0, 1 << 24, 13, dtype=torch.int64),
                    torch.tensor([1 << 22, 1 << 23, 3 << 22, (1 << 24) - 1])])
-    c, s = A.cos_sin_turn(j)
+    c, s = cos_sin_turn(j)
     theta = 2 * np.pi * j.numpy() * 2.0**-24
     assert np.abs(c.numpy() - np.cos(theta)).max() <= 2.0**-50
     assert np.abs(s.numpy() - np.sin(theta)).max() <= 2.0**-50

@@ -121,10 +121,12 @@ def test_get_model_layout_init_and_precision():
 
 
 def test_get_model_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model({"type": "shakeshake26_2x32d"}, 10, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
+        get_model({"type": "shakeshake26_2x32d", "precision": "bf16"}, 10, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model({"type": "wresnet40_2", "precision": "bf16"}, 10, device="cpu")
+    with pytest.raises(ValueError, match="unknown model type"):
+        get_model({"type": "densenet121"}, 10, device="cpu")
     with pytest.raises(ValueError):
         get_model({"type": "wresnet40_2", "precision": "f16"}, 10, device="cpu")
     with pytest.raises(ValueError):

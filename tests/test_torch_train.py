@@ -542,8 +542,6 @@ def test_train_and_eval_refuses_what_is_not_ported():
             TR.train_and_eval(TRAIN_CONF, "", device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 11"):
         TR.train_and_eval(dict(TRAIN_CONF, dataset="imagenet"), "", device="cpu")
-    with pytest.raises(NotImplementedError, match="mixup"):
-        TR.train_and_eval(dict(TRAIN_CONF, mixup=0.2), "", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TR.train_and_eval(TRAIN_CONF, "")  # CUDA is the default
@@ -579,8 +577,19 @@ def test_train_step_on_the_cpu_with_philox_draws():
     assert float(m0["num"]) == b and np.isfinite(float(m0["loss"]))
     assert float(m0["loss"]) == float(m1["loss"]) and all(torch.equal(s0[k], s1[k]) for k in s0)
     assert float(m2["loss"]) != float(m0["loss"])  # grouped draws differ
-    with pytest.raises(NotImplementedError, match="mixup"):
-        ST.make_train_step(model, opt, num_classes=10, mixup_alpha=0.2)
+    # mixup draws from the step's key_mix: a function of (state, batch, key)
+    # too, and another loss than without it
+    mixed = []
+    for _ in range(2):
+        torch.manual_seed(1)
+        model = ResNet("imagenet", 18, 10).to(memory_format=torch.channels_last)
+        opt = O.build_optimizer({"type": "sgd", "decay": 1e-4, "clip": 0}, lambda c: 0.05)
+        state = ST.create_train_state(model, opt, use_ema=False)
+        step = ST.make_train_step(model, opt, num_classes=10, mixup_alpha=0.2,
+                                  augment_fn=ST.imagenet_augment_fn(8, True, "exact", 2))
+        mixed.append(float(step(state, x, y, torch.from_numpy(FA_IMAGENET),
+                                torch.tensor([0, 9]))[1]["loss"]))
+    assert mixed[0] == mixed[1] != float(m0["loss"]) and np.isfinite(mixed[0])
 
 
 # ------------------------------------------------------------- data
@@ -663,7 +672,7 @@ def test_chip_smoke_resnet50_constants_match_the_config():
 
 
 def test_training_modules_import_nothing_the_card_lacks():
-    """The training and search slices' modules and ``chip_smoke.py`` import in a fresh
+    """The training, search and model-zoo slices' modules and ``chip_smoke.py`` import in a fresh
     interpreter without JAX, flax, the JAX package, sklearn, PyYAML,
     msgpack or PIL."""
     mods = ["fast_autoaugment_tpu_torch.train.trainer", "fast_autoaugment_tpu_torch.train.steps",
@@ -676,6 +685,10 @@ def test_training_modules_import_nothing_the_card_lacks():
         "core.resilience", "core.msgpack", "core.checkpoint", "core.config", "utils.interop",
         "utils.logging", "utils.stats", "policies.archive", "search.tpe", "search.driver",
         "launch.search_cli", "launch.train_cli")] + ["chip_smoke"]
+    # the model zoo's modules
+    mods += ["fast_autoaugment_tpu_torch." + m for m in (
+        "ops.rng", "ops.shake", "core.metrics", "models", "models.shake_resnet",
+        "models.pyramidnet", "models.efficientnet")]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
