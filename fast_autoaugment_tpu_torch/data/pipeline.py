@@ -15,6 +15,16 @@ search driver's ``_FoldEval`` does, so that every trial replays the same
 device tensors.  :class:`BatchIterator` bundles a dataset with a fold's
 indices.  Lazy (on-disk) datasets and the prefetch thread are not ported
 yet (ROADMAP Queue 1 item 11).
+
+The device-resident path (``:295-376``): :class:`DeviceCache` puts a whole
+in-memory dataset (uint8 NHWC images and labels) on the device once, and
+the train step gathers each batch from it by index
+(``train/steps.py make_multistep_train_step``), so an epoch ships only its
+:func:`train_index_matrix`.  :func:`resolve_device_cache` turns the
+``auto``/``on``/``off`` knob into a yes or no with the JAX package's gates,
+and :func:`split_dispatch_chunks` cuts an epoch into dispatches of N steps
+and one remainder.  One device: the mesh sharding of the JAX cache is
+ROADMAP Queue 1 item 10c.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ from fast_autoaugment_tpu_torch.core.device import resolve_device
 from fast_autoaugment_tpu_torch.data.datasets import ArrayDataset
 
 __all__ = ["train_index_matrix", "train_batches", "eval_batches", "device_batches",
-           "BatchIterator"]
+           "BatchIterator", "DeviceCache", "resolve_device_cache", "split_dispatch_chunks"]
 
 
 def _eager(dataset: ArrayDataset) -> None:
@@ -111,3 +121,53 @@ class BatchIterator:
 
     def eval_epoch(self, batch: int, **kw):
         return eval_batches(self.dataset, self.indices, batch, **kw)
+
+
+class DeviceCache:
+    """An in-memory dataset resident on `device`: ``images`` (the uint8
+    ``[N, H, W, 3]`` array as it is) and ``labels`` (int64 ``[N]``), uploaded
+    once.  CIFAR-10's train set is 146 MiB of it.  A lazy dataset has
+    nothing to hold and raises."""
+
+    def __init__(self, dataset: ArrayDataset, device="cuda"):
+        if dataset.lazy:
+            raise ValueError("DeviceCache needs an in-memory dataset; lazy (on-disk) "
+                             "datasets keep the host feed")
+        dev = resolve_device(device)
+        images = np.ascontiguousarray(dataset.images)
+        labels = np.asarray(dataset.labels, np.int64)
+        self.num_examples = len(dataset)
+        self.nbytes = int(images.nbytes + np.asarray(dataset.labels).nbytes)
+        self.images = torch.as_tensor(images, device=dev)
+        self.labels = torch.as_tensor(labels, device=dev)
+
+
+def resolve_device_cache(mode, dataset: ArrayDataset, *, process_count: int = 1) -> bool:
+    """The ``--device-cache {auto,on,off}`` knob as a bool: ``"auto"`` (the
+    default) is on for an in-memory dataset in a single process; ``"on"``
+    raises where ``"auto"`` would fall back (a lazy dataset, several
+    processes), so a launch never believes it cached what it streamed."""
+    if mode in (False, None, 0, "off", "0"):
+        return False
+    if mode in (True, 1, "on"):
+        if dataset.lazy:
+            raise ValueError("--device-cache on: dataset is lazy (on-disk) - the device "
+                             "cache only serves in-memory datasets; use --device-cache "
+                             "auto/off")
+        if process_count > 1:
+            raise ValueError("--device-cache on: multi-host runs keep the per-process host "
+                             "feed; use --device-cache auto/off")
+        return True
+    if mode == "auto":
+        return not dataset.lazy and process_count == 1
+    raise ValueError(f"unknown device-cache mode {mode!r}: use auto/on/off")
+
+
+def split_dispatch_chunks(total_steps: int, steps_per_dispatch: int) -> list[int]:
+    """An epoch's steps as dispatch sizes: full chunks of
+    `steps_per_dispatch` and one remainder, so an epoch has at most two
+    dispatch sizes and its end is a dispatch boundary."""
+    if steps_per_dispatch < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+    full, rem = divmod(total_steps, steps_per_dispatch)
+    return [steps_per_dispatch] * full + ([rem] if rem else [])

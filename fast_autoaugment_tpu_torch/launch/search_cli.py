@@ -50,9 +50,7 @@ logger = get_logger("faa_torch.search_cli")
 #: the JAX CLIs' flags for machinery the port does not have yet, by the
 #: ROADMAP Queue 1 item that ports it
 UNPORTED_FLAGS = {
-    "--fold-stack": "10", "--device-cache": "10", "--steps-per-dispatch": "10",
-    "--ckpt-every-dispatch": "10", "--coordinator": "10", "--num-hosts": "10",
-    "--host-id": "10",
+    "--fold-stack": "10b", "--coordinator": "10c", "--num-hosts": "10c", "--host-id": "10c",
     "--async-pipeline": "12", "--pipeline-actors": "12", "--pipeline-queue-depth": "12",
     "--divergence-retries": "12", "--watchdog": "12", "--compile-cache": "12",
     "--telemetry": "12", "--telemetry-port": "12",
@@ -134,6 +132,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="policy sampling for phase-2 TTA, the audit and phase-3 retrains: "
                         "per image (exact) or per chunk of --aug-groups (grouped)")
     p.add_argument("--aug-groups", type=int, default=8)
+    p.add_argument("--device-cache", default="auto", choices=("auto", "on", "off"),
+                   help="device-resident data path for phase-1 fold pretraining, gate "
+                        "retrains and phase-3 retrains: upload the in-memory dataset once, "
+                        "gather batches by index inside the dispatch (a CUDA graph of the "
+                        "step on the card).  'auto' (default) = on for in-memory single-host "
+                        "datasets, the host feed's training bit for bit (on the card under "
+                        "deterministic cuDNN); 'on' errors where auto would fall back")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="N train steps per dispatch over the device cache (needs "
+                        "--device-cache auto/on): one upload of N index rows, then N replays "
+                        "of the step's CUDA graph on the card.  1 (default) = one dispatch "
+                        "per step; N > 1 uploads less often, the same training bit for bit")
     p.add_argument("--num-result-per-cv", type=int, default=5,
                    help="phase-3 retrains per mode (reference search.py:270)")
     p.add_argument("--until", type=int, default=3, help="run phases up to this number (1-3)")
@@ -151,6 +161,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="add the random-policy control arm to phase 3")
     p.add_argument("--ckpt-keep", type=int, default=2,
                    help="restore-chain depth of every checkpoint the search writes")
+    p.add_argument("--ckpt-every-dispatch", type=int, default=0,
+                   help="mid-epoch snapshot every M dispatch chunks in phase-3 retrains "
+                        "(device-cache path; bit-identical dispatch-boundary resume).  "
+                        "0 = off")
     p.add_argument("--audit-floor", type=float, default=0.95,
                    help="drop selected sub-policies whose own mean-over-draws fold accuracy "
                         "is below floor x baseline (<= 0 turns the audit off)")
@@ -179,6 +193,7 @@ def main(argv=None, *, draw_source=None) -> dict:
         audit_floor=args.audit_floor if args.audit_floor > 0 else None,
         random_control=args.phase3_random, trial_batch=args.trial_batch,
         aug_dispatch=args.aug_dispatch, aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep,
+        device_cache=args.device_cache, steps_per_dispatch=args.steps_per_dispatch,
         topup_trials=args.topup_trials, device=args.device, draw_source=draw_source)
     final_policy_set = result["final_policy_set"]
     random_policy_set = result.get("random_policy_set") or []
@@ -241,7 +256,9 @@ def main(argv=None, *, draw_source=None) -> dict:
                     conf.replace(aug=aug), args.dataroot, test_ratio=0.0,
                     save_path=os.path.join(args.save_dir, f"final_{mode}_{run}.msgpack"),
                     metric="last", seed=seeds[run], aug_dispatch=args.aug_dispatch,
-                    aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep, device=args.device,
+                    aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep,
+                    device_cache=args.device_cache, steps_per_dispatch=args.steps_per_dispatch,
+                    checkpoint_every_dispatch=args.ckpt_every_dispatch, device=args.device,
                     draw_source=draw_source)
                 outcomes[mode].append(float(res.get("top1_test", 0.0)))
                 logger.info("phase3 %s run %d: top1_test=%.4f", mode, run, outcomes[mode][-1])

@@ -49,8 +49,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--aug-dispatch", default="exact", choices=("exact", "grouped"))
     p.add_argument("--aug-groups", type=int, default=8)
+    p.add_argument("--device-cache", default="auto", choices=("auto", "on", "off"),
+                   help="device-resident data path: upload the in-memory dataset to the "
+                        "card once and gather batches by index INSIDE the dispatch (a CUDA "
+                        "graph of the step) - no per-step host image copy.  'auto' (default) "
+                        "enables it for in-memory datasets on a single host (the host feed's "
+                        "training bit for bit, on the card under deterministic cuDNN); lazy "
+                        "ImageNet datasets keep the host feed; 'on' errors where auto would "
+                        "fall back")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="N train steps per dispatch over the device cache (needs "
+                        "--device-cache auto/on): one upload of N index rows, then N replays "
+                        "of the step's CUDA graph on the card.  1 (default) = one dispatch "
+                        "per step; N > 1 uploads less often, the same training bit for bit")
     p.add_argument("--ckpt-keep", type=int, default=2,
                    help="restore-chain depth (path, path.prev, ...)")
+    p.add_argument("--ckpt-every-dispatch", type=int, default=0,
+                   help="checkpoint every M dispatch chunks MID-epoch (device-cache path "
+                        "only; resumable bit-identically from the exact dispatch "
+                        "boundary).  0 (default) = checkpoint at evaluation epochs only")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) or cpu (the plain versions of the kernels)")
     p.add_argument("override", nargs="*", help="dotted conf overrides key=value")
@@ -73,7 +90,8 @@ def main(argv=None) -> dict:
         save_path=args.save or None, only_eval=args.only_eval,
         evaluation_interval=args.evaluation_interval, metric="last", seed=args.seed,
         aug_dispatch=args.aug_dispatch, aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep,
-        device=args.device)
+        device_cache=args.device_cache, steps_per_dispatch=args.steps_per_dispatch,
+        checkpoint_every_dispatch=args.ckpt_every_dispatch, device=args.device)
     elapsed = time.time() - t0
     logger.info("done %s: %s", args.tag, json.dumps(
         {k: round(v, 5) if isinstance(v, float) else v for k, v in result.items()}))

@@ -17,6 +17,11 @@ shared library of its own with a plain C interface and bound with
   a per-pixel pass for images too large for a cluster
   (:func:`imagenet_plan` chooses by shape and dtype).
 
+Each wrapper counts its launches (:func:`launch_counts`).  A launch that
+a CUDA graph capture records is not a launch yet: it goes to the tally of
+:func:`counting_capture`, and the graph's owner adds that tally once per
+replay (:func:`count_replays`), so the counts say what ran on the card.
+
 The build happens on first use, into ``fast_autoaugment_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the source and the flags, so
 a second process finds the libraries already built.  The sources that are
@@ -26,6 +31,7 @@ built or imported from CUDA when this module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,7 +47,8 @@ import torch
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "AugmentPlan", "CifarPlan", "ImageNetPlan",
            "augment_plan", "cifar_plan", "imagenet_plan", "load_libraries", "augment",
            "augment_max_active_clusters", "cifar_stack", "imagenet_stack",
-           "imagenet_max_active_clusters", "launch_counts", "reset_launch_counts"]
+           "imagenet_max_active_clusters", "launch_counts", "reset_launch_counts",
+           "counting_capture", "count_replays"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"augment": _PKG / "csrc" / "augment.cu",
@@ -73,6 +80,9 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launches = {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0}
+#: the launches recorded into the CUDA graph being captured under
+#: counting_capture (None outside it)
+_captured: dict[str, int] | None = None
 #: wall seconds of the last build of all missing libraries (0.0 when every
 #: library was already built)
 build_seconds = 0.0
@@ -350,6 +360,39 @@ def reset_launch_counts() -> None:
             _launches[k] = 0
 
 
+def _count(name: str, n: int = 1) -> None:
+    """Count `n` launches of `name`: launched now, or recorded into a graph
+    under capture (then they count when the graph is replayed)."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    with _lock:
+        if not capturing:
+            _launches[name] += n
+        elif _captured is not None:
+            _captured[name] += n
+
+
+@contextlib.contextmanager
+def counting_capture():
+    """Around a CUDA graph capture: yields a dict that, after the block,
+    holds the launches the wrappers recorded into the graph."""
+    global _captured
+    tally = {k: 0 for k in _launches}
+    with _lock:
+        _captured = tally
+    try:
+        yield tally
+    finally:
+        with _lock:
+            _captured = None
+
+
+def count_replays(tally: dict[str, int], replays: int = 1) -> None:
+    """Count `replays` replays of a graph whose capture recorded `tally`."""
+    with _lock:
+        for k, v in tally.items():
+            _launches[k] += v * replays
+
+
 def _check_rc(lib, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
@@ -392,8 +435,7 @@ def augment(images: torch.Tensor, records: torch.Tensor, *,
                              b, h, w, plan.cluster, plan.smem_bytes, plan.threads, dev,
                              stream)
         _check_rc(lib, rc, "augment")
-        with _lock:
-            _launches["augment"] += 1
+        _count("augment")
         return out
     tmp = torch.empty_like(images) if num_op > 1 else None
     src = images
@@ -402,8 +444,7 @@ def augment(images: torch.Tensor, records: torch.Tensor, *,
         rc = lib.faa_augment_slot(src.data_ptr(), dst.data_ptr(), records.data_ptr(),
                                   slot, num_op, b, h, w, dev, stream)
         _check_rc(lib, rc, "augment")
-        with _lock:
-            _launches["augment"] += 1
+        _count("augment")
         src = dst
     return out
 
@@ -463,8 +504,7 @@ def cifar_stack(images: torch.Tensor, draws: torch.Tensor, *, pad: int,
                                  float(scale), *m, *r, int(plan.staged), plan.smem_bytes,
                                  images.device.index or 0, stream)
         _check_rc(lib, rc, "CIFAR stack")
-        with _lock:
-            _launches["cifar_stack"] += 1
+        _count("cifar_stack")
     return out.permute(0, 3, 1, 2)
 
 
@@ -520,8 +560,7 @@ def imagenet_stack(images: torch.Tensor, ints: torch.Tensor, floats: torch.Tenso
                                     plan.cluster, plan.smem_bytes, plan.threads,
                                     images.device.index or 0, stream)
         _check_rc(lib, rc, "ImageNet stack")
-        with _lock:
-            _launches["imagenet_stack"] += plan.launches
+        _count("imagenet_stack", plan.launches)
     return out.permute(0, 3, 1, 2)
 
 

@@ -164,6 +164,19 @@ def _records(op: torch.Tensor, gate: torch.Tensor, v: torch.Tensor,
         torch.stack([active.to(torch.float32), pad, pad], -1)], dim=-1)
 
 
+_TABLES: dict = {}
+
+
+def _op_tables(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ops' level ranges and mirror flags on `dev`, uploaded once per
+    device: a later call copies nothing from the host, so it can run inside
+    a CUDA graph capture."""
+    if dev not in _TABLES:
+        _TABLES[dev] = tuple(torch.as_tensor(t, device=dev)
+                             for t in (_OP_LOW, _OP_HIGH, _OP_MIRROR))
+    return _TABLES[dev]
+
+
 def slot_records(policy: torch.Tensor, sub_idx: torch.Tensor,
                  draws: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Per-(image, slot) records ``[B, num_op, REC_WIDTH]`` float32.
@@ -174,10 +187,7 @@ def slot_records(policy: torch.Tensor, sub_idx: torch.Tensor,
     rows = policy[sub_idx.to(torch.int64)]  # [B, num_op, 3]
     b, num_op = rows.shape[0], rows.shape[1]
     op = rows[..., 0].to(torch.int64)
-    dev = policy.device
-    low = torch.as_tensor(_OP_LOW, device=dev)[op]
-    high = torch.as_tensor(_OP_HIGH, device=dev)[op]
-    mirror = torch.as_tensor(_OP_MIRROR, device=dev)[op]
+    low, high, mirror = (t[op] for t in _op_tables(policy.device))
     value = rows[..., 2] * (high - low) + low
     sign = torch.where(mirror & (draws[..., 1] > 0.5), -1.0, 1.0)
     value = value * sign
@@ -433,8 +443,12 @@ def _check_draws(images, policy, sub_idx, draws):
         raise ValueError(f"all inputs must be on one device, got {devices}")
     if b:
         lo, hi = torch.aminmax(sub_idx.to(torch.int64))
-        if int(lo) < 0 or int(hi) >= policy.shape[0]:
-            raise ValueError(f"sub_idx out of range [0, {policy.shape[0]})")
+        msg = f"sub_idx out of range [0, {policy.shape[0]})"
+        if sub_idx.device.type == "cpu":
+            if int(lo) < 0 or int(hi) >= policy.shape[0]:
+                raise ValueError(msg)
+        else:  # on the device: no host read, so the call can be captured in a CUDA graph
+            torch._assert_async((lo >= 0) & (hi < policy.shape[0]), msg)
 
 
 def apply_subpolicy_draws_plain(images: torch.Tensor, policy: torch.Tensor,

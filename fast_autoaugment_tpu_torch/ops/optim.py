@@ -16,7 +16,11 @@ reproduces the reference's update (``train.py:47-93``):
 model's parameters and gradients (``torch._foreach_*``), one float32
 operation at a time in optax's order.  It keeps its own step count, from
 which it reads the learning rate, as optax's ``scale_by_learning_rate``
-does.  ``torch.optim.SGD`` is not used: it folds its weight decay in
+does: :meth:`Optimizer.step` reads it on the host and hands it to
+:meth:`Optimizer.update` as a 0-dim float32 tensor on the parameters'
+device, the form a captured CUDA graph reads at replay time (the graph's
+dispatcher stages each step's rate into such a tensor itself).
+``torch.optim.SGD`` is not used: it folds its weight decay in
 before any clip, and decays every parameter it is given, where the chain
 masks BatchNorm's.  Unlike optax the update is in place: the parameters,
 the gradient lists (which the caller hands over) and the optimizer state
@@ -28,7 +32,9 @@ BatchNorm` (the JAX package keys on "bn" in the module path, which names
 the same parameters in every ported model).
 
 EMA (reference ``common.py:28-51``): a shadow of the parameters and
-BatchNorm statistics with TF warmup ``mu_t = min(mu, (1+step)/(10+step))``.
+BatchNorm statistics with TF warmup ``mu_t = min(mu, (1+step)/(10+step))``,
+computed on the host (:func:`ema_coefficients`) and applied from a device
+tensor (:func:`ema_apply`).
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import torch
 from torch import nn
 
 __all__ = ["non_bn_mask", "OptState", "Optimizer", "build_optimizer", "rmsprop_tf",
-           "init_ema", "ema_update", "ema_tensors"]
+           "init_ema", "ema_coefficients", "ema_apply", "ema_update", "ema_tensors"]
 
 
 def non_bn_mask(model: nn.Module) -> list[bool]:
@@ -93,7 +99,19 @@ class Optimizer:
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: OptState,
              decay_mask: list[bool]) -> OptState:
         """Update `params` in place from `grads` (overwritten) and `state`
-        (updated in place and returned)."""
+        (updated in place and returned) at ``lr(state.count)``, and count
+        the step."""
+        lr = torch.tensor(self.lr_at(state.count), dtype=torch.float32)  # a float32 value
+        self.update(params, grads, state, decay_mask, lr.to(params[0].device, non_blocking=True))
+        state.count += 1
+        return state
+
+    @torch.no_grad()
+    def update(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: OptState,
+               decay_mask: list[bool], lr: torch.Tensor) -> None:
+        """The chain's update at the rate `lr` (a 0-dim float32 tensor on the
+        parameters' device), in place, with device work only: the step count
+        is the caller's (:meth:`step` advances it)."""
         if self.decay > 0:  # add_decayed_weights, masked
             decayed = [i for i, m in enumerate(decay_mask) if m]
             if decayed:
@@ -106,7 +124,6 @@ class Optimizer:
             keep = norm < self.clip
             for g, c in zip(grads, clipped):
                 torch.where(keep, g, c, out=g)
-        lr = self.lr_at(state.count)
         if self.kind == "sgd":
             # trace: t <- g + m * t; nesterov update g + m * t
             torch._foreach_mul_(state.trace, self.momentum)
@@ -116,15 +133,13 @@ class Optimizer:
                 torch._foreach_add_(upd, grads)
             else:
                 upd = [t.clone() for t in state.trace]
-            torch._foreach_mul_(upd, -lr)
+            torch._foreach_mul_(upd, torch.neg(lr))
         else:
             upd = _rmsprop_update(grads, state, lr, self.alpha, self.momentum, self.eps)
         torch._foreach_add_(params, upd)
-        state.count += 1
-        return state
 
 
-def _rmsprop_update(grads, state: OptState, lr: float, alpha: float, momentum: float,
+def _rmsprop_update(grads, state: OptState, lr: torch.Tensor, alpha: float, momentum: float,
                     eps: float) -> list[torch.Tensor]:
     # ms <- ms + (g^2 - ms) * (1 - alpha)
     d = torch._foreach_mul(grads, grads)
@@ -180,19 +195,34 @@ def init_ema(model: nn.Module) -> dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in ema_tensors(model).items()}
 
 
-@torch.no_grad()
-def ema_update(shadow: dict[str, torch.Tensor], new: dict[str, torch.Tensor], mu: float,
-               step: int) -> dict[str, torch.Tensor]:
-    """``shadow <- (1 - mu_t) * new + mu_t * shadow`` in place, with TF
-    warmup ``mu_t = min(mu, (1 + step) / (10 + step))`` in float32 (reference
-    ``common.py:39-51``); `step` is the 1-based global step (``train.py:70``)."""
+def ema_coefficients(mu: float, step: int) -> tuple[float, float]:
+    """``(mu_t, 1 - mu_t)`` with TF warmup ``mu_t = min(mu, (1 + step) /
+    (10 + step))`` in float32 (reference ``common.py:39-51``); `step` is the
+    1-based global step (``train.py:70``)."""
     s = np.float32(step)
-    mu_t = float(min(np.float32(mu), (np.float32(1.0) + s) / (np.float32(10.0) + s)))
-    one_minus = float(np.float32(1.0) - np.float32(mu_t))
+    mu_t = np.float32(min(np.float32(mu), (np.float32(1.0) + s) / (np.float32(10.0) + s)))
+    return float(mu_t), float(np.float32(1.0) - mu_t)
+
+
+@torch.no_grad()
+def ema_apply(shadow: dict[str, torch.Tensor], new: dict[str, torch.Tensor],
+              coefficients: torch.Tensor) -> dict[str, torch.Tensor]:
+    """``shadow <- (1 - mu_t) * new + mu_t * shadow`` in place, with
+    ``coefficients`` a float32 tensor ``[mu_t, 1 - mu_t]`` on the shadow's
+    device (:func:`ema_coefficients`), each product and the sum rounded to
+    float32 on its own."""
     keys = list(shadow)
-    a = torch._foreach_mul([new[k].detach() for k in keys], one_minus)
-    b = torch._foreach_mul([shadow[k] for k in keys], mu_t)
+    a = torch._foreach_mul([new[k].detach() for k in keys], coefficients[1])
+    b = torch._foreach_mul([shadow[k] for k in keys], coefficients[0])
     torch._foreach_add_(a, b)
     for k, v in zip(keys, a):
         shadow[k].copy_(v)
     return shadow
+
+
+def ema_update(shadow: dict[str, torch.Tensor], new: dict[str, torch.Tensor], mu: float,
+               step: int) -> dict[str, torch.Tensor]:
+    """:func:`ema_apply` with the coefficients of 1-based `step`."""
+    dev = next(iter(shadow.values())).device
+    coefficients = torch.tensor(ema_coefficients(mu, step), dtype=torch.float32)
+    return ema_apply(shadow, new, coefficients.to(dev, non_blocking=True))

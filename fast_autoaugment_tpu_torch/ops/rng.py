@@ -77,12 +77,16 @@ def uniform24(word: torch.Tensor) -> torch.Tensor:
     return (word >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+def fold_in(key: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
     """A fresh key derived from ``key`` ``[..., 2]`` and an integer (one
-    Philox block at counter ``(data, "Fold", 0, 0)``); same shape as `key`."""
+    Philox block at counter ``(data, "Fold", 0, 0)``); same shape as `key`.
+    `data` may be a 0-dim integer tensor on the key's device, so that a
+    captured CUDA graph reads it at replay time."""
     key = key.to(torch.int64)
-    data_t = torch.full((), int(data) & MASK32, dtype=torch.int64,
-                        device=key.device)
+    if torch.is_tensor(data):
+        data_t = data.to(device=key.device, dtype=torch.int64) & MASK32
+    else:
+        data_t = torch.full((), int(data) & MASK32, dtype=torch.int64, device=key.device)
     zero = torch.zeros((), dtype=torch.int64, device=key.device)
     w = philox4x32((key[..., 0], key[..., 1]), (data_t, zero + 0x466F6C64, zero, zero))
     return torch.stack([w[0], w[1]], dim=-1)

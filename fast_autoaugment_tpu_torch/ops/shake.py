@@ -192,7 +192,10 @@ class ModelNoise:
         out: list[tuple] = [()] * len(sites)
         shake = [s for s in sites if s.kind != "dropout"]
         if shake:
-            keys = rng.fold_in_range(key_shake, len(sites))[[s.site for s in shake]]
+            # stacked views, not a list index (which would copy the list from
+            # the host: no CUDA graph could capture that)
+            every = rng.fold_in_range(key_shake, len(sites))
+            keys = torch.stack([every[s.site] for s in shake])
             w = rng.blocks(keys, batch, _STREAM_SITE)  # 4 x [S, B]
             u0, u1 = rng.uniform24(w[0]), rng.uniform24(w[1])
             u3 = rng.uniform24(w[3][:, 0])

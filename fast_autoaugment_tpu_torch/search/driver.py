@@ -33,11 +33,16 @@ device measured them.  Each phase runs in a ``torch.profiler.
 record_function`` range (``search.phase1``, ``search.phase2``,
 ``search.audit``), so a profiler trace splits a run by phase.
 
+Every fold model and gate retrain trains through ``train_and_eval`` with
+the run's ``device_cache`` (the device-resident path for in-memory
+datasets under the default ``"auto"``: CUDA-graph dispatches on the card, a
+loop on the CPU) and ``steps_per_dispatch``, and the result stamps both, as
+the JAX driver does (``:861-877``).
+
 Refused, naming the ROADMAP item that ports them: fold stacking
-(``fold_stack`` != 0), the device cache and multistep dispatch (item 10);
-the async pipeline, the watchdog, the compile cache, telemetry and
-divergence retries (item 12); the work queue and the fleet transport
-(item 13).  The async pipeline's knobs (``pipeline_actors``,
+(``fold_stack`` != 0, item 10b); the async pipeline, the watchdog, the
+compile cache, telemetry and divergence retries (item 12); the work queue
+and the fleet transport (item 13).  The async pipeline's knobs (``pipeline_actors``,
 ``pipeline_queue_depth``) are not taken at all.  The JAX driver's executable census (``search/census.py``) is
 dropped: a compile census has no meaning in eager PyTorch.  ImageNet data
 is not ported (``load_dataset`` raises, item 11).
@@ -333,11 +338,7 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     extends a finished search's per-fold budget; `random_control` adds the
     random arm.  The unported options raise (module docstring)."""
     if fold_stack not in (None, 0, "0"):
-        _refuse(f"fold stacking (fold_stack={fold_stack!r})", "10")
-    if device_cache in (True, 1, "on"):
-        _refuse("the device-resident dataset cache (device_cache='on')", "10")
-    if int(steps_per_dispatch) != 1:
-        _refuse(f"multistep dispatch (steps_per_dispatch={steps_per_dispatch})", "10")
+        _refuse(f"fold stacking (fold_stack={fold_stack!r})", "10b")
     if async_pipeline not in ("off", False, None, 0):
         _refuse("the async actor/learner pipeline", "12")
     if watchdog not in ("off", None, False, 0):
@@ -396,12 +397,15 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                           aug_groups=aug_groups, device=dev, draw_source=src)
     result["aug_dispatch"] = evaluator.aug_dispatch
     result["aug_groups"] = evaluator.aug_groups
+    # which data path trained the phase-1 oracles
+    steps_per_dispatch = max(1, int(steps_per_dispatch))
     result["device_cache"] = device_cache
-    result["steps_per_dispatch"] = 1
+    result["steps_per_dispatch"] = steps_per_dispatch
     ckpt_keep = max(1, int(ckpt_keep))
     result["resilience"] = {"divergence_retries": 0, "ckpt_keep": ckpt_keep}
     result["fold_stack"] = 0
-    train_kw = dict(ckpt_keep=ckpt_keep, device=dev, draw_source=draw_source)
+    train_kw = dict(ckpt_keep=ckpt_keep, device=dev, draw_source=draw_source,
+                    device_cache=device_cache, steps_per_dispatch=steps_per_dispatch)
     fold_baselines: dict[int, float] = {}
     excluded_folds: list[int] = []
     phase1_secs: dict[int, float] = {}

@@ -1,5 +1,5 @@
 """The epoch loop ``train_and_eval`` (``fast_autoaugment_tpu/train/trainer.py``),
-on the host-fed sequential path.
+on the sequential path, device-resident or host-fed.
 
 It keeps the JAX trainer's contract (reference ``train.py:110-322``): build
 the data, model, schedule and optimizer from a config; run the epoch loop
@@ -9,30 +9,54 @@ the best metric; report progress to a callback (the search's hook,
 (``{loss,top1,top5}_{train,valid,test}``, ``num_{valid,test}``, ``epoch``,
 ``best_valid_top1``, ``best_test_top1``, ``elapsed_sec``).
 
-Each batch is uploaded to the device and goes through one
-:func:`~fast_autoaugment_tpu_torch.train.steps.make_train_step` call; the
-metric sums stay on the device until the epoch ends.  The ImageNet wiring
-(``:342-410``: the ImageNet train stack as the step's augment function,
-normalization for eval) is here, but ImageNet data is not:
-``load_dataset`` raises for it until the lazy loader is ported (ROADMAP
-Queue 1 item 11).
+Two data paths, as in the JAX package (``:367-375``, ``:601-760``):
+
+- the device cache (``device_cache="auto"``, the default, for every
+  in-memory dataset; ``"on"`` raises where it cannot serve):
+  the train set is put on the device once (``data/pipeline.py
+  DeviceCache``); each epoch uploads only its :func:`train_index_matrix`
+  (the host path's shuffle), cut by :func:`split_dispatch_chunks` into
+  dispatches of ``steps_per_dispatch`` (N) steps and one remainder, each a
+  :func:`~fast_autoaugment_tpu_torch.train.steps.make_multistep_train_step`
+  call: on the card one upload and a CUDA-graph replay a step (one graph
+  of a single step per run), on the CPU a loop of N steps, which is how
+  the tests run it.  The train metrics add up on the device in one
+  float32 chain over the epoch and are read once at its end;
+- the host feed (``device_cache="off"``): each batch is uploaded and goes
+  through one :func:`~fast_autoaugment_tpu_torch.train.steps.make_train_step`
+  call; the metric sums stay on the device until the epoch ends.
+
+The state, the metrics and the result are those of the host feed at every
+N, bit for bit on the CPU, and on the card under deterministic cuDNN
+(``torch.backends.cudnn.deterministic``; the graph is captured under it
+whatever the caller's flags).  Either way the valid and test splits are put
+on the device at their first evaluation and summed there
+(``make_replay_eval_step``, ``:135-175``).
+
+The ImageNet wiring (``:342-410``: the ImageNet train stack as the step's
+augment function, normalization for eval) is here, but ImageNet data is
+not: ``load_dataset`` raises for it until the lazy loader is ported
+(ROADMAP Queue 1 item 11).
 
 Checkpoints (``:447-522``, ``:836-850``): with ``save_path`` the state is
 saved at each new best metric in the JAX package's format
 (``core/checkpoint.py``, with ``epoch``, ``step`` and ``metrics`` in the
 sidecar and a restore chain of ``ckpt_keep`` links), and the scalar logs
-``{save_path}_{train,valid,test}.jsonl`` are written beside it.  A run
-resumes from the newest intact link at the epoch after it, and turns into an
-evaluation (``only_eval``) when that link's epoch is the last.  The
-mid-epoch (``in_epoch``) records of the device cache and the
-``imported_from`` records of the reference importer are refused by name.
+``{save_path}_{train,valid,test}.jsonl`` are written beside it.  On the
+cache path ``checkpoint_every_dispatch`` (M) also saves every M dispatches
+mid-epoch, with the JAX ``in_epoch`` record (epoch, dispatch position,
+the metric sums so far).  A run resumes from the newest intact link: at
+the epoch after it, or, on the cache path, at the dispatch position of an
+``in_epoch`` link (the host feed and an inconsistent record walk back to an
+epoch-boundary link, ``:466-497``); a run whose link is at the last epoch
+turns into an evaluation (``only_eval``).  The ``imported_from`` records
+of the reference importer are refused by name.
 
 Arguments whose machinery is not ported raise and name the ROADMAP item
-that ports it: the device cache and multistep dispatch
-(``device_cache="on"``, ``steps_per_dispatch > 1``; item 10), the
-watchdog, the compile cache and divergence retries (item 12).  The entry
-point runs on ``cuda`` unless the caller passes ``device="cpu"`` (the
-plain versions of the kernels; for tests).
+that ports it: the watchdog, the compile cache and divergence retries
+(item 12).  Preemption signals are item 12's too.  The entry point runs on
+``cuda`` unless the caller passes ``device="cpu"`` (the plain versions of
+the kernels; for tests).
 """
 
 from __future__ import annotations
@@ -52,7 +76,13 @@ from fast_autoaugment_tpu_torch.core.checkpoint import (
 from fast_autoaugment_tpu_torch.core.device import resolve_device
 from fast_autoaugment_tpu_torch.core.metrics import Accumulator
 from fast_autoaugment_tpu_torch.data.datasets import cv_split, load_dataset
-from fast_autoaugment_tpu_torch.data.pipeline import BatchIterator
+from fast_autoaugment_tpu_torch.data.pipeline import (
+    BatchIterator,
+    DeviceCache,
+    resolve_device_cache,
+    split_dispatch_chunks,
+    train_index_matrix,
+)
 from fast_autoaugment_tpu_torch.models import get_model, num_class
 from fast_autoaugment_tpu_torch.ops.optim import build_optimizer
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import imagenet_eval_batch
@@ -60,10 +90,13 @@ from fast_autoaugment_tpu_torch.ops.schedules import build_schedule
 from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
 from fast_autoaugment_tpu_torch.search.tta import prng_key
 from fast_autoaugment_tpu_torch.train.steps import (
+    METRIC_KEYS,
     create_train_state,
     imagenet_augment_fn,
-    make_eval_step,
+    make_multistep_train_step,
+    make_replay_eval_step,
     make_train_step,
+    make_train_step_body,
     swapped_weights,
 )
 from fast_autoaugment_tpu_torch.utils.interop import load_flax_train_state, train_state_to_flax
@@ -102,11 +135,56 @@ def _upload(x: np.ndarray, y: np.ndarray, dev: torch.device):
             torch.from_numpy(np.asarray(y, np.int64)).to(dev, non_blocking=True))
 
 
-def _run_eval(eval_step, batches, dev: torch.device) -> dict:
+def _stacked_eval_splits(it: BatchIterator, batch: int, dev: torch.device) -> list:
+    """One eval epoch as device-resident stacks grouped by shape
+    (``{"x": [S, B, H, W, C], "y": [S, B], "m": [S, B]}``; a padded last
+    batch of another size is a second group), placed once and reused by
+    every evaluation."""
+    groups: dict = {}
+    for x, y, m in it.eval_epoch(batch):
+        groups.setdefault(x.shape, []).append((x, y, m))
+    return [{"x": torch.as_tensor(np.stack([x for x, _, _ in g]), device=dev),
+             "y": torch.as_tensor(np.stack([np.asarray(y, np.int64) for _, y, _ in g]),
+                                  device=dev),
+             "m": torch.as_tensor(np.stack([m for _, _, m in g]), device=dev)}
+            for g in groups.values()]
+
+
+def _run_eval(eval_step, groups: list) -> dict:
+    """One device-summed pass per shape group; the groups' sums chain on the
+    device in float32 and are read once."""
     acc = Accumulator()
-    for x, y, m in batches:
-        xs, ys = _upload(x, y, dev)
-        acc.add_dict(eval_step(xs, ys, torch.from_numpy(m).to(dev)))
+    for g in groups:
+        acc.add_dict(eval_step(g["x"], g["y"], g["m"]))
+    return acc.normalize()
+
+
+def _cache_epoch(state, cache: DeviceCache, mat: np.ndarray, multi_step: Callable, pol,
+                 key, sums: torch.Tensor, epoch: int, steps_per_epoch: int,
+                 steps_per_dispatch: int, checkpoint_every: int, heartbeat, save_path,
+                 ckpt_keep: int, optimizer, resume_pos: int, resume_sums) -> dict:
+    """One epoch of the device-cache path from dispatch position
+    `resume_pos` (with the metric sums saved there); returns the epoch's
+    normalized train metrics."""
+    sums.zero_()
+    if resume_pos and resume_sums:
+        sums.copy_(torch.tensor([np.float32(resume_sums.get(k, 0.0)) for k in METRIC_KEYS]))
+    pos = resume_pos
+    for di, n in enumerate(split_dispatch_chunks(len(mat) - pos, steps_per_dispatch)):
+        multi_step(state, cache.images, cache.labels, mat[pos:pos + n], pol, key, sums)
+        pos += n
+        if heartbeat is not None:
+            heartbeat()
+        if checkpoint_every and (di + 1) % checkpoint_every == 0 and pos < len(mat) \
+                and save_path:
+            read = dict(zip(METRIC_KEYS, sums.tolist()))
+            save_checkpoint(save_path, train_state_to_flax(state, optimizer), {
+                "epoch": epoch - 1, "step": (epoch - 1) * steps_per_epoch + pos,
+                "preempted": False,
+                "in_epoch": {"epoch": epoch, "pos": pos, "sums": read, "retries": 0}},
+                keep=ckpt_keep)
+    acc = Accumulator()
+    acc.add_dict(dict(zip(METRIC_KEYS, sums.tolist())))
     return acc.normalize()
 
 
@@ -116,7 +194,8 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                    evaluation_interval: int = 5, target_lb: int = -1, seed: int = 0,
                    aug_dispatch: str = "exact", aug_groups: int = 8,
                    device_cache: str = "auto", steps_per_dispatch: int = 1,
-                   divergence_retries: int = 0, ckpt_keep: int = 2, watchdog="off",
+                   divergence_retries: int = 0, ckpt_keep: int = 2,
+                   checkpoint_every_dispatch: int = 0, watchdog="off",
                    heartbeat: Callable | None = None,
                    compile_cache: str = "off", device="cuda", draw_source=None) -> dict:
     """Train one model under `conf` and evaluate it.
@@ -128,16 +207,11 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     (callable) runs at every epoch boundary.  The model's weights are drawn
     from `seed`, and the augmentation's randomness from the key whose
     words are those of ``jax.random.PRNGKey(seed)``, through `draw_source`
-    (the port's Philox draws by default).
-    ``device_cache="auto"`` means the host-fed path here, the only one
-    ported.  `save_path`, `only_eval` and `ckpt_keep` are the checkpoint
-    options of the module docstring."""
-    if device_cache in (True, 1, "on"):
-        _refuse("the device-resident dataset cache (device_cache='on')", "10")
-    if device_cache not in ("auto", "off", False, None, 0, "0"):
-        raise ValueError(f"unknown device-cache mode {device_cache!r}: use auto/on/off")
-    if int(steps_per_dispatch) != 1:
-        _refuse(f"multistep dispatch (steps_per_dispatch={steps_per_dispatch})", "10")
+    (the port's Philox draws by default).  ``device_cache`` ("auto", "on",
+    "off"), ``steps_per_dispatch`` (N, needs the cache) and
+    ``checkpoint_every_dispatch`` (M, cache path only) pick the data path of
+    the module docstring; `save_path`, `only_eval` and `ckpt_keep` are its
+    checkpoint options."""
     if watchdog not in ("off", None, False, 0):
         _refuse("the dispatch watchdog", "12")
     if compile_cache not in ("off", None, ""):
@@ -156,6 +230,14 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
             valid_idx = valid_idx[total_train.labels[valid_idx] == target_lb]
     else:
         train_idx, valid_idx = np.arange(len(total_train)), np.array([], np.int64)
+    use_cache = resolve_device_cache(device_cache, total_train)
+    steps_per_dispatch = int(steps_per_dispatch)
+    if steps_per_dispatch > 1 and not use_cache:
+        raise ValueError(
+            f"steps_per_dispatch={steps_per_dispatch} needs the device cache (in-dispatch batch "
+            f"gather); it is {'off' if device_cache == 'off' else 'unavailable (lazy dataset)'} "
+            "here - use --device-cache auto/on with an in-memory dataset")
+    checkpoint_every_dispatch = max(0, int(checkpoint_every_dispatch))
     train_it = BatchIterator(total_train, train_idx)
     valid_it = BatchIterator(total_train, valid_idx)
     test_it = BatchIterator(testset)
@@ -187,13 +269,18 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
         eval_preprocess = imagenet_eval_batch
     else:
         augment_fn, eval_preprocess = None, None
-    train_step = make_train_step(
-        model, optimizer, num_classes=num_classes,
-        mixup_alpha=float(conf.get("mixup", 0.0) or 0.0), lb_smooth=lb_smooth, ema_mu=ema_mu,
-        cutout_length=cutout, use_policy=use_policy, augment_fn=augment_fn,
-        aug_dispatch=aug_dispatch, aug_groups=aug_groups, draw_source=draw_source)
-    eval_step = make_eval_step(model, num_classes=num_classes, lb_smooth=lb_smooth,
-                               preprocess_fn=eval_preprocess)
+    step_kw = dict(num_classes=num_classes, mixup_alpha=float(conf.get("mixup", 0.0) or 0.0),
+                   lb_smooth=lb_smooth, ema_mu=ema_mu, cutout_length=cutout,
+                   use_policy=use_policy, augment_fn=augment_fn, aug_dispatch=aug_dispatch,
+                   aug_groups=aug_groups, draw_source=draw_source)
+    eval_kw = dict(num_classes=num_classes, lb_smooth=lb_smooth, preprocess_fn=eval_preprocess)
+    if use_cache:
+        multi_step = make_multistep_train_step(make_train_step_body(model, optimizer, **step_kw),
+                                               steps_per_dispatch=steps_per_dispatch)
+    else:
+        train_step = make_train_step(model, optimizer, **step_kw)
+    eval_step = make_replay_eval_step(model, **eval_kw)
+    eval_splits: dict[str, list] = {}  # each split put on the device at its first evaluation
     pol = torch.as_tensor(policy if use_policy else np.zeros((1, 1, 3), np.float32),
                           device=dev)
     key = prng_key(seed)
@@ -207,11 +294,13 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
         for split, it in (("valid", valid_it), ("test", test_it)):
             if len(it) == 0:
                 continue
-            norm = _run_eval(eval_step, it.eval_epoch(global_batch), dev)
+            if split not in eval_splits:
+                eval_splits[split] = _stacked_eval_splits(it, global_batch, dev)
+            norm = _run_eval(eval_step, eval_splits[split])
             out[split] = norm
             if state.ema is not None:
                 with swapped_weights(model, state.ema):
-                    norm_ema = _run_eval(eval_step, it.eval_epoch(global_batch), dev)
+                    norm_ema = _run_eval(eval_step, eval_splits[split])
                 # with EMA on, the reported numbers are the EMA model's
                 # (reference train.py:277-280); the raw ones stay under _raw
                 out[split + "_raw"], out[split + "_ema"], out[split] = norm, norm_ema, norm_ema
@@ -219,18 +308,36 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
 
     ckpt_keep = max(1, int(ckpt_keep))
     epoch_start = 1
+    resume_pos, resume_sums = 0, None  # a mid-epoch link's dispatch position and sums
     restored = None
     if save_path:
         meta = read_metadata(save_path) or {}
-        for record, item in (("in_epoch", "10"), ("imported_from", "12")):
-            if record in meta:
-                _refuse(f"resuming from a checkpoint with an {record!r} record ({save_path})",
-                        item)
-        restored = load_checkpoint_chain(save_path, keep=ckpt_keep)
+        if "imported_from" in meta:
+            _refuse(f"resuming from a checkpoint with an 'imported_from' record ({save_path})",
+                    "12")
+        # mid-epoch links resume only where the dispatch position can be
+        # fast-forwarded (the cache's index feed); the host feed walks back
+        # to an epoch-boundary link
+        restored = load_checkpoint_chain(
+            save_path, keep=ckpt_keep,
+            accept=None if use_cache else (lambda m: "in_epoch" not in m))
+        if restored is not None and "in_epoch" in restored[1]:
+            rec = restored[1]["in_epoch"]
+            if not isinstance(rec, dict) or \
+                    int(rec.get("epoch", -1)) != int(restored[1].get("epoch", 0)) + 1:
+                logger.warning("inconsistent mid-epoch record in %s - falling back to an "
+                               "epoch-boundary chain link", restored[2])
+                restored = load_checkpoint_chain(save_path, keep=ckpt_keep,
+                                                 accept=lambda m: "in_epoch" not in m)
     if restored is not None:
         tree, meta, used_path = restored
         load_flax_train_state(tree, state, optimizer)
         epoch_start = int(meta.get("epoch", 0)) + 1
+        if meta.get("in_epoch"):
+            resume_pos = int(meta["in_epoch"]["pos"])
+            resume_sums = meta["in_epoch"].get("sums") or {}
+            logger.info("resuming mid-epoch: epoch %d from dispatch position %d (%s)",
+                        epoch_start, resume_pos, used_path)
         logger.info("resumed %s at epoch %d", used_path, epoch_start - 1)
         if epoch_start > epochs:
             only_eval = True
@@ -256,16 +363,29 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     writers = make_writers(os.path.dirname(save_path) if save_path else None,
                            os.path.basename(save_path or "run"))
     best_metric = -1e9
+    if use_cache:
+        cache = DeviceCache(total_train, dev)
+        logger.info("device cache: %d examples (%.1f MiB uint8) resident, steps_per_dispatch=%d",
+                    cache.num_examples, cache.nbytes / 2**20, steps_per_dispatch)
+        # the epoch's metric chain, in place: a graph reads this buffer
+        epoch_sums = torch.zeros(len(METRIC_KEYS), device=dev)
     t_start = time.time()
     for epoch in range(epoch_start, epochs + 1):
-        acc = Accumulator()
-        for x, y in train_it.train_epoch(global_batch, epoch, seed=seed):
-            xs, ys = _upload(x, y, dev)
-            state, metrics = train_step(state, xs, ys, pol, key)
-            acc.add_dict(metrics)
+        if use_cache:
+            train_metrics = _cache_epoch(
+                state, cache, train_index_matrix(train_idx, global_batch, epoch, seed=seed),
+                multi_step, pol, key, epoch_sums, epoch, steps_per_epoch,
+                steps_per_dispatch, checkpoint_every_dispatch, heartbeat, save_path, ckpt_keep,
+                optimizer, resume_pos if epoch == epoch_start else 0, resume_sums)
+        else:
+            acc = Accumulator()
+            for x, y in train_it.train_epoch(global_batch, epoch, seed=seed):
+                xs, ys = _upload(x, y, dev)
+                state, metrics = train_step(state, xs, ys, pol, key)
+                acc.add_dict(metrics)
+            train_metrics = acc.normalize()
         if heartbeat is not None:
             heartbeat()
-        train_metrics = acc.normalize()
         if not np.isfinite(train_metrics["loss"]):
             raise RuntimeError("loss is NaN — training diverged (reference train.py:259)")
         ema_interval = int(optimizer_conf.get("ema_interval", -1) or -1)

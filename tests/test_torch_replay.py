@@ -284,6 +284,7 @@ class JaxDraws:
 
     def fold_in(self, key, i, device):
         k = self._keys(key)
+        i = int(i)  # the train step passes its counter as a 0-dim tensor
         flat = jax.vmap(lambda kk: jax.random.fold_in(kk, i))(k.reshape(-1, 2))
         return np.asarray(flat.reshape(k.shape), np.uint32)
 

@@ -534,12 +534,17 @@ def test_train_and_eval_matches_jax(refs, monkeypatch):
 
 
 def test_train_and_eval_refuses_what_is_not_ported():
-    for kw, item in [({"device_cache": "on"}, "item 10"),
-                     ({"steps_per_dispatch": 4}, "item 10"), ({"watchdog": "auto"}, "item 12"),
+    for kw, item in [({"watchdog": "auto"}, "item 12"),
                      ({"compile_cache": "/tmp/cc"}, "item 12"),
                      ({"divergence_retries": 2}, "item 12")]:
         with pytest.raises(NotImplementedError, match=item):
             TR.train_and_eval(TRAIN_CONF, "", device="cpu", **kw)
+    # multistep dispatch gathers from the device cache: the host feed refuses it
+    with pytest.raises(ValueError, match="needs the device cache"):
+        TR.train_and_eval(TRAIN_CONF, "", device="cpu", device_cache="off",
+                          steps_per_dispatch=4)
+    with pytest.raises(ValueError, match="unknown device-cache mode"):
+        TR.train_and_eval(TRAIN_CONF, "", device="cpu", device_cache="maybe")
     with pytest.raises(NotImplementedError, match="item 11"):
         TR.train_and_eval(dict(TRAIN_CONF, dataset="imagenet"), "", device="cpu")
     if not torch.cuda.is_available():
