@@ -87,7 +87,8 @@ each printing one JSON line:
    search with ``--device-cache off`` gives the same trial log, policy,
    audit, checkpoint digests and phase-3 values (both arms under
    deterministic cuDNN); seconds per fold, per trial and per run and the
-   device's idle share over phase 2;
+   device's idle share over phase 2, from a profiled replay whose K1 and K5
+   kernel records must match the launch counters;
 8. ``train_times``: the ResNet-50 step's median time and images/s, a
    profiler trace split by stage (sampler, K1, K6, model forward and
    backward with the convolutions' TFLOP/s, optimizer) with the device's
@@ -116,7 +117,21 @@ each printing one JSON line:
    step, images/s, host launches per step, the device's idle share and peak
    memory of the host feed, N = 1 and N = 8 over a seeded 50,000-image set;
    PyramidNet-272 eager against CUDA-graph replays, bitwise.
-   ``--dispatch-only`` runs this phase alone.
+   ``--dispatch-only`` runs this phase alone;
+11. the search's runtime (``search_runtime_main_path``): (a) after the TTA
+   path, the flagship trial with the step replayed as one CUDA graph a batch
+   against the eager step (K = 1 and K = 4, bitwise; seconds per trial, host
+   runtime calls, device busy time and idle share per batch, capture
+   seconds, the graph census; K1's and K5's kernel records in each traced
+   stretch, and in one of the K = 4 graph, match the launch counters,
+   which count a replay from its capture); (b) after the search, ``search_cli`` in a
+   fresh process with the async pipeline (2 actors, depth 1), the watchdog,
+   a journal, ``/metrics`` and a compile cache, whose artifacts equal the
+   serial arm's, and a second process that loads every kernel from the
+   cache; (c) ``train_cli`` fault drills (``sigterm``, ``hang`` under
+   ``--watchdog 5``, ``nan_loss`` with a divergence retry) and the
+   watchdog's cost per dispatch.  ``--runtime-only`` runs the TTA path, (a),
+   the search and (b)-(c) alone.
 
 The last two lines are the ``kernels`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with
@@ -240,6 +255,28 @@ def kernel_counts(prof, parts) -> dict[str, int]:
 
     rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
     return {p: sum(e.count for e in rows if p in e.key) for p in parts}
+
+
+def records_vs_counters(prof, counts: dict, k1_name: str, tag: str) -> tuple[dict, list]:
+    """K1's and K5's kernel records in a profile against the launch
+    counters' increase over the same stretch (`counts`): the counters may
+    not fall below the records, and may exceed them by at most
+    :data:`LOST_RECORDS` each (the profiler drops records).  Under CUDA-graph
+    replay the counters are derived from the capture; this observes them.
+    Returns the records and the problems found."""
+    seen = kernel_counts(prof, (k1_name, "cifar_stack_kernel"))
+    seen = {"augment": seen[k1_name], "cifar_stack": seen["cifar_stack_kernel"]}
+    problems = [f"{tag}: the trace holds {n} {k} kernels, the counter {counts.get(k, 0)}"
+                for k, n in seen.items()
+                if n > counts.get(k, 0) or counts.get(k, 0) - n > LOST_RECORDS]
+    return seen, problems
+
+
+def counts_since(before: dict) -> dict:
+    """The launch counters' increase since `before` (a ``launch_counts()``)."""
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    return {k: v - before.get(k, 0) for k, v in _kernels.launch_counts().items()}
 
 
 #: the record_function ranges of the port: kineto projects each onto the
@@ -931,6 +968,19 @@ class _Capture:
         return x
 
 
+def _eager(step):
+    """`step` with its fold sums run eagerly on the card (``search/tta.py
+    _eager_sums``): the reference the graph replays are held against, and
+    the only way to run an `augment_fn` that reads values on the host (the
+    kernels' plain versions)."""
+    import functools
+    import types
+
+    from fast_autoaugment_tpu_torch.search import tta
+
+    return types.SimpleNamespace(sums=functools.partial(tta._eager_sums, step))
+
+
 def _plain_augment(cutout):
     from fast_autoaugment_tpu_torch.ops import augment as aug
     from fast_autoaugment_tpu_torch.ops import preprocess as pre
@@ -1010,7 +1060,10 @@ def phase_tta_main_path(dev, st: dict) -> dict:
     wall = time.perf_counter() - t0
     counts = _kernels.launch_counts()
 
-    calls = 4 * n_batches + 1
+    # each of the four fold passes replays one CUDA graph a batch after one
+    # warm-up call (the capture's launches count at each replay); the audit
+    # step is called once, eagerly
+    calls = 4 * (n_batches + 1) + 1
     per_call = _kernels.augment_plan(32, 32, c["num_op"]).launches
     want = {"augment": per_call * calls, "cifar_stack": calls, "imagenet_stack": 0}
     if counts != want:
@@ -1021,7 +1074,8 @@ def phase_tta_main_path(dev, st: dict) -> dict:
     if audit_out["cnt"] != c["batch"] or len(audit_out["correct_mean_sum"]) != c["num_policy"]:
         fail(f"audit step output is malformed: {audit_out}")
 
-    # kernels against their plain versions on the card: the same step, the
+    # kernels against their plain versions on the card: the same step, run
+    # eagerly (the plain versions read values on the host: no graph), the
     # same draws and weights; lanes bitwise, fields equal under deterministic cuDNN
     keep = (0, n_batches - 1)
     prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -1029,8 +1083,8 @@ def phase_tta_main_path(dev, st: dict) -> dict:
     try:
         fns = {"kernel": _Capture(tta.cifar_augment_fn(c["cutout"]), keep),
                "plain": _Capture(_plain_augment(c["cutout"]), keep)}
-        res = {k: tta.eval_tta(tta.make_tta_step(model, augment_fn=fn, **opts), batches,
-                               st["policy"], st["key"]) for k, fn in fns.items()}
+        res = {k: tta.eval_tta(_eager(tta.make_tta_step(model, augment_fn=fn, **opts)),
+                               batches, st["policy"], st["key"]) for k, fn in fns.items()}
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
     lanes_diff = sum(int((fns["kernel"].out[i] != fns["plain"].out[i]).sum()) for i in keep)
@@ -1061,6 +1115,162 @@ def phase_tta_main_path(dev, st: dict) -> dict:
            "batched_vs_single_max_abs": dev_max, "batched_vs_single_tolerance": tol}
     emit(out)
     return out
+
+
+#: timed trials of each arm of phase_tta_graphs
+ARM_TRIALS = 2
+
+
+def _tta_arm(dev, st: dict, step, tag: str) -> tuple[dict, object, list]:
+    """One arm of :func:`phase_tta_graphs`: timed trials of `step` over the
+    fold (the first call, and so a graph's capture, before them), then a
+    profiled ``eval_tta`` over the fold's first :data:`TRACE_BATCHES`
+    batches: the device's busy time (the union of its activities), its idle
+    share over the traced wall, the runtime calls that put work on the card,
+    per batch, and K1's and K5's kernel records against the launch counters
+    over the stretch.  Returns the arm, the profile and the problems."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.search import tta
+
+    batches = st["batches"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = tta.eval_tta(step, batches[:1], st["policy"], torch.tensor([3, 0], device=dev))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    trials, fields = [], []
+    for i in range(ARM_TRIALS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fields.append(tta.eval_tta(step, batches, st["policy"], torch.tensor([1, i], device=dev)))
+        torch.cuda.synchronize()
+        trials.append(time.perf_counter() - t0)
+    s_trial = float(np.median(trials))
+    traced = batches[:TRACE_BATCHES]
+    torch.cuda.synchronize()
+    before = _kernels.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tta.eval_tta(step, traced, st["policy"], torch.tensor([2, 0], device=dev))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    counted = counts_since(before)
+    records, problems = records_vs_counters(
+        prof, counted, _kernels.augment_plan(32, 32, FLAGSHIP["num_op"]).kernel, f"{tag} arm")
+    busy = device_busy(prof)
+    n = len(traced)
+    calls = _host_launches(prof)
+    return {"arm": tag, "first_call_1_batch_s": first_s, "first_call_fields": first,
+            "seconds_per_trial": s_trial, "trial_seconds": trials, "trial_fields": fields,
+            "images_per_s": FLAGSHIP["num_policy"] * FLAGSHIP["fold_images"] / s_trial,
+            "trace": {"batches": n, "wall_s": wall_s,
+                      "host_runtime_calls_per_batch": sum(calls.values()) / n,
+                      "host_runtime_calls_by_name": calls,
+                      "device_busy_ms_per_batch": busy["union_us"] / 1e3 / n,
+                      "device_idle_share": 1 - busy["union_us"] / 1e6 / wall_s,
+                      "device_activities_per_batch": busy["activities"] / n,
+                      "kernel_records": records, "launches_counted": counted}}, prof, problems
+
+
+def phase_tta_graphs(dev, st: dict, card: str) -> dict:
+    """``search_runtime_main_path`` (a): the flagship TTA trial (WRN-40-2,
+    the seeded 20,000-image fold, P = 5, batch 128) with the step replayed
+    as one CUDA graph a batch against the same step run eagerly, both under
+    deterministic cuDNN: at K = 1 and K = 4 (``eval_tta_batched``) the
+    fields over the fold are equal bitwise; per arm the seconds per trial,
+    the host's runtime calls, the device's busy time and idle share per
+    batch (a traced stretch of :data:`TRACE_BATCHES` batches, in which K1's
+    and K5's kernel records must match the launch counters, and so does a
+    traced stretch of the K = 4 graph) and the first call's seconds (the
+    capture, for the graph); the graph census equals one graph per step and
+    policy shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_autoaugment_tpu_torch.core import compilecache
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.search import census, tta
+
+    c = FLAGSHIP
+    model, batches = st["model"], st["batches"]
+    opts = dict(num_policy=c["num_policy"], cutout_length=c["cutout"])
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    arms, problems = {}, []
+    _kernels.reset_launch_counts()
+    try:
+        step_g = tta.make_tta_step(model, **opts)
+        seam0 = compilecache.compile_cache_stats()["labels"].get("tta", {}).get("sec", 0.0)
+        arms["graph"], _, found = _tta_arm(dev, st, step_g, "graph")
+        problems += found
+        arms["graph"]["capture_s"] = \
+            compilecache.compile_cache_stats()["labels"]["tta"]["sec"] - seam0
+        arms["eager"], eager_prof, found = _tta_arm(
+            dev, st, _eager(tta.make_tta_step(model, **opts)), "eager")
+        problems += found
+        # the trials of each arm drew the same keys: fields bitwise
+        fields = {k: arms[k]["trial_fields"] for k in arms}
+        step_kg = tta.make_tta_step(model, num_candidates=4, **opts)
+        k4, k4_s = {}, {}
+        for k, s in (("graph", step_kg), ("eager", _eager(tta.make_tta_step(
+                model, num_candidates=4, **opts)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k4[k] = tta.eval_tta_batched(s, batches, st["candidates"], st["keys"])
+            torch.cuda.synchronize()
+            k4_s[k] = time.perf_counter() - t0
+        # the K = 4 graph's replays, traced: its records against the counters
+        before = _kernels.launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tta.eval_tta_batched(step_kg, batches[:TRACE_BATCHES], st["candidates"], st["keys"])
+            torch.cuda.synchronize()
+        k4_counted = counts_since(before)
+        k4_records, found = records_vs_counters(
+            prof, k4_counted, _kernels.augment_plan(32, 32, c["num_op"]).kernel, "K = 4 graph")
+        problems += found
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    counts = _kernels.launch_counts()
+    # step calls: per arm a 1-batch first call, the trials and the traced
+    # stretch; the graph arms add a warm-up call per capture; then K = 4 over
+    # the fold both ways, and its graph's traced stretch
+    n = len(batches)
+    calls = 2 * (1 + ARM_TRIALS * n + TRACE_BATCHES) + 1 + 2 * n + 1 + TRACE_BATCHES
+    want = {"augment": _kernels.augment_plan(32, 32, c["num_op"]).launches * calls,
+            "cifar_stack": calls, "imagenet_stack": 0}
+    if counts != want:
+        problems.append(f"launch counts {counts} != {want} ({calls} step calls)")
+    if fields["graph"] != fields["eager"]:
+        problems.append(f"K = 1 fields graph {fields['graph']} != eager {fields['eager']}")
+    if k4["graph"] != k4["eager"]:
+        problems.append(f"K = 4 fields graph {k4['graph']} != eager {k4['eager']}")
+    graphs = {"tta": census.executable_census(step_g),
+              "tta_batched": census.executable_census(step_kg)}
+    want_graphs = {"tta": 1, "tta_batched": 1}
+    if graphs != want_graphs:
+        problems.append(f"graph census {graphs} != {want_graphs}")
+    if problems:
+        fail("search_runtime_main_path (a): " + "; ".join(problems))
+    out = {"phase": "search_runtime_main_path", "part": "tta_graphs", "card": card,
+           "model": c["model"], "fold_images": c["fold_images"], "batch": c["batch"],
+           "num_policy": c["num_policy"], "batches": len(batches),
+           "arms": arms, "fields_equal_k1": True,
+           "fields_equal_k4": True, "k4_seconds_per_trial": k4_s,
+           "k4_graph_trace": {"batches": TRACE_BATCHES, "kernel_records": k4_records,
+                              "launches_counted": k4_counted},
+           "graph_census": graphs, "graph_census_expected": want_graphs,
+           "launches": counts, "expected_launches": want,
+           "timing": "host clock around eval_tta over the fold, synchronized, deterministic "
+                     f"cuDNN, median of {ARM_TRIALS}; traced stretch: torch.profiler, device busy = the "
+                     "union of the device's activities, idle = 1 - busy / the same stretch's "
+                     "wall; kernel_records: K1's and K5's kernels in that trace, held against "
+                     "the launch counters' increase over it (launches_counted); capture_s: "
+                     "the graph's first call through the compile seam (warm-up and capture)"}
+    emit(out)
+    return dict(out, eager_prof=eager_prof)
 
 
 def _stage_device_us(prof, stages=TTA_STAGES) -> dict:
@@ -1123,11 +1333,11 @@ def k1_op_sweep(x) -> dict:
     return out
 
 
-def phase_tta_times(dev, st: dict, card: str) -> dict:
-    """Seconds per trial, both kernels at the TTA shape, and a profiler
-    trace of one eval_tta."""
+def phase_tta_times(dev, st: dict, card: str, graphs: dict) -> dict:
+    """Seconds per trial of the eager step and its trace split by stage
+    (both measured by :func:`phase_tta_graphs`), and both kernels at the TTA
+    shape."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from fast_autoaugment_tpu_torch.ops import _kernels
     from fast_autoaugment_tpu_torch.ops import augment as aug
@@ -1136,15 +1346,9 @@ def phase_tta_times(dev, st: dict, card: str) -> dict:
 
     c = FLAGSHIP
     batches, p = st["batches"], c["num_policy"]
-    step = tta.make_tta_step(st["model"], num_policy=p, cutout_length=c["cutout"])
-    trials = []
-    for i in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tta.eval_tta(step, batches, st["policy"], torch.tensor([1, i], device=dev))
-        torch.cuda.synchronize()
-        trials.append(time.perf_counter() - t0)
-    s_trial = float(np.median(trials))
+    # the eager step's trial times and trace, from the graphs phase
+    eager = graphs["arms"]["eager"]
+    trials, s_trial = eager["trial_seconds"], eager["seconds_per_trial"]
 
     # both kernels at the step's shape: P x B = 640 lanes of 32x32
     x = batches[0]["x"].to(torch.float32).repeat(p, 1, 1, 1).contiguous()
@@ -1181,21 +1385,13 @@ def phase_tta_times(dev, st: dict, card: str) -> dict:
         k.update(bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
 
-    # a profiler trace of one eval_tta over the first TRACE_BATCHES batches
-    # of the fold (the profiler's post-processing takes about 2 s per batch)
-    traced = batches[:TRACE_BATCHES]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tta.eval_tta(step, traced, st["policy"], torch.tensor([2, 0], device=dev))
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+    prof, wall_s = graphs["eager_prof"], eager["trace"]["wall_s"]
     t_post = time.perf_counter()
     by_name = kernel_device_us(prof)
     busy_us = sum(v for k, v in by_name.items() if not k.startswith("tta."))
     stages = _stage_device_us(prof)
     k1_us, k5_us = device_us(prof, K1_KERNELS), device_us(prof, "cifar_stack_kernel")
-    n = len(traced)
+    n = TRACE_BATCHES
     split_ms = {"sampler": stages["tta.sampler"], "augment_kernel_K1": k1_us,
                 "cifar_stack_kernel_K5": k5_us,
                 "augment_other": stages["tta.augment"] - k1_us - k5_us,
@@ -1222,8 +1418,9 @@ def phase_tta_times(dev, st: dict, card: str) -> dict:
                      "stage_ranges_found": any(v > 0 for v in stages.values()),
                      "top_device_ms_per_batch": {k[:90]: v / 1e3 / n for k, v in top},
                      "postprocess_s": time.perf_counter() - t_post},
-           "timing": "seconds_per_trial: median of 3 eval_tta over the fold, host clock, "
-                     "synchronized; kernel_ms: device time from torch.profiler over 20 calls; "
+           "timing": "seconds_per_trial: median of 2 eval_tta of the eager step over the fold "
+                     "(phase_tta_graphs), host clock, synchronized, deterministic cuDNN; "
+                     "kernel_ms: device time from torch.profiler over 20 calls; "
                      "kernel_graph_ms and by_op_graph_ms: CUDA-graph replay; "
                      "*_event_ms and plain_ms: CUDA events around back-to-back calls, host "
                      "gaps included; the trace runs with the profiler on (host time inflated), "
@@ -1331,7 +1528,8 @@ def _search_expected_launches(epochs: int, audited: int, audit_folds: int,
     one per call; more in chunks of 8 through the audit step); phase 3
     trains 2 arms on 600 images (4 steps an epoch; the
     augmented arm through K1 too) with the test evaluations; on the device
-    cache (`cached`, the default) each training run adds a warm-up step."""
+    cache (`cached`, the default) each training run adds a warm-up step, and
+    each CUDA graph of phase 2 and the audit one warm-up call."""
     from fast_autoaugment_tpu_torch.ops import _kernels
 
     evals = len([e for e in range(1, epochs + 1) if e % 5 == 0 or e == epochs])
@@ -1346,9 +1544,14 @@ def _search_expected_launches(epochs: int, audited: int, audit_folds: int,
     # the default device cache: each of the 2 fold and 2 phase-3 runs
     # replays one CUDA graph (N = 1) after one warm-up step
     warm = 1 if cached else 0
-    return {"augment": per_call * (trials + audit_calls + phase3_steps + warm),
+    # phase 2 and the audit replay one CUDA graph a batch: a warm-up call
+    # each for the trials' policy shape, the single-sub shape (the
+    # baselines, and up to 4 audited sub-policies) and, past 4 audited
+    # sub-policies, the audit step's
+    tta_warm = 2 + (1 if audited > 4 else 0)
+    return {"augment": per_call * (trials + audit_calls + phase3_steps + warm + tta_warm),
             "cifar_stack": phase1 + trials + audit_calls + 2 * (phase3_steps + phase3_evals)
-            + 4 * warm, "imagenet_stack": 0}
+            + 4 * warm + tta_warm, "imagenet_stack": 0}
 
 
 def _read_json(path):
@@ -1494,8 +1697,9 @@ def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EP
             keep = (0, len(ev.batches(f)) - 1)
             fns = {"kernel": _Capture(tta.cifar_augment_fn(cutout), keep),
                    "plain": _Capture(_plain_augment(cutout), keep)}
-            res = {k: tta.eval_tta(tta.make_tta_step(ev.model, num_policy=5, cutout_length=cutout,
-                                                     augment_fn=fn), ev.batches(f), pol, key)
+            res = {k: tta.eval_tta(_eager(tta.make_tta_step(ev.model, num_policy=5,
+                                                            cutout_length=cutout, augment_fn=fn)),
+                                   ev.batches(f), pol, key)
                    for k, fn in fns.items()}
             lanes = sum(int((fns["kernel"].out[i] != fns["plain"].out[i]).sum()) for i in keep)
             r.update({"kernel": res["kernel"], "plain": res["plain"],
@@ -1534,17 +1738,25 @@ def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EP
         if name.startswith(conf["model"]["type"]):
             shutil.copy(os.path.join(save, name), replay)
     torch.cuda.synchronize()
+    before = _kernels.launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         rep = search_cli.main(_search_argv(replay, epochs, until=2))
         torch.cuda.synchronize()
     t_post = time.perf_counter()
+    # the replay's TTA and audit graphs: their K1 and K5 kernel records
+    # against the launch counters, which count a replay from its capture
+    rep_counted = counts_since(before)
+    rep_records, found = records_vs_counters(
+        prof, rep_counted, _kernels.augment_plan(32, 32, 2).kernel, "phase-2 replay")
+    if found:
+        fail("search_main_path: " + "; ".join(found))
     by_range = _stage_device_us(prof, SEARCH_STAGES)
-    busy_us = by_range["search.phase2"] + by_range["search.audit"]
+    # the device's busy time is the union of its activities over the replay
+    # (phases 2 and the audit: phase 1 trains nothing): the kernels of a
+    # CUDA-graph replay are not attributed to the ranges
+    busy_us = device_busy(prof)["union_us"]
     rep_wall = rep["device_secs_phase2"] + rep.get("device_secs_audit", 0.0)
     main_wall = result["device_secs_phase2"] + result.get("device_secs_audit", 0.0)
-    idle_by_range = {name: 1 - by_range[f"search.{name}"] / 1e6 / rep[f"device_secs_{name}"]
-                     for name in ("phase2", "audit")
-                     if by_range[f"search.{name}"] and rep.get(f"device_secs_{name}")}
     n_trials = sum(len(t) for t in trials.values())
     phase3_s = result["device_hours_total"] * 3600 - result["elapsed_total"]
     out = {"phase": "search_main_path", "card": card, "conf": SEARCH_CONF,
@@ -1558,8 +1770,9 @@ def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EP
            "phase2_device_idle_share_at_unprofiled_wall":
            1 - busy_us / 1e6 / main_wall if busy_us else None,
            "phase2_device_busy_s": busy_us / 1e6, "phase2_wall_s": rep_wall,
+           "phase2_replay_kernel_records": rep_records,
+           "phase2_replay_launches_counted": rep_counted,
            "phase2_unprofiled_wall_s": main_wall,
-           "device_idle_share_by_range": idle_by_range,
            "device_busy_s_by_range": {k: v / 1e6 for k, v in by_range.items()},
            "expected_launches": want,
            "replay_trial_log_equal": _read_json(os.path.join(replay, "search_trials.json"))
@@ -1570,6 +1783,8 @@ def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EP
                             "phase3_seconds_per_run":
                             (off["device_hours_total"] * 3600 - off["elapsed_total"]) / 2,
                             "artifacts_equal": arms_equal},
+           "save_dir": save, "phase1_s": result["device_secs_phase1"],
+           "phase2_s": result["device_secs_phase2"],
            "fold_checkpoints": ckpts, "fold_baselines": audit.get("fold_baselines"),
            "audit": {"folds": audit["audit_folds"], "scored": len(audit["scores"]),
                      "dropped": len(audit["dropped"])},
@@ -1578,13 +1793,311 @@ def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EP
            "timing": "host clock, synchronized at the ends; phase-1 seconds per fold and "
                      "phase-2 seconds are the driver's device_secs_* (wall x 1 device); "
                      "phase-3 seconds per run = (device_hours_total x 3600 - the driver's "
-                     "elapsed_total) / 2 runs; idle share = 1 - the device time under the "
-                     "search.phase2 and search.audit ranges of a profiled replay of phase 2 / "
-                     "the replay's own wall of those ranges (the profiler inflates it); "
+                     "elapsed_total) / 2 runs; idle share = 1 - the device time of a profiled "
+                     "replay of phase 2 / the replay's own phase-2 and audit wall (the "
+                     "profiler inflates it); "
                      "_at_unprofiled_wall: the same device time over the first, unprofiled, "
-                     "run's phase-2 wall"}
+                     "run's phase-2 wall; the device time is the union of the device's "
+                     "activities over the replay (by_range: what the ranges hold, without the "
+                     "graph replays' kernels)"}
     emit(out)
     return out
+
+
+#: a CLI's main() in a fresh process under deterministic cuDNN (as the
+#: search arms in this process run), its result as the last stdout line
+CLI_RUNNER = ("import json, sys, torch\n"
+              "torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False\n"
+              "sys.path.insert(0, {repo!r})\n"
+              "from fast_autoaugment_tpu_torch.core import compilecache\n"
+              "from fast_autoaugment_tpu_torch.launch import {cli}\n"
+              "res = {cli}.main(sys.argv[1:])\n"
+              "print('COMPILE ' + json.dumps(compilecache.compile_cache_stats()), flush=True)\n"
+              "print('RESULT ' + json.dumps(res, default=str), flush=True)\n")
+#: search_runtime_main_path (b): the machinery's flags on the search arm
+PIPELINE_FLAGS = ["--async-pipeline", "on", "--pipeline-actors", "2",
+                  "--pipeline-queue-depth", "1", "--watchdog", "auto"]
+#: (c): the fault drills' train_cli run: the flagship on `synthetic` (512
+#: train images, 4 steps an epoch), 2 epochs, evaluated every epoch
+FAULT_ARGS = ["--evaluation-interval", "1", "dataset=synthetic", "epoch=2"]
+FAULT_STEP, NAN_STEP, HANG_DEADLINE_S = 3, 6, 5
+
+
+def _cli_process(cli: str, argv: list, log: str, env_extra: dict | None = None):
+    """Start `cli`'s main() on `argv` in a fresh process (stdout and stderr
+    to `log`)."""
+    env = dict(os.environ, **(env_extra or {}))
+    fh = open(log, "w")
+    proc = subprocess.Popen([sys.executable, "-c", CLI_RUNNER.format(repo=REPO, cli=cli)] + argv,
+                            cwd=REPO, env=env, stdout=fh, stderr=subprocess.STDOUT)
+    proc.log_path, proc.log_fh, proc.t0, proc.exit_wall = log, fh, time.time(), None
+
+    def note_exit():  # the exit time, whenever the caller gets to wait
+        proc.wait()
+        proc.exit_wall = time.time()
+
+    threading.Thread(target=note_exit, daemon=True).start()
+    return proc
+
+
+def _cli_wait(proc, timeout: float) -> dict:
+    """Wait for a :func:`_cli_process`; its exit code, seconds to its exit,
+    result and log tail.  A process past `timeout` is killed."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    end = proc.exit_wall or time.time()
+    proc.log_fh.close()
+    with open(proc.log_path) as fh:
+        text = fh.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+    stats = [ln for ln in text.splitlines() if ln.startswith("COMPILE ")]
+    return {"rc": rc, "seconds": end - proc.t0, "end_wall": end,
+            "result": json.loads(lines[-1][7:]) if lines else None,
+            "compile_cache": json.loads(stats[-1][8:]) if stats else {}, "tail": text[-1500:]}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _journal(directory: str) -> list[dict]:
+    out = []
+    for name in sorted(os.listdir(directory)):
+        if name.startswith("journal-") and name.endswith(".jsonl"):
+            with open(os.path.join(directory, name)) as fh:
+                out += [json.loads(ln) for ln in fh if ln.strip()]
+    return out
+
+
+def phase_search_runtime(dev, workdir: str, card: str, serial: dict) -> dict:
+    """``search_runtime_main_path`` (b) and (c).
+
+    (b) ``search_cli`` in a fresh process with the search arm's config and
+    cuts (:func:`_search_argv`, phases 1 and 2 and the audit) and
+    :data:`PIPELINE_FLAGS`, a journal, a ``/metrics`` port and a compile
+    cache: its trial log, final policy, audit and fold checkpoint digests
+    equal the serial arm's (``search_main_path``); the overlap timeline shows
+    overlap; the journal holds ``tta`` dispatch events; ``GET /metrics``
+    answered with the dispatch histograms while it ran; the process built
+    every kernel library into the cache (misses), and a second process on the
+    same cache (``train_cli --only-eval`` of fold 0's model, which must
+    reproduce the model's test metric) loads them all (hits) and builds
+    nothing.
+
+    (c) ``train_cli`` on WRN-40-2 (:data:`FAULT_ARGS`): ``sigterm@step=K``
+    exits 77 and its rerun ends with the checkpoint bytes of an
+    uninterrupted run; ``hang@step=K`` with ``--watchdog 5`` exits 77 once the
+    deadline passes; ``nan_loss@step=K`` with ``--divergence-retries 1``
+    finishes with one retry recorded.  The drills run beside (b), the
+    resume as soon as its drill ends.  Also the watchdog's cost per dispatch
+    in this process."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.core.watchdog import DispatchWatchdog
+
+    problems = []
+    # ---- (c)'s drills through train_cli, started first: they run beside (b)
+    conf = os.path.join(REPO, SEARCH_CONF)
+
+    def drill(name, extra, fault):
+        d = os.path.join(workdir, f"fault_{name}")
+        os.makedirs(d)
+        ckpt = os.path.join(d, "m.msgpack")
+        argv = ["-c", conf, "--save", ckpt, "--telemetry", os.path.join(d, "tel")] + extra \
+            + FAULT_ARGS
+        env = {"FAA_FAULT": fault} if fault else {}
+        return ckpt, argv, _cli_process("train_cli", argv, os.path.join(d, "log"), env)
+
+    runs = {"whole": drill("whole", [], None),
+            "sigterm": drill("sigterm", [], f"sigterm@step={FAULT_STEP}"),
+            "hang": drill("hang", ["--watchdog", str(HANG_DEADLINE_S)],
+                          f"hang@step={FAULT_STEP}"),
+            "nan": drill("nan", ["--divergence-retries", "1"], f"nan_loss@step={NAN_STEP}")}
+    done, resume_proc, preempted_meta = {}, None, None
+    ckpt, argv_sigterm, _p = runs["sigterm"]
+
+    def start_resume():
+        """The sigterm drill's rerun, as soon as the drill has exited."""
+        nonlocal resume_proc, preempted_meta
+        done["sigterm"] = _cli_wait(runs["sigterm"][2], 600)
+        if os.path.exists(ckpt + ".meta.json"):
+            preempted_meta = _read_json(ckpt + ".meta.json")
+        resume_proc = _cli_process("train_cli", argv_sigterm, os.path.join(workdir, "resume.log"))
+
+    # ---- (b) the search with the machinery on
+    save = os.path.join(workdir, "search_pipeline")
+    cc, tel = os.path.join(workdir, "kernel_cache"), os.path.join(workdir, "telemetry")
+    port = _free_port()
+    argv = _search_argv(save, SEARCH_EPOCHS, until=2, extra=PIPELINE_FLAGS + [
+        "--telemetry", tel, "--telemetry-port", str(port), "--compile-cache", cc])
+    proc = _cli_process("search_cli", argv, os.path.join(workdir, "pipeline.log"))
+    scrape, scrapes = None, 0
+    while proc.poll() is None:
+        time.sleep(1.0)
+        if resume_proc is None and runs["sigterm"][2].poll() is not None:
+            start_resume()
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+                text = r.read().decode()
+            scrapes += 1
+            if 'faa_dispatch_seconds_bucket{label="tta"' in text:
+                scrape = text
+        except OSError:
+            pass
+    first = _cli_wait(proc, 60)
+    if first["rc"] != 0 or first["result"] is None:
+        fail(f"search_cli with the pipeline exited {first['rc']}: {first['tail']}")
+    res = first["result"]
+    first_cc = dict(res.get("compile_cache") or {})
+
+    # ---- (b)'s second process: an evaluation of fold 0's model on the cache
+    fold0 = [n for n in os.listdir(save) if "_fold0_" in n and n.endswith(".msgpack")][0]
+    again_proc = _cli_process("train_cli", [
+        "-c", conf, "--save", os.path.join(save, fold0), "--only-eval", "--cv-ratio", "0.4",
+        "--cv", "0", "--compile-cache", cc, "dataset=synthetic_shapes",
+        f"epoch={SEARCH_EPOCHS}"], os.path.join(workdir, "pipeline_again.log"))
+    if resume_proc is None:
+        start_resume()
+    done.update({k: _cli_wait(v[2], 600) for k, v in runs.items() if k != "sigterm"})
+    resumed = _cli_wait(resume_proc, 600)
+    again = _cli_wait(again_proc, 600)
+
+    # ---- (b)'s checks
+    equal = {}
+    for name in ("search_trials.json", "final_policy.json", "audit.json"):
+        with open(os.path.join(save, name), "rb") as a, \
+                open(os.path.join(serial["save_dir"], name), "rb") as b:
+            equal[name] = a.read() == b.read()
+    for name in sorted(os.listdir(serial["save_dir"])):
+        if name.endswith(".meta.json") and not name.startswith("final_"):
+            other = os.path.join(save, name)
+            equal[name] = os.path.exists(other) and _read_json(other)["digest"] == \
+                _read_json(os.path.join(serial["save_dir"], name))["digest"]
+    if not all(equal.values()):
+        problems.append(f"pipeline arm differs from the serial arm: "
+                        f"{[k for k, v in equal.items() if not v]}")
+    pipe = res.get("pipeline") or {}
+    overlap_s = (pipe.get("overlap") or {}).get("overlap_secs", 0.0)
+    if not overlap_s > 0:
+        problems.append(f"no phase overlap: {pipe.get('overlap')}")
+    events = _journal(tel)
+    tta_events = sum(1 for e in events if e["type"] == "dispatch" and e["label"] == "tta")
+    if not tta_events:
+        problems.append("the journal holds no tta dispatch event")
+    if scrape is None:
+        problems.append(f"GET /metrics never showed the tta dispatch histogram ({scrapes} "
+                        "scrapes)")
+    if not (first_cc.get("misses") == 3 and first_cc.get("hits") == 0):
+        problems.append(f"first process compile cache {first_cc} (want 3 misses, 0 hits)")
+    again_cc = again["compile_cache"]
+    if again["rc"] != 0 or not (again_cc.get("hits") == 3 and again_cc.get("misses") == 0):
+        problems.append(f"second process on the cache: rc {again['rc']}, {again_cc}")
+    fold0_test = (again["result"] or {}).get("top1_test")
+    if fold0_test != _read_json(os.path.join(save, fold0 + ".meta.json"))["metrics"]["top1_test"]:
+        problems.append(f"fold 0's model evaluated on the cache: top1_test {fold0_test} is not "
+                        "its checkpoint's")
+    if res.get("tta_executables") != res.get("tta_executables_expected"):
+        problems.append(f"graph census {res.get('tta_executables')} != "
+                        f"{res.get('tta_executables_expected')}")
+    if problems:
+        fail("search_runtime_main_path (b): " + "; ".join(problems))
+    n_trials = 8
+    out_b = {"phase": "search_runtime_main_path", "part": "search_cli", "card": card,
+             "flags": PIPELINE_FLAGS, "wall_s": first["seconds"], "artifacts_equal": equal,
+             "phase1_plus_phase2_s": {"pipeline": res["device_secs_phase2"],
+                                      "serial": serial["phase1_s"] + serial["phase2_s"]},
+             "phase2_s": {"pipeline_overlapped_region": res["device_secs_phase2"],
+                          "serial": serial["phase2_s"]},
+             "phase2_seconds_per_trial_serial": serial["phase2_s"] / n_trials,
+             "overlap_secs": overlap_s, "overlap": pipe.get("overlap"),
+             "dispatch_gaps": pipe.get("dispatch_gaps"), "tell_reorders": pipe.get("tell_reorders"),
+             "watchdog": res.get("resilience", {}).get("watchdog"),
+             "watchdog_fires": res.get("watchdog_fires"),
+             "tta_executables": res.get("tta_executables"),
+             "tta_executables_first": res.get("tta_executables_first"),
+             "tta_executables_expected": res.get("tta_executables_expected"),
+             "journal_events": len(events), "journal_tta_dispatch_events": tta_events,
+             "metrics_scrapes": scrapes,
+             "metrics_dispatch_lines": [ln for ln in (scrape or "").splitlines()
+                                        if ln.startswith("faa_dispatch_seconds_count")],
+             "compile_cache_first_process": first_cc, "compile_cache_second_process": again_cc,
+             "nvcc_build_s": first_cc.get("labels", {}).get("kernels", {}).get("sec"),
+             "cache_load_s": again_cc.get("labels", {}).get("kernels", {}).get("sec"),
+             "second_process_s": again["seconds"]}
+    emit(out_b)
+
+    # ---- (c)'s checks
+    def payload(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    fires = [e for e in _journal(os.path.join(workdir, "fault_hang", "tel"))
+             if e["type"] == "watchdog_fire"]
+    hang_exit_after_fire = done["hang"]["end_wall"] - fires[0]["t_wall"] if fires else None
+    nan_res = done["nan"]["result"] or {}
+    checks = {
+        "whole_rc0": done["whole"]["rc"] == 0,
+        "sigterm_rc77": done["sigterm"]["rc"] == 77,
+        "sigterm_link_preempted": bool(preempted_meta and preempted_meta.get("preempted")
+                                       and preempted_meta.get("in_epoch")),
+        "resume_rc0": resumed["rc"] == 0,
+        "resume_bytes_equal": resumed["rc"] == 0
+        and payload(ckpt) == payload(runs["whole"][0]),
+        "hang_rc77": done["hang"]["rc"] == 77,
+        "hang_fired_within_deadline": bool(fires) and
+        fires[0]["waited_sec"] <= HANG_DEADLINE_S + 2.0,
+        "hang_exit_prompt": hang_exit_after_fire is not None and hang_exit_after_fire < 30.0,
+        "nan_rc0": done["nan"]["rc"] == 0,
+        "nan_one_retry": nan_res.get("divergence_retries_used") == 1,
+        "nan_finished": nan_res.get("epoch") == 2,
+    }
+    # the watchdog's cost per dispatch: a small dispatch direct (with its
+    # wait) against through the watchdog, alternating
+    x = torch.zeros(1 << 20, device=dev)
+
+    def small():
+        return x.add_(1.0)
+
+    wd = DispatchWatchdog("auto")
+    wd.run("probe", small)
+    direct, watched = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            small()
+            torch.cuda.current_stream().synchronize()
+        direct.append((time.perf_counter() - t0) / 200)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            wd.run("probe", small)
+        watched.append((time.perf_counter() - t0) / 200)
+    out_c = {"phase": "search_runtime_main_path", "part": "faults", "card": card,
+             "checks": checks, "drills": {k: {"rc": v["rc"], "seconds": v["seconds"]}
+                                          for k, v in done.items()},
+             "resume": {"rc": resumed["rc"], "seconds": resumed["seconds"]},
+             "preempted_link": preempted_meta and {k: preempted_meta.get(k) for k in
+                                                   ("epoch", "step", "preempted", "in_epoch")},
+             "hang_watchdog_fire": fires[0] if fires else None,
+             "hang_exit_s_after_fire": hang_exit_after_fire,
+             "nan_result": {k: nan_res.get(k) for k in ("epoch", "divergence_retries_used",
+                                                        "loss_train", "top1_test")},
+             "watchdog_cost_us_per_dispatch": {
+                 "direct_median": float(np.median(direct)) * 1e6,
+                 "watched_median": float(np.median(watched)) * 1e6,
+                 "cost": (float(np.median(watched)) - float(np.median(direct))) * 1e6}}
+    emit(out_c)
+    if not all(checks.values()):
+        fail("search_runtime_main_path (c): " + str({k: v for k, v in checks.items() if not v})
+             + " " + json.dumps({k: v["tail"][-600:] for k, v in done.items()}))
+    return {"b": out_b, "c": out_c}
 
 
 # ------------------------------------------------------------ train path
@@ -2723,12 +3236,8 @@ def _dispatch_times(dev, card: str) -> dict:
             trace_s = time.perf_counter() - t0
         t_post = time.perf_counter()
         counts = _kernels.launch_counts()
-        records = kernel_counts(prof, (k1_name, "cifar_stack_kernel"))
-        records = {"augment": records[k1_name], "cifar_stack": records["cifar_stack_kernel"]}
-        for k, seen in records.items():
-            if seen > counts[k] or counts[k] - seen > LOST_RECORDS:
-                problems.append(f"{arm}: the trace holds {seen} {k} kernels, the counter "
-                                f"{counts[k]}")
+        records, found = records_vs_counters(prof, counts, k1_name, arm)
+        problems += found
         busy = device_busy(prof)
         host = _host_launches(prof)
         # a replay has no host ranges: its device time is split by kernel name
@@ -2997,6 +3506,17 @@ def main() -> int:
         print(card, flush=True)
         phase_dispatch_main_path(dev, card)
         return 0
+    if sys.argv[1:2] == ["--runtime-only"]:  # the search runtime's phases alone
+        _kernels.load_libraries()
+        print(card, flush=True)
+        st = tta_setup(dev)
+        phase_tta_main_path(dev, st)
+        phase_tta_graphs(dev, st, card)
+        del st
+        with tempfile.TemporaryDirectory() as workdir:
+            search = phase_search_main_path(dev, workdir, card)
+            phase_search_runtime(dev, workdir, card, search)
+        return 0
 
     t0 = time.perf_counter()
     _kernels.load_libraries()
@@ -3013,9 +3533,12 @@ def main() -> int:
         main_path = phase_main_path(dev, workdir)
     st = tta_setup(dev)
     tta_path = phase_tta_main_path(dev, st)
+    graphs = phase_tta_graphs(dev, st, card)
     rows = phase_times(dev, card)
     phase_trace(dev, card)
-    tta_t = phase_tta_times(dev, st, card)
+    tta_t = phase_tta_times(dev, st, card, graphs)
+    graph_launches = graphs["launches"]
+    del graphs
     del st
     torch.cuda.empty_cache()
     rn = resnet50_setup(dev)
@@ -3023,6 +3546,7 @@ def main() -> int:
     flagship = phase_train_flagship(dev)
     with tempfile.TemporaryDirectory() as workdir:
         search = phase_search_main_path(dev, workdir, card)
+        phase_search_runtime(dev, workdir, card, search)
     train_t = phase_train_times(dev, rn, card)
     del rn
     zoo, zoo_cli = zoo_phases(dev, card)
@@ -3057,10 +3581,12 @@ def main() -> int:
         "source": "fast_autoaugment_tpu_torch/csrc/augment.cu",
         "replaces": "fast_autoaugment_tpu/ops/augment.py:409",
         "launches": main_path["launches"] + tta_path["launches"]["augment"]
+        + graph_launches["augment"]
         + train_path["launches"]["augment"] + flagship["launches"]["augment"]
         + search["launches"]["augment"] + zoo_launches["augment"] + cached["augment"],
         "launches_by_path": {"serve": main_path["launches"],
                              "tta": tta_path["launches"]["augment"],
+                             "tta_graphed_vs_eager": graph_launches["augment"],
                              "train_resnet50": train_path["launches"]["augment"],
                              "train_and_eval_wrn40_2": flagship["launches"]["augment"],
                              "search_wrn40_2": search["launches"]["augment"],
@@ -3081,10 +3607,12 @@ def main() -> int:
         "name": "cifar_stack", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/preprocess.cu",
         "replaces": "fast_autoaugment_tpu/ops/preprocess.py:109",
-        "launches": tta_path["launches"]["cifar_stack"] + flagship["launches"]["cifar_stack"]
+        "launches": tta_path["launches"]["cifar_stack"] + graph_launches["cifar_stack"]
+        + flagship["launches"]["cifar_stack"]
         + search["launches"]["cifar_stack"] + zoo_launches["cifar_stack"]
         + cached["cifar_stack"],
         "launches_by_path": {"tta": tta_path["launches"]["cifar_stack"],
+                             "tta_graphed_vs_eager": graph_launches["cifar_stack"],
                              "train_and_eval_wrn40_2": flagship["launches"]["cifar_stack"],
                              "search_wrn40_2": search["launches"]["cifar_stack"],
                              **zoo_by_path("cifar_stack"),

@@ -14,8 +14,14 @@ restore chain (``path``, ``path.prev``, ``path.prev2``, ..., depth
 ``keep``); :func:`load_checkpoint` verifies the digest and raises
 :class:`~fast_autoaugment_tpu_torch.core.resilience.CheckpointCorruptError`
 on a mismatch, and :func:`load_checkpoint_chain` walks back to the newest
-intact link.  The JAX module's fault injection and telemetry counters are
-not ported (ROADMAP Queue 1 item 12).
+intact link.  As in the JAX module, ``save_checkpoint`` consults the
+``FAA_FAULT`` verbs ``torn_ckpt@save=N`` (the N-th save writes half its
+payload under the full payload's digest, after rotating the chain: the torn
+write of a crash mid-save) and ``corrupt_ckpt@save=N`` (a byte flipped
+after the digest), and the saves and the corrupt loads are counted in the
+telemetry registry (``faa_checkpoints_saved_total``,
+``faa_checkpoints_loaded_total``, ``faa_checkpoints_corrupt_total``) and
+journaled.
 
 Here a state is the plain pytree: nested ``dict``s with numpy array
 leaves (and ``None``).  :func:`load_checkpoint` returns that tree; the
@@ -29,8 +35,9 @@ import json
 import os
 from typing import Any, Callable
 
-from fast_autoaugment_tpu_torch.core import msgpack
+from fast_autoaugment_tpu_torch.core import msgpack, telemetry
 from fast_autoaugment_tpu_torch.core.resilience import CheckpointCorruptError
+from fast_autoaugment_tpu_torch.utils import faultinject
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
 
 __all__ = ["save_checkpoint", "load_checkpoint", "load_checkpoint_chain", "read_metadata",
@@ -84,6 +91,22 @@ def save_checkpoint(path: str, state: Any, metadata: dict | None = None,
     meta = dict(metadata or {})
     meta["digest"] = _digest(payload)
     meta["nbytes"] = len(payload)
+    fi = faultinject.active_plan()
+    if fi is not None:
+        save_n = fi.next_save()
+        if fi.torn_at(save_n):
+            # a torn non-atomic write: half the payload under the FULL
+            # payload's digest, after the rotation, then the "crash"
+            _rotate_chain(path, keep)
+            with open(path, "wb") as fh:
+                fh.write(payload[: max(1, len(payload) // 2)])
+            with open(_meta_path(path), "w") as fh:
+                json.dump(meta, fh)
+            return
+        if fi.corrupt_at(save_n):  # silent bit-rot after the digest
+            corrupted = bytearray(payload)
+            corrupted[len(corrupted) // 2] ^= 0xFF
+            payload = bytes(corrupted)
     if keep >= 2:
         _rotate_chain(path, keep)
     tmp = path + ".tmp"
@@ -94,6 +117,9 @@ def save_checkpoint(path: str, state: Any, metadata: dict | None = None,
     with open(tmp_meta, "w") as fh:
         json.dump(meta, fh)
     os.replace(tmp_meta, _meta_path(path))
+    telemetry.registry().counter("faa_checkpoints_saved_total", "checkpoint chain saves").inc()
+    telemetry.emit("checkpoint", os.path.basename(path), action="save", nbytes=len(payload),
+                   epoch=meta.get("epoch"))
 
 
 def _verify_payload(path: str, payload: bytes) -> None:
@@ -121,7 +147,15 @@ def load_checkpoint(path: str, verify: bool = True) -> Any:
     with open(path, "rb") as fh:
         payload = fh.read()
     if verify:
-        _verify_payload(path, payload)
+        try:
+            _verify_payload(path, payload)
+        except CheckpointCorruptError:
+            telemetry.registry().counter("faa_checkpoints_corrupt_total",
+                                         "checkpoint loads failing digest/size verification").inc()
+            telemetry.emit("checkpoint", os.path.basename(path), action="corrupt")
+            raise
+    telemetry.registry().counter("faa_checkpoints_loaded_total", "checkpoint restores").inc()
+    telemetry.emit("checkpoint", os.path.basename(path), action="load", nbytes=len(payload))
     try:
         return msgpack.unpackb(payload)
     except ValueError as e:

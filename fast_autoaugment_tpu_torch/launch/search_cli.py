@@ -21,8 +21,18 @@ evaluates its checkpoint.
 the same number under the JAX artifact's key); ``backend`` says which
 device it was.  The run is on ``cuda`` unless ``--device cpu`` asks for
 the CPU (the plain versions of the kernels); without a GPU it exits
-non-zero.  The JAX CLI's flags for machinery that is not ported are
-refused with the ROADMAP item that ports them; argparse refuses the rest.
+non-zero.
+
+The runtime flags are the JAX CLI's: ``--async-pipeline on``
+(``--pipeline-actors N``, ``--pipeline-queue-depth D``), ``--watchdog
+{off,auto,SECONDS}``, ``--divergence-retries R``, ``--compile-cache DIR``,
+``--telemetry DIR`` and ``--telemetry-port P`` (``GET /metrics`` while the
+search runs).  A preemption (SIGTERM/SIGUSR1, honoured at the next
+dispatch or epoch boundary with a checkpoint) or a hung dispatch exits
+:data:`~fast_autoaugment_tpu_torch.core.resilience.PREEMPTED_EXIT_CODE`
+(77): rerunning the same command resumes.  The JAX CLI's flags for
+machinery that is not ported are refused with the ROADMAP item that ports
+them; argparse refuses the rest.
 """
 
 from __future__ import annotations
@@ -31,19 +41,27 @@ import argparse
 import math
 import os
 import time
+from typing import Callable
 
 import numpy as np
 from torch.profiler import record_function
 
+from fast_autoaugment_tpu_torch.core import telemetry
 from fast_autoaugment_tpu_torch.core.config import load_config
 from fast_autoaugment_tpu_torch.core.device import resolve_device
+from fast_autoaugment_tpu_torch.core.resilience import (
+    PREEMPTED_EXIT_CODE,
+    DispatchHungError,
+    PreemptedError,
+    install_signal_handlers,
+)
 from fast_autoaugment_tpu_torch.search.driver import search_policies, write_json_atomic
 from fast_autoaugment_tpu_torch.train.trainer import train_and_eval
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
 from fast_autoaugment_tpu_torch.utils.stats import paired_t_test
 
 __all__ = ["build_parser", "main", "parse_args", "random_arm_skip_reason", "require_device",
-           "UNPORTED_FLAGS"]
+           "add_runtime_flags", "run_with_exit_contract", "UNPORTED_FLAGS"]
 
 logger = get_logger("faa_torch.search_cli")
 
@@ -51,9 +69,6 @@ logger = get_logger("faa_torch.search_cli")
 #: ROADMAP Queue 1 item that ports it
 UNPORTED_FLAGS = {
     "--fold-stack": "10b", "--coordinator": "10c", "--num-hosts": "10c", "--host-id": "10c",
-    "--async-pipeline": "12", "--pipeline-actors": "12", "--pipeline-queue-depth": "12",
-    "--divergence-retries": "12", "--watchdog": "12", "--compile-cache": "12",
-    "--telemetry": "12", "--telemetry-port": "12",
     "--fleet-transport": "13", "--search-role": "13", "--ckpt-publish-timeout": "13",
     "--workqueue": "13", "--lease-ttl": "13", "--host-tag": "13",
 }
@@ -95,6 +110,72 @@ def _quality_floor_arg(value: str) -> str:
     return value
 
 
+def _watchdog_arg(value: str) -> str:
+    """``--watchdog``: 'off', 'auto', or a positive finite deadline in seconds."""
+    v = value.lower()
+    if v in ("off", "auto"):
+        return v
+    try:
+        f = float(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected 'off', 'auto' or SECONDS, got {value!r}")
+    if not math.isfinite(f) or f <= 0:
+        raise argparse.ArgumentTypeError(f"expected a positive finite deadline, got {value!r}")
+    return value
+
+
+def add_runtime_flags(p: argparse.ArgumentParser) -> None:
+    """The runtime seams' flags of both CLIs (the JAX CLIs' names)."""
+    p.add_argument("--divergence-retries", type=int, default=0,
+                   help="on a NaN/inf epoch loss, roll back to the newest intact epoch "
+                        "checkpoint and replay with retry-folded randomness up to R times "
+                        "before raising.  0 (default) = raise at once")
+    p.add_argument("--watchdog", default="off", type=_watchdog_arg,
+                   help="deadline-guard every dispatch (train dispatches, eval replays, TTA "
+                        "and audit evaluations; waits for the device on each): one that "
+                        "blows its deadline is HUNG and the run exits 77.  'off' (default), "
+                        "'auto' (20 x the label's EMA, at least 10 s) or SECONDS")
+    p.add_argument("--compile-cache", default="off", metavar="{off,DIR}",
+                   help="build the CUDA kernel libraries into DIR and load them from there: "
+                        "a second process on DIR (an exit-77 resume) builds nothing.  Default: "
+                        "the inherited FAA_COMPILE_CACHE, else the package's _build directory")
+    p.add_argument("--telemetry", default="off", metavar="{off,DIR}",
+                   help="flight-recorder journal: typed dispatch/compile/checkpoint/trial/"
+                        "phase events as JSONL under DIR.  Default: the inherited "
+                        "FAA_TELEMETRY, else off")
+    p.add_argument("--telemetry-port", type=int, default=0,
+                   help="serve GET /metrics (Prometheus text of the telemetry registry) on "
+                        "this port while the run lasts.  0 = off")
+
+
+def run_with_exit_contract(args, prog: str, run: Callable[[], dict]) -> dict:
+    """Run `run` with the preemption handlers installed, the journal armed
+    and ``/metrics`` served as `args` ask; a preemption or a hung dispatch
+    exits 77 (resume me)."""
+    install_signal_handlers()
+    telemetry.configure_telemetry(args.telemetry)
+    httpd = None
+    if args.telemetry_port:
+        httpd, _port = telemetry.start_metrics_server(args.telemetry_port)
+    try:
+        return run()
+    except PreemptedError as e:
+        logger.warning("preempted (%s) - exiting %d; rerunning the same command resumes", e,
+                       PREEMPTED_EXIT_CODE)
+        telemetry.emit("preempt", prog, kind="preempted", exit_code=PREEMPTED_EXIT_CODE)
+        raise SystemExit(PREEMPTED_EXIT_CODE)
+    except DispatchHungError as e:
+        logger.error("dispatch HUNG (%s) - exiting %d; the rerun resumes from the newest "
+                     "checkpoint link", e, PREEMPTED_EXIT_CODE)
+        telemetry.emit("preempt", prog, kind="dispatch_hung", label_detail=e.label,
+                       exit_code=PREEMPTED_EXIT_CODE)
+        raise SystemExit(PREEMPTED_EXIT_CODE)
+    finally:
+        telemetry.journal_flush()
+        if httpd is not None:
+            httpd.shutdown()
+
+
 def random_arm_skip_reason(result: dict) -> str | None:
     """Why a requested ``--phase3-random`` arm cannot run, or None."""
     if result.get("random_policy_set"):
@@ -128,6 +209,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trial-batch", type=int, default=1,
                    help="K TPE trials per round, evaluated in one pass per batch "
                         "(constant-liar proposals); 1 = the sequential loop")
+    p.add_argument("--async-pipeline", default="off", choices=("off", "on"),
+                   help="phase 2 as the actor/learner pipeline (actor threads evaluate "
+                        "ready-built rounds while the TPE learner proposes; results apply in "
+                        "trial-id order) with phase-1 training overlapped on a trainer "
+                        "thread.  The trial log is the serial one for the same window; 'on' "
+                        "with --pipeline-actors 1 --pipeline-queue-depth 0 is the serial "
+                        "trial log bit for bit")
+    p.add_argument("--pipeline-actors", type=int, default=1,
+                   help="actor threads per fold under --async-pipeline on")
+    p.add_argument("--pipeline-queue-depth", type=int, default=1,
+                   help="rounds proposed ahead of the actors (the window is actors + depth "
+                        "rounds; pending rounds enter the posterior as constant liars)")
     p.add_argument("--aug-dispatch", default="exact", choices=("exact", "grouped"),
                    help="policy sampling for phase-2 TTA, the audit and phase-3 retrains: "
                         "per image (exact) or per chunk of --aug-groups (grouped)")
@@ -168,6 +261,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--audit-floor", type=float, default=0.95,
                    help="drop selected sub-policies whose own mean-over-draws fold accuracy "
                         "is below floor x baseline (<= 0 turns the audit off)")
+    add_runtime_flags(p)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) or cpu (the plain versions of the kernels)")
     p.add_argument("override", nargs="*", help="dotted conf overrides key=value")
@@ -181,6 +275,10 @@ def main(argv=None, *, draw_source=None) -> dict:
     args = parse_args(build_parser(), argv)
     require_device(args.device, "search_cli")
     conf = load_config(args.conf, overrides=args.override)
+    return run_with_exit_contract(args, "search_cli", lambda: _run(args, conf, draw_source))
+
+
+def _run(args, conf, draw_source) -> dict:
     t_start = time.time()
     result = search_policies(
         conf, dataroot=args.dataroot, save_dir=args.save_dir, cv_num=args.num_fold,
@@ -194,7 +292,11 @@ def main(argv=None, *, draw_source=None) -> dict:
         random_control=args.phase3_random, trial_batch=args.trial_batch,
         aug_dispatch=args.aug_dispatch, aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep,
         device_cache=args.device_cache, steps_per_dispatch=args.steps_per_dispatch,
-        topup_trials=args.topup_trials, device=args.device, draw_source=draw_source)
+        topup_trials=args.topup_trials, divergence_retries=args.divergence_retries,
+        watchdog=args.watchdog, compile_cache=args.compile_cache,
+        async_pipeline=args.async_pipeline, pipeline_actors=args.pipeline_actors,
+        pipeline_queue_depth=args.pipeline_queue_depth, telemetry_spec=args.telemetry,
+        device=args.device, draw_source=draw_source)
     final_policy_set = result["final_policy_set"]
     random_policy_set = result.get("random_policy_set") or []
     logger.info("final policy set: %d sub-policies", len(final_policy_set))
@@ -258,7 +360,9 @@ def main(argv=None, *, draw_source=None) -> dict:
                     metric="last", seed=seeds[run], aug_dispatch=args.aug_dispatch,
                     aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep,
                     device_cache=args.device_cache, steps_per_dispatch=args.steps_per_dispatch,
-                    checkpoint_every_dispatch=args.ckpt_every_dispatch, device=args.device,
+                    checkpoint_every_dispatch=args.ckpt_every_dispatch,
+                    divergence_retries=args.divergence_retries, watchdog=args.watchdog,
+                    compile_cache=args.compile_cache, device=args.device,
                     draw_source=draw_source)
                 outcomes[mode].append(float(res.get("top1_test", 0.0)))
                 logger.info("phase3 %s run %d: top1_test=%.4f", mode, run, outcomes[mode][-1])

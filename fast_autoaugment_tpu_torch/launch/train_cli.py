@@ -7,9 +7,11 @@
 ``--save`` writes the checkpoint in the JAX package's format and resumes
 from it; ``--only-eval`` evaluates a saved checkpoint.  The run is on
 ``cuda`` unless ``--device cpu`` asks for the CPU (the plain versions of
-the kernels); without a GPU it exits non-zero.  The JAX CLI's flags for
-machinery that is not ported are refused with the ROADMAP item that ports
-them; argparse refuses the rest.
+the kernels); without a GPU it exits non-zero.  The runtime flags
+(``--watchdog``, ``--divergence-retries``, ``--compile-cache``,
+``--telemetry``, ``--telemetry-port``) and the exit-77 contract are
+``search_cli``'s.  The JAX CLI's flags for machinery that is not ported are
+refused with the ROADMAP item that ports them; argparse refuses the rest.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ import time
 from fast_autoaugment_tpu_torch.core.config import load_config
 from fast_autoaugment_tpu_torch.launch.search_cli import (
     UNPORTED_FLAGS,
+    add_runtime_flags,
     parse_args,
     require_device,
+    run_with_exit_contract,
 )
 from fast_autoaugment_tpu_torch.train.trainer import train_and_eval
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
@@ -68,6 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint every M dispatch chunks MID-epoch (device-cache path "
                         "only; resumable bit-identically from the exact dispatch "
                         "boundary).  0 (default) = checkpoint at evaluation epochs only")
+    add_runtime_flags(p)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) or cpu (the plain versions of the kernels)")
     p.add_argument("override", nargs="*", help="dotted conf overrides key=value")
@@ -85,13 +90,15 @@ def main(argv=None) -> dict:
     if args.only_eval and not args.save:
         raise SystemExit("train_cli: --only-eval requires --save (reference train.py:337)")
     t0 = time.time()
-    result = train_and_eval(
+    result = run_with_exit_contract(args, "train_cli", lambda: train_and_eval(
         conf, args.dataroot, test_ratio=args.cv_ratio, cv_fold=args.cv,
         save_path=args.save or None, only_eval=args.only_eval,
         evaluation_interval=args.evaluation_interval, metric="last", seed=args.seed,
         aug_dispatch=args.aug_dispatch, aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep,
         device_cache=args.device_cache, steps_per_dispatch=args.steps_per_dispatch,
-        checkpoint_every_dispatch=args.ckpt_every_dispatch, device=args.device)
+        checkpoint_every_dispatch=args.ckpt_every_dispatch,
+        divergence_retries=args.divergence_retries, watchdog=args.watchdog,
+        compile_cache=args.compile_cache, device=args.device))
     elapsed = time.time() - t0
     logger.info("done %s: %s", args.tag, json.dumps(
         {k: round(v, 5) if isinstance(v, float) else v for k, v in result.items()}))

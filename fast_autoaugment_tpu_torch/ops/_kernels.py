@@ -54,7 +54,9 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"augment": _PKG / "csrc" / "augment.cu",
            "preprocess": _PKG / "csrc" / "preprocess.cu",
            "imagenet": _PKG / "csrc" / "imagenet.cu"}
-BUILD_DIR = _PKG / "_build"
+#: where the libraries are built and loaded from: the package's own
+#: ``_build``, or the compile cache's directory (``core/compilecache.py``)
+DEFAULT_BUILD_DIR = BUILD_DIR = _PKG / "_build"
 #: --fmad=false: the kernels are held bitwise against references that
 #: round every product and sum on its own, and a contracted multiply-add
 #: rounds differently
@@ -80,9 +82,10 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launches = {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0}
-#: the launches recorded into the CUDA graph being captured under
-#: counting_capture (None outside it)
-_captured: dict[str, int] | None = None
+#: per thread: the launches recorded into the CUDA graph that thread is
+#: capturing under counting_capture (None outside it); threads may capture
+#: side by side (the search pipeline)
+_capture = threading.local()
 #: wall seconds of the last build of all missing libraries (0.0 when every
 #: library was already built)
 build_seconds = 0.0
@@ -333,6 +336,7 @@ def load_libraries() -> dict[str, ctypes.CDLL]:
     with _lock:
         if len(_libs) == len(SOURCES):
             return dict(_libs)
+        t0 = time.perf_counter()
         paths = {name: _library_path(name) for name in SOURCES}
         missing = {n: p for n, p in paths.items() if not p.exists()}
         if missing:
@@ -346,6 +350,10 @@ def load_libraries() -> dict[str, ctypes.CDLL]:
             lib.faa_error_string.argtypes = [ctypes.c_int]
             lib.faa_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+        from fast_autoaugment_tpu_torch.core import compilecache
+
+        compilecache.record_libraries(sorted(set(paths) - set(missing)), sorted(missing),
+                                      time.perf_counter() - t0)
         return dict(_libs)
 
 
@@ -364,26 +372,24 @@ def _count(name: str, n: int = 1) -> None:
     """Count `n` launches of `name`: launched now, or recorded into a graph
     under capture (then they count when the graph is replayed)."""
     capturing = torch.cuda.is_current_stream_capturing()
+    tally = getattr(_capture, "tally", None)
     with _lock:
         if not capturing:
             _launches[name] += n
-        elif _captured is not None:
-            _captured[name] += n
+        elif tally is not None:
+            tally[name] += n
 
 
 @contextlib.contextmanager
 def counting_capture():
     """Around a CUDA graph capture: yields a dict that, after the block,
     holds the launches the wrappers recorded into the graph."""
-    global _captured
     tally = {k: 0 for k in _launches}
-    with _lock:
-        _captured = tally
+    _capture.tally = tally
     try:
         yield tally
     finally:
-        with _lock:
-            _captured = None
+        _capture.tally = None
 
 
 def count_replays(tally: dict[str, int], replays: int = 1) -> None:

@@ -39,13 +39,30 @@ datasets under the default ``"auto"``: CUDA-graph dispatches on the card, a
 loop on the CPU) and ``steps_per_dispatch``, and the result stamps both, as
 the JAX driver does (``:861-877``).
 
+The runtime seams, as the JAX driver wires them (``:720-1260``,
+``:1544-1687``):
+
+- ``async_pipeline="on"`` runs phase 2 as the actor/learner pipeline
+  (``search/pipeline.py``: ``pipeline_actors`` actor threads,
+  ``pipeline_queue_depth`` rounds proposed ahead) and overlaps phase-1 fold
+  training (a trainer thread) with it; the trial log and the policy are
+  those of the serial run with the same window (bit for bit with one actor
+  and depth 0; any number of actors gives the trial log of one);
+- ``watchdog`` (``"off"``, ``"auto"``, seconds): one
+  ``DispatchWatchdog`` shared by the evaluations and the trainer;
+- ``divergence_retries`` for every training run;
+- ``telemetry_spec`` arms the journal (``core/telemetry.py``) and
+  ``compile_cache`` the kernels' cache (``core/compilecache.py``);
+- ``search_result.json`` gains ``resilience.watchdog``, ``watchdog_fires``,
+  ``compile_cache``, ``pipeline`` (the dispatch-gap summary and the overlap
+  timeline), and the graph census ``tta_executables[_first]`` (and
+  ``tta_batched_executables[_first]``) with their ``_expected`` counts: one
+  CUDA graph per policy shape on the card, none on the CPU; a census above
+  its expectation writes the result with a ``failure`` record and raises.
+
 Refused, naming the ROADMAP item that ports them: fold stacking
-(``fold_stack`` != 0, item 10b); the async pipeline, the watchdog, the
-compile cache, telemetry and divergence retries (item 12); the work queue
-and the fleet transport (item 13).  The async pipeline's knobs (``pipeline_actors``,
-``pipeline_queue_depth``) are not taken at all.  The JAX driver's executable census (``search/census.py``) is
-dropped: a compile census has no meaning in eager PyTorch.  ImageNet data
-is not ported (``load_dataset`` raises, item 11).
+(``fold_stack`` != 0, item 10b); the work queue and the fleet transport
+(item 13).  ImageNet data is not ported (``load_dataset`` raises, item 11).
 """
 
 from __future__ import annotations
@@ -53,6 +70,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Callable
 
@@ -60,8 +78,19 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from fast_autoaugment_tpu_torch.core import telemetry
 from fast_autoaugment_tpu_torch.core.checkpoint import load_checkpoint, read_metadata
+from fast_autoaugment_tpu_torch.core.compilecache import (
+    compile_cache_stats,
+    configure_compile_cache,
+)
 from fast_autoaugment_tpu_torch.core.device import resolve_device
+from fast_autoaugment_tpu_torch.core.resilience import (
+    DispatchHungError,
+    PreemptedError,
+    install_signal_handlers,
+)
+from fast_autoaugment_tpu_torch.core.watchdog import arm_dispatch_serializer, resolve_watchdog
 from fast_autoaugment_tpu_torch.data.datasets import cv_split, load_dataset
 from fast_autoaugment_tpu_torch.data.pipeline import device_batches, eval_batches
 from fast_autoaugment_tpu_torch.models import get_model, input_image_size, num_class
@@ -71,10 +100,20 @@ from fast_autoaugment_tpu_torch.policies.archive import (
     policy_to_tensor,
     remove_duplicates,
 )
+from fast_autoaugment_tpu_torch.search.census import executable_census
+from fast_autoaugment_tpu_torch.search.pipeline import (
+    DispatchTrace,
+    _failure_text,
+    replay_trial_log,
+    resolve_async_pipeline,
+    run_fold_pipeline,
+    run_overlapped_phases,
+)
 from fast_autoaugment_tpu_torch.search.tpe import TPE, choice, uniform
 from fast_autoaugment_tpu_torch.search.tta import (
     PhiloxDraws,
     check_aug_dispatch,
+    eval_audit,
     eval_tta,
     eval_tta_batched,
     make_audit_step,
@@ -82,8 +121,10 @@ from fast_autoaugment_tpu_torch.search.tta import (
     prng_key,
 )
 from fast_autoaugment_tpu_torch.train.trainer import train_and_eval
+from fast_autoaugment_tpu_torch.utils import faultinject
 from fast_autoaugment_tpu_torch.utils.interop import flax_layout, flax_to_tensors
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
+from fast_autoaugment_tpu_torch.utils.profiling import PhaseStopwatch
 
 __all__ = ["search_policies", "make_search_space", "SearchResult", "resolve_quality_floor",
            "write_json_atomic", "draw_random_policy_set", "audit_sub_policies"]
@@ -215,11 +256,19 @@ def _call_train_fold_fn(fn: Callable, conf, fold: int, path: str, seed: int):
 class _FoldEval:
     """The TTA machinery shared by the quality gate, phase 2 and the audit:
     one model whose weights are a fold checkpoint's, the TTA, batched TTA
-    and audit steps on it, and each fold's held-out batches uploaded once."""
+    and audit steps on it, and each fold's held-out batches uploaded once.
+
+    Evaluations come from several threads under the async pipeline (the
+    actors, and the overlapped trainer's quality gate): one lock covers
+    loading a fold's weights into the model and the evaluation on them, so
+    an evaluation always runs on the weights it asked for.  Each
+    evaluation is one window of the watchdog (labels ``tta``,
+    ``tta_batched``, ``audit``) when it is on, and `trace` (a
+    ``DispatchTrace``) receives its batches' windows."""
 
     def __init__(self, conf, dataroot, *, num_policy, num_op, cv_ratio, trial_batch: int = 1,
                  aug_dispatch: str = "exact", aug_groups: int = 8, device="cuda",
-                 draw_source=None):
+                 draw_source=None, watchdog=None, trace=None):
         self.conf, self.dataroot = conf, dataroot
         self.num_policy, self.num_op, self.cv_ratio = num_policy, num_op, cv_ratio
         self.trial_batch = max(1, int(trial_batch))
@@ -227,62 +276,88 @@ class _FoldEval:
         self.aug_groups = max(1, int(aug_groups))
         self.dev = resolve_device(device)
         self.draw_source = draw_source or PhiloxDraws()
+        self.watchdog = resolve_watchdog(watchdog)
+        self.trace = trace
         self._built = False
         self._loaded = None  # (path, digest) of the weights in the model
         self._batches: dict[int, list] = {}
+        self._lock = threading.RLock()
+        # distinct leading policy shapes fed to the TTA step and candidate
+        # counts fed to the batched one: the census expects one graph each
+        self.policy_shapes: set[int] = set()
+        self.batch_policy_shapes: set[int] = set()
 
     def _build(self):
-        if self._built:
-            return
-        conf = self.conf
-        dataset_name = conf["dataset"]
-        self.num_classes = num_class(dataset_name)
-        self.total_train, _test = load_dataset(dataset_name, self.dataroot)
-        model_conf = dict(conf["model"], dataset=dataset_name)
-        model_conf.setdefault("precision", conf.get("precision", "f32"))
-        self.model = get_model(model_conf, self.num_classes, device=self.dev)
-        self.layout = flax_layout(self.model)
-        self.image = input_image_size(dataset_name, conf["model"]["type"])
-        kw = dict(num_policy=self.num_policy, cutout_length=int(conf.get("cutout", 0) or 0),
-                  aug_dispatch=self.aug_dispatch, aug_groups=self.aug_groups,
-                  draw_source=self.draw_source)
-        self.tta_step = make_tta_step(self.model, **kw)
-        self.audit_step = make_audit_step(self.model, **kw)
-        self.tta_step_batch = (make_tta_step(self.model, num_candidates=self.trial_batch, **kw)
-                               if self.trial_batch > 1 else None)
-        self._built = True
+        with self._lock:
+            if self._built:
+                return
+            conf = self.conf
+            dataset_name = conf["dataset"]
+            self.num_classes = num_class(dataset_name)
+            self.total_train, _test = load_dataset(dataset_name, self.dataroot)
+            model_conf = dict(conf["model"], dataset=dataset_name)
+            model_conf.setdefault("precision", conf.get("precision", "f32"))
+            self.model = get_model(model_conf, self.num_classes, device=self.dev)
+            self.layout = flax_layout(self.model)
+            self.image = input_image_size(dataset_name, conf["model"]["type"])
+            kw = dict(num_policy=self.num_policy,
+                      cutout_length=int(conf.get("cutout", 0) or 0),
+                      aug_dispatch=self.aug_dispatch, aug_groups=self.aug_groups,
+                      draw_source=self.draw_source)
+            self.tta_step = make_tta_step(self.model, **kw)
+            self.audit_step = make_audit_step(self.model, **kw)
+            self.tta_step_batch = (make_tta_step(self.model, num_candidates=self.trial_batch,
+                                                 **kw) if self.trial_batch > 1 else None)
+            self._built = True
 
     def load_fold(self, path: str) -> None:
         """Put the weights and BatchNorm statistics of the checkpoint at
         `path` into the model (a no-op when they are there already)."""
         self._build()
-        ident = (path, (read_metadata(path) or {}).get("digest"))
-        if self._loaded == ident:
-            return
-        tree = load_checkpoint(path)
-        live = self.model.state_dict()
-        with torch.no_grad():
-            for name, arr in flax_to_tensors(tree, self.layout).items():
-                live[name].copy_(torch.from_numpy(arr))
-        self._loaded = ident
+        with self._lock:
+            ident = (path, (read_metadata(path) or {}).get("digest"))
+            if self._loaded == ident:
+                return
+            tree = load_checkpoint(path)
+            live = self.model.state_dict()
+            with torch.no_grad():
+                for name, arr in flax_to_tensors(tree, self.layout).items():
+                    live[name].copy_(torch.from_numpy(arr))
+            self._loaded = ident
 
     def batches(self, fold: int) -> list:
         """The fold's held-out split in full batches (the last one padded,
         so every batch has one shape), uploaded on first use."""
         self._build()
-        if fold not in self._batches:
-            _train_idx, valid_idx = cv_split(self.total_train.labels, self.cv_ratio, fold)
-            batch = int(self.conf["batch"])
-            self._batches[fold] = device_batches(
-                eval_batches(self.total_train, valid_idx, batch, pad_multiple=batch), self.dev)
-        return self._batches[fold]
+        with self._lock:
+            if fold not in self._batches:
+                _train_idx, valid_idx = cv_split(self.total_train.labels, self.cv_ratio, fold)
+                batch = int(self.conf["batch"])
+                self._batches[fold] = device_batches(
+                    eval_batches(self.total_train, valid_idx, batch, pad_multiple=batch),
+                    self.dev)
+            return self._batches[fold]
 
     def policy_tensor(self, policies) -> torch.Tensor:
         return torch.as_tensor(policy_to_tensor(policies), device=self.dev)
 
+    def _guarded(self, label: str, path: str, fn, *args):
+        """Load `path`'s weights and run ``fn(*args)`` on them, under the
+        lock and (when on) the watchdog."""
+        with self._lock:
+            self.load_fold(path)
+            if not self.watchdog.enabled:
+                return fn(*args)
+            return self.watchdog.run(label, fn, *args)
+
+    def _trace_cb(self):
+        return self.trace.record if self.trace is not None else None
+
     def evaluate(self, fold: int, path: str, policy_t, key) -> dict:
-        self.load_fold(path)
-        return eval_tta(self.tta_step, self.batches(fold), policy_t, key)
+        self._build()
+        self.policy_shapes.add(int(policy_t.shape[0]))
+        return self._guarded("tta", path, eval_tta, self.tta_step, self.batches(fold), policy_t,
+                             key, self._trace_cb())
 
     def evaluate_batch(self, fold: int, path: str, policies_t, keys) -> list[dict]:
         """K candidates (``[K, num_sub, num_op, 3]``, K = trial_batch) with the
@@ -293,12 +368,16 @@ class _FoldEval:
         if int(policies_t.shape[0]) != self.trial_batch:
             raise ValueError(f"candidate axis {int(policies_t.shape[0])} != trial_batch "
                              f"{self.trial_batch}")
-        self.load_fold(path)
-        return eval_tta_batched(self.tta_step_batch, self.batches(fold), policies_t, keys)
+        self.batch_policy_shapes.add(int(policies_t.shape[0]))
+        return self._guarded("tta_batched", path, eval_tta_batched, self.tta_step_batch,
+                             self.batches(fold), policies_t, keys, self._trace_cb())
 
-    def audit_eval(self, batch: dict, subs, key) -> dict:
+    def audit_fold(self, fold: int, path: str, subs, key) -> tuple[np.ndarray, float]:
+        """The audit step over the fold's batches, batch i under ``fold_in(key,
+        i)``: the float64 sums (``[S]`` and the count)."""
         self._build()
-        return self.audit_step(batch["x"], batch["y"], batch["m"], subs, key)
+        return self._guarded("audit", path, eval_audit, self.audit_step, self.batches(fold),
+                             subs, key)
 
     def baseline(self, fold: int, path: str) -> float:
         """The fold's accuracy under the identity policy (one all-zero
@@ -320,6 +399,7 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                     device_cache: str = "auto", steps_per_dispatch: int = 1,
                     divergence_retries: int = 0, ckpt_keep: int = 2, watchdog="off",
                     work_queue=None, compile_cache: str = "off", async_pipeline="off",
+                    pipeline_actors: int = 1, pipeline_queue_depth: int = 1,
                     telemetry_spec: str = "off", fleet_transport=None, topup_trials: int = 0,
                     device="cuda", draw_source=None) -> SearchResult:
     """Run phases 1 and 2; returns the final policy set and the accounting.
@@ -336,30 +416,34 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     accuracy falls below ``audit_floor`` x the fold baseline; `trial_batch`
     K > 1 evaluates K constant-liar proposals per round; `topup_trials`
     extends a finished search's per-fold budget; `random_control` adds the
-    random arm.  The unported options raise (module docstring)."""
+    random arm; `async_pipeline`, `pipeline_actors`, `pipeline_queue_depth`,
+    `watchdog`, `divergence_retries`, `compile_cache` and `telemetry_spec`
+    are the runtime seams of the module docstring.  The unported options
+    raise."""
     if fold_stack not in (None, 0, "0"):
         _refuse(f"fold stacking (fold_stack={fold_stack!r})", "10b")
-    if async_pipeline not in ("off", False, None, 0):
-        _refuse("the async actor/learner pipeline", "12")
-    if watchdog not in ("off", None, False, 0):
-        _refuse("the dispatch watchdog", "12")
-    if compile_cache not in ("off", None, ""):
-        _refuse("the compile cache", "12")
-    if telemetry_spec not in ("off", None, ""):
-        _refuse("the telemetry journal", "12")
-    if int(divergence_retries) > 0:
-        _refuse("divergence retries", "12")
     if work_queue is not None:
         _refuse("the elastic work queue", "13")
     if fleet_transport is not None:
         _refuse("the fleet transport", "13")
     dev = resolve_device(device)
+    # flag-setting SIGTERM/SIGUSR1 handlers (here, on the caller's thread:
+    # the overlapped trainer thread cannot install them)
+    install_signal_handlers()
     src = draw_source or PhiloxDraws()
     if smoke_test:  # reference --smoke-test (search.py:153, 235)
         num_search = 4
     topup_trials = max(0, int(topup_trials))
     base_num_search = num_search
     num_search += topup_trials
+    # the kernels' cache and the journal ("off" still honours the
+    # FAA_COMPILE_CACHE / FAA_TELEMETRY handoff)
+    configure_compile_cache(compile_cache)
+    telemetry.configure_telemetry(telemetry_spec)
+    pipeline_on = resolve_async_pipeline(async_pipeline)
+    pipeline_actors = max(1, int(pipeline_actors))
+    pipeline_queue_depth = max(0, int(pipeline_queue_depth))
+    wd = resolve_watchdog(watchdog)
     fold_quality_floor = resolve_quality_floor(fold_quality_floor, num_class(conf["dataset"]))
     os.makedirs(save_dir, exist_ok=True)
     t_start = time.time()
@@ -392,23 +476,33 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
             "num_search": num_search,
             "resumed_trials_per_fold": {str(f): len(trials_log.get(str(f), []))
                                         for f in fold_list}}
+    # the pipeline's threads dispatch under one lock (core/watchdog.py);
+    # disarmed for serial runs, so one process can run both in turn
+    arm_dispatch_serializer(pipeline_on)
+    trace = DispatchTrace() if pipeline_on else None
     evaluator = _FoldEval(conf, dataroot, num_policy=num_policy, num_op=num_op,
                           cv_ratio=cv_ratio, trial_batch=trial_batch, aug_dispatch=aug_dispatch,
-                          aug_groups=aug_groups, device=dev, draw_source=src)
+                          aug_groups=aug_groups, device=dev, draw_source=src, watchdog=wd,
+                          trace=trace)
     result["aug_dispatch"] = evaluator.aug_dispatch
     result["aug_groups"] = evaluator.aug_groups
     # which data path trained the phase-1 oracles
     steps_per_dispatch = max(1, int(steps_per_dispatch))
     result["device_cache"] = device_cache
     result["steps_per_dispatch"] = steps_per_dispatch
+    divergence_retries = max(0, int(divergence_retries))
     ckpt_keep = max(1, int(ckpt_keep))
-    result["resilience"] = {"divergence_retries": 0, "ckpt_keep": ckpt_keep}
+    result["resilience"] = {"divergence_retries": divergence_retries, "ckpt_keep": ckpt_keep,
+                            "watchdog": wd.stats()}
     result["fold_stack"] = 0
+    # one watchdog for the trainer and the evaluations: fire counts add up
     train_kw = dict(ckpt_keep=ckpt_keep, device=dev, draw_source=draw_source,
-                    device_cache=device_cache, steps_per_dispatch=steps_per_dispatch)
+                    device_cache=device_cache, steps_per_dispatch=steps_per_dispatch,
+                    divergence_retries=divergence_retries, watchdog=wd)
     fold_baselines: dict[int, float] = {}
     excluded_folds: list[int] = []
-    phase1_secs: dict[int, float] = {}
+    # phase-1 training walls on one ledger, mirrored into the registry
+    phase1_sw = PhaseStopwatch(device_count=1, registry=telemetry.registry())
 
     # ---------------- phase 1: pretrain without augmentation ----------
     t0 = time.time()
@@ -419,13 +513,12 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     phase1_epochs_eff = int(no_aug_conf["epoch"])
 
     def _train(fold: int, path: str, train_seed: int) -> None:
-        t = time.time()
-        if train_fold_fn is not None:
-            _call_train_fold_fn(train_fold_fn, no_aug_conf, fold, path, train_seed)
-        else:
-            train_and_eval(no_aug_conf, dataroot, test_ratio=cv_ratio, cv_fold=fold,
-                           save_path=path, metric="last", seed=train_seed, **train_kw)
-        phase1_secs[fold] = phase1_secs.get(fold, 0.0) + time.time() - t
+        with phase1_sw.phase(f"phase1_fold{fold}"):
+            if train_fold_fn is not None:
+                _call_train_fold_fn(train_fold_fn, no_aug_conf, fold, path, train_seed)
+            else:
+                train_and_eval(no_aug_conf, dataroot, test_ratio=cv_ratio, cv_fold=fold,
+                               save_path=path, metric="last", seed=train_seed, **train_kw)
 
     def _phase1_fold(fold: int) -> None:
         """Train the fold if needed, then the quality gate (and its retrains)."""
@@ -481,23 +574,45 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
             logger.info("phase1: fold %d baseline %.3f (floor %.3f) ok", fold, acc,
                         fold_quality_floor)
 
-    with record_function("search.phase1"):
-        for fold in range(cv_num):
-            if fold in fold_list:
-                _phase1_fold(fold)
-    result["device_secs_phase1"] = result["tpu_secs_phase1"] = time.time() - t0
-    result["device_secs_phase1_per_fold"] = {str(f): phase1_secs.get(f, 0.0)
-                                             for f in sorted(fold_list)}
-    result["fold_baselines"] = {str(k): v for k, v in fold_baselines.items()}
-    result["excluded_folds"] = list(excluded_folds)
+    # phase overlap (async pipeline): phase-1 training moves onto a trainer
+    # thread inside phase 2 below; fold k's trials start when its gate
+    # clears, while fold k+1 trains
+    overlap_mode = pipeline_on and until >= 2
+    phase1_t0 = t0
+
+    def _stamp_phase1(end_time: float | None = None) -> None:
+        end = time.time() if end_time is None else end_time
+        result["device_secs_phase1"] = result["tpu_secs_phase1"] = end - phase1_t0
+        result["device_secs_phase1_per_fold"] = {
+            str(f): phase1_sw.device_seconds(f"phase1_fold{f}") for f in sorted(fold_list)}
+        result["fold_baselines"] = {str(k): v for k, v in fold_baselines.items()}
+        result["excluded_folds"] = list(excluded_folds)
+
+    if overlap_mode:
+        logger.info("async pipeline: overlapping phase-1 fold training with phase-2 search "
+                    "(each fold hands over when its gate clears)")
+    else:
+        with record_function("search.phase1"):
+            for fold in range(cv_num):
+                if fold in fold_list:
+                    _phase1_fold(fold)
+        _stamp_phase1()
     if until < 2:
         result["final_policy_set"] = []
+        result["compile_cache"] = compile_cache_stats()
         result["elapsed_total"] = time.time() - t_start
         return result
 
     # ---------------- phase 2: TPE search per fold --------------------
     t0 = time.time()
     space = make_search_space(num_policy, num_op)
+    quarantined: list[dict] = []
+    # the async pipeline's accounting and the cross-thread stop channel:
+    # the overlapped trainer puts its failure here so the learner stops at
+    # its next round boundary
+    pipeline_fold_stats: list[dict] = []
+    pipeline_stop_cell: list[BaseException] = []
+    pipeline_overlap_timeline: dict = {}
 
     def _persist_trials(fold: int, fold_trials: list) -> None:
         trials_log[str(fold)] = fold_trials
@@ -512,6 +627,46 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                        fold, lo, hi - 1, type(exc).__name__, exc, worst)
         return worst
 
+    def _injected_trial_error(trial_idx: int) -> None:
+        fi = faultinject.active_plan()
+        if fi is not None:
+            fi.maybe_kill_trial(trial_idx)
+            if fi.trial_error_at(trial_idx):
+                raise RuntimeError(f"injected trial_error at trial {trial_idx}")
+
+    def _census_first(batched: bool) -> None:
+        """The graph census after the first successful evaluation: the
+        invariant is final == first."""
+        key = "tta_batched_executables_first" if batched else "tta_executables_first"
+        if key not in result:
+            result[key] = executable_census(
+                evaluator.tta_step_batch if batched else evaluator.tta_step)
+
+    def _phase2_fold_async(fold: int, path: str, tpe, key_fold, fold_trials: list) -> None:
+        """One fold's trial budget through the actor/learner pipeline; the
+        trial log is appended in trial-id order."""
+        replay_trial_log(tpe, fold_trials, trial_batch, num_search,
+                         max_inflight=pipeline_actors + pipeline_queue_depth)
+
+        def _record_quarantine(lo, hi, exc, worst):
+            logger.warning("phase2 fold %d trial(s) %d-%d: TTA evaluation FAILED (%s) - "
+                           "QUARANTINED with worst-observed reward %.4f; the search continues",
+                           fold, lo, hi - 1, _failure_text(exc), worst)
+
+        trace.begin_segment(f"p2-fold{fold}")
+        try:
+            stats = run_fold_pipeline(
+                evaluator, fold, path, tpe, key_fold, fold_trials, num_search=num_search,
+                trial_batch=trial_batch, actors=pipeline_actors,
+                queue_depth=pipeline_queue_depth, num_policy=num_policy, num_op=num_op,
+                persist=lambda: _persist_trials(fold, fold_trials),
+                record_quarantine=_record_quarantine,
+                on_first_ok=lambda: _census_first(trial_batch > 1),
+                should_stop=lambda: pipeline_stop_cell[0] if pipeline_stop_cell else None)
+        finally:
+            trace.end_segment()
+        pipeline_fold_stats.append(dict(stats, fold=fold))
+
     def _phase2_fold(fold: int) -> None:
         if fold in excluded_folds:
             logger.info("phase2: fold %d excluded by the quality gate", fold)
@@ -524,6 +679,10 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
         tpe = TPE(space, seed=seed * 1000 + fold, n_startup=min(20, max(5, num_search // 4)))
         key_fold = prng_key(seed * 77 + fold)
         fold_trials = list(trials_log.get(str(fold), []))
+        if pipeline_on:
+            # the resume replays the ask/tell interleaving through the ledger
+            _phase2_fold_async(fold, path, tpe, key_fold, fold_trials)
+            return
         for entry in fold_trials:  # resume (a third element marks a quarantined trial)
             tpe.tell(entry[0], entry[1])
 
@@ -533,13 +692,20 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
             policy_t = evaluator.policy_tensor(policy_decoder(proposal, num_policy, num_op))
             failure = None
             try:
+                _injected_trial_error(trial_idx)
                 metrics = evaluator.evaluate(fold, path, policy_t,
                                              src.fold_in(key_fold, trial_idx, dev))
                 reward = metrics["top1_valid"]
+            except (PreemptedError, DispatchHungError):
+                raise  # a shutdown or a wedged device: the exit-77 path, not a trial failure
             except (ArithmeticError, RuntimeError, ValueError, OSError) as e:
                 reward = _quarantine(tpe, fold, trial_idx, trial_idx + 1, e)
                 failure = {"quarantined": True, "error": f"{type(e).__name__}: {e}"}
+            if failure is None:
+                _census_first(False)
             tpe.tell(proposal, reward)
+            telemetry.emit("trial", f"fold{fold}", fold=fold, trial=trial_idx,
+                           reward=float(reward), quarantined=failure is not None)
             fold_trials.append((proposal, reward) if failure is None
                                else (proposal, reward, failure))
             _persist_trials(fold, fold_trials)
@@ -562,13 +728,22 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                                 for i in range(trial_batch)])
             failure = None
             try:
+                for i in range(k_eff):
+                    _injected_trial_error(t_base + i)
                 metrics_list = evaluator.evaluate_batch(fold, path, policies_t, keys)[:k_eff]
                 rewards = [m["top1_valid"] for m in metrics_list]
+            except (PreemptedError, DispatchHungError):
+                raise
             except (ArithmeticError, RuntimeError, ValueError, OSError) as e:
                 # one pass evaluates the whole round: the round is quarantined
                 rewards = [_quarantine(tpe, fold, t_base, t_base + k_eff, e)] * k_eff
                 failure = {"quarantined": True, "error": f"{type(e).__name__}: {e}"}
+            if failure is None:
+                _census_first(True)
             tpe.tell_batch(proposals, rewards)
+            for i, r in enumerate(rewards):
+                telemetry.emit("trial", f"fold{fold}", fold=fold, trial=t_base + i,
+                               reward=float(r), quarantined=failure is not None)
             fold_trials.extend((p, r) if failure is None else (p, r, failure)
                                for p, r in zip(proposals, rewards))
             _persist_trials(fold, fold_trials)
@@ -577,8 +752,22 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                         max(rewards), tpe.best[1])
 
     with record_function("search.phase2"):
-        for fold in fold_list:
-            _phase2_fold(fold)
+        if overlap_mode:
+            def _p1_overlap(fold: int) -> None:
+                try:
+                    _phase1_fold(fold)
+                except BaseException as e:
+                    # the in-flight learner stops at its next round boundary
+                    pipeline_stop_cell.append(e)
+                    raise
+
+            timeline = run_overlapped_phases(fold_list, _p1_overlap, _phase2_fold)
+            pipeline_overlap_timeline.update(timeline)
+            p1_ends = [v["end"] for v in timeline["phase1"].values()]
+            _stamp_phase1(max(p1_ends) if p1_ends else None)
+        else:
+            for fold in fold_list:
+                _phase2_fold(fold)
 
     # top-N per fold from the trial log (folds run here and folds resumed
     # from disk alike, search.py:253-259); only complete searches count
@@ -610,6 +799,61 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
         logger.warning("phase2: %d trial(s) quarantined after failed TTA evaluations - see "
                        "search_result.json['quarantined_trials']", len(quarantined))
     result["device_secs_phase2"] = result["tpu_secs_phase2"] = time.time() - t0
+    # the pipeline's accounting and dispatch-gap evidence; in overlap mode
+    # phase 2 spans the overlapped region, and the timeline holds the
+    # per-fold interleaving
+    if pipeline_on:
+        gaps = trace.summary()
+        result["pipeline"] = {
+            "mode": "on", "actors": pipeline_actors, "queue_depth": pipeline_queue_depth,
+            "max_inflight": pipeline_actors + pipeline_queue_depth,
+            "tell_reorders": sum(st["tell_reorders"] for st in pipeline_fold_stats),
+            "rounds": sum(st["rounds"] for st in pipeline_fold_stats),
+            "per_fold": pipeline_fold_stats,
+            "device_busy_frac": (gaps or {}).get("device_busy_frac"),
+            "dispatch_gaps": gaps,
+            "overlap": pipeline_overlap_timeline or None,
+        }
+    # the graph census: one CUDA graph per policy shape the step was fed on
+    # the card (the evaluator runs one evaluation at a time, whatever the
+    # number of actors), none on the CPU; a fully resumed run built no step
+    # and has nothing to count
+    per_shape = 1 if dev.type == "cuda" else 0
+    result["tta_executables"] = (executable_census(evaluator.tta_step)
+                                 if evaluator._built else None)
+    result["tta_executables_expected"] = len(evaluator.policy_shapes) * per_shape
+    census_failures = []
+    if (result["tta_executables"] is not None
+            and result["tta_executables"] > result["tta_executables_expected"]):
+        census_failures.append(
+            f"{result['tta_executables']} TTA graphs for {result['tta_executables_expected']} "
+            f"expected (policy shapes {sorted(evaluator.policy_shapes)})")
+    if trial_batch > 1:
+        result["tta_batched_executables"] = (executable_census(evaluator.tta_step_batch)
+                                             if evaluator._built else None)
+        result["tta_batched_executables_expected"] = (len(evaluator.batch_policy_shapes)
+                                                      * per_shape)
+        if (result["tta_batched_executables"] is not None
+                and result["tta_batched_executables"]
+                > result["tta_batched_executables_expected"]):
+            census_failures.append(
+                f"{result['tta_batched_executables']} batched-TTA graphs for "
+                f"{result['tta_batched_executables_expected']} expected (candidate axes "
+                f"{sorted(evaluator.batch_policy_shapes)})")
+    if census_failures:
+        msg = ("phase2: " + "; ".join(census_failures)
+               + " - graphs are being captured inside the trial loop")
+        # the partial result with a failure record, so the spent trials
+        # leave a search_result.json to diagnose and resume from
+        result["failure"] = {"stage": "tta_executable_census", "error": msg}
+        result["resilience"]["watchdog"] = wd.stats()
+        result["compile_cache"] = compile_cache_stats()
+        result["final_policy_set_pre_audit_size"] = len(final_policy_set)
+        result["elapsed_total"] = time.time() - t_start
+        write_json_atomic(os.path.join(save_dir, "search_result.json"),
+                          {k: v for k, v in result.items()
+                           if k not in ("final_policy_set", "random_policy_set")})
+        raise RuntimeError(msg)
 
     def _audited(policy_set, cache_name: str, secs_key: str):
         """One audit pipeline for both arms (the same folds, floors and
@@ -658,6 +902,10 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
 
     result["final_policy_set"] = final_policy_set
     result["num_sub_policies"] = len(final_policy_set)
+    # the seams' accounting, after all device work
+    result["resilience"]["watchdog"] = wd.stats()
+    result["watchdog_fires"] = wd.fires
+    result["compile_cache"] = compile_cache_stats()
     write_json_atomic(os.path.join(save_dir, "final_policy.json"), final_policy_set)
     logger.info("search done: %d sub-policies; phase1 %.1f device-s, phase2 %.1f device-s on "
                 "%s", len(final_policy_set), result["device_secs_phase1"],
@@ -738,7 +986,6 @@ def audit_sub_policies(evaluator: _FoldEval, policy_set: list, fold_paths: list[
                             for i in idx_to_eval])  # [n, num_op, 3]
         ratio_sums = np.zeros(n)
         for fold in audit_folds:
-            evaluator.load_fold(fold_paths[fold])
             sums = np.zeros(n)
             cnt = 0.0
             for start in range(0, n, chunk):
@@ -747,16 +994,12 @@ def audit_sub_policies(evaluator: _FoldEval, policy_set: list, fold_paths: list[
                 if real < chunk:
                     block = np.concatenate(
                         [block, np.zeros((chunk - real,) + block.shape[1:], np.float32)])
-                bsum = np.zeros(chunk)
-                bcnt = 0.0
-                block_dev = torch.as_tensor(block, device=dev)
-                for bi, batch in enumerate(evaluator.batches(fold)):
-                    k = prng_key(num_draws_key)
-                    for part in (fold, start, bi):
-                        k = src.fold_in(k, part, dev)
-                    out = evaluator.audit_eval(batch, block_dev, k)
-                    bsum += out["correct_mean_sum"].cpu().numpy()
-                    bcnt += float(out["cnt"])
+                # batch bi's key is fold_in(PRNGKey(num_draws_key), fold, start, bi)
+                k = prng_key(num_draws_key)
+                for part in (fold, start):
+                    k = src.fold_in(k, part, dev)
+                bsum, bcnt = evaluator.audit_fold(fold, fold_paths[fold],
+                                                  torch.as_tensor(block, device=dev), k)
                 sums[start:start + real] = bsum[:real]
                 cnt = bcnt
             ratio_sums += (sums / max(cnt, 1e-6)) / max(fold_baselines[fold], 1e-6)

@@ -21,8 +21,14 @@ Deterministic given the seed: given the same rewards its trial log is
 byte-equal to the JAX package's.  ``suggest``/``tell`` serve the sequential
 loop, ``ask(n)``/``tell_batch`` synchronous batches of n concurrent
 proposals (constant-liar posterior; ``ask(1)`` is bit-for-bit
-``suggest``).  The JAX module's proposal ledger (``ask_tagged``, for the
-async pipeline) is not copied (ROADMAP Queue 1 item 12).
+``suggest``).
+
+The async pipeline (``search/pipeline.py``) uses the PROPOSAL LEDGER:
+:meth:`ask_tagged` gives each proposal a trial id and keeps it pending until
+:meth:`tell` gets that id.  Pending proposals carry the constant-liar
+placeholder, and the posterior is always materialized in trial-id order,
+so tells that arrive out of order give the state in-order tells give, and a
+resume replays the exact ask/tell interleaving from the trial log.
 """
 
 from __future__ import annotations
@@ -63,6 +69,17 @@ class TPE:
 
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
+        # proposal ledger (async pipeline): trial_id -> proposal for
+        # asked-but-untold trials, trial_id -> (proposal, reward) once
+        # told.  Ledger state is disjoint from `observations` — the
+        # sequential/batched paths never touch it, so their streams
+        # stay bit-for-bit.
+        self._pending: dict[int, dict] = {}
+        self._told: dict[int, tuple[dict, float]] = {}
+        self._next_trial_id = 0
+        #: tells that arrived while an earlier-asked trial was still
+        #: pending (the out-of-order count the driver stamps)
+        self.tell_reorders = 0
 
     # ------------------------------------------------------------------
     def _random_sample(self) -> dict:
@@ -178,9 +195,125 @@ class TPE:
             del self.observations[n_real:]
         return proposals
 
+    # ---------------------------------------------- proposal ledger
+    def _lie(self) -> float:
+        """The constant-liar placeholder for pending ledger trials:
+        the worst reward told so far (0.0 before any tell) — the same
+        pessimistic value :meth:`ask` uses within a batch."""
+        return (min(r for _, r in self._told.values())
+                if self._told else 0.0)
+
+    def _materialized(self, lie: float) -> list:
+        """The ledger's posterior view in CANONICAL trial-id order:
+        told trials carry their true reward, pending ones the liar
+        placeholder.  A pure function of the (id -> reward) SET, so
+        the posterior is invariant to tell arrival order."""
+        out = []
+        for t in range(self._next_trial_id):
+            if t in self._told:
+                p, r = self._told[t]
+                out.append((p, r))
+            else:
+                out.append((self._pending[t], lie))
+        return out
+
+    def ask_tagged(self, n: int = 1) -> list[tuple[int, dict]]:
+        """Propose `n` candidates tagged with monotonically increasing
+        trial ids, registering each as PENDING in the ledger until its
+        :meth:`tell` arrives (in any order).
+
+        The posterior for each proposal is the canonical-order
+        materialization above: real rewards for told trials, the
+        constant-liar placeholder for every pending one (in-flight
+        rounds of the async pipeline).  With NO pending trials this
+        consumes exactly the RNG stream of :meth:`ask` — the property
+        that makes a one-actor in-order pipeline reproduce the serial
+        trial log bit-for-bit, and that lets a resume replay the exact
+        ask/tell interleaving by re-asking the logged rounds."""
+        if n < 1:
+            raise ValueError(f"ask_tagged needs n >= 1, got {n}")
+        lie = self._lie()
+        saved = self.observations
+        work = self._materialized(lie)
+        self.observations = work
+        tagged: list[tuple[int, dict]] = []
+        try:
+            for _ in range(n):
+                p = self.suggest()
+                tid = self._next_trial_id
+                self._next_trial_id += 1
+                self._pending[tid] = dict(p)
+                tagged.append((tid, p))
+                # within-batch constant liar, exactly like ask()
+                work.append((dict(p), lie))
+        finally:
+            self.observations = saved
+        return tagged
+
+    def _tell_id(self, trial_id: int, reward: float):
+        if trial_id not in self._pending:
+            state = "already told" if trial_id in self._told else "never asked"
+            raise KeyError(f"ledger tell for trial {trial_id}: {state}")
+        if any(t < trial_id for t in self._pending):
+            self.tell_reorders += 1
+        self._told[trial_id] = (self._pending.pop(trial_id), float(reward))
+
+    @property
+    def num_told(self) -> int:
+        return len(self._told)
+
+    @property
+    def pending_ids(self) -> list[int]:
+        return sorted(self._pending)
+
+    def pending_proposal(self, trial_id: int) -> dict:
+        return dict(self._pending[trial_id])
+
+    def pending_rounds(self, trial_batch: int) -> list[list[int]]:
+        """Group the pending trial ids back into their original ask
+        ROUNDS (round ``r`` covers ids ``[r*K, (r+1)*K)``), in id
+        order — the unit the async/fleet schedulers re-dispatch after
+        a resume replay (:func:`~fast_autoaugment_tpu_torch.search.pipeline.
+        replay_trial_log` reconstructed them as ledger-pending)."""
+        K = max(1, int(trial_batch))
+        rounds: list[list[int]] = []
+        for tid in self.pending_ids:
+            if rounds and tid // K == rounds[-1][0] // K:
+                rounds[-1].append(tid)
+            else:
+                rounds.append([tid])
+        return rounds
+
+    def round_payload(self, ids: Sequence[int]) -> list[dict]:
+        """JSON-safe proposal dicts for a round of PENDING ids — the
+        ledger's wire form for the cross-host round transport.  Python's
+        ``json`` round-trips floats exactly (repr-based), so a decoded
+        payload reproduces ``policy_decoder`` output bit for bit."""
+        return [self.pending_proposal(int(t)) for t in ids]
+
+    def worst_told(self) -> float:
+        """Worst real reward in the ledger (the quarantine placeholder
+        value); 0.0 before any tell — mirrors the driver's serial
+        ``_quarantine`` semantics."""
+        return self._lie()
+
+    @property
+    def best_told(self):
+        """Ledger counterpart of :attr:`best`: the (proposal, reward)
+        with the highest TOLD reward, in canonical id order."""
+        if not self._told:
+            return None
+        tid = max(sorted(self._told), key=lambda t: self._told[t][1])
+        return self._told[tid]
+
     # ------------------------------------------------------------------
-    def tell(self, x: dict, reward: float):
-        """Record one result for the proposal dict `x`."""
+    def tell(self, x, reward: float):
+        """Record one result.  ``x`` is either the proposal dict
+        (sequential/batched path — appends to ``observations``) or an
+        int trial id from :meth:`ask_tagged` (ledger path — resolves
+        the pending proposal, in any completion order)."""
+        if isinstance(x, (int, np.integer)):
+            return self._tell_id(int(x), float(reward))
         self.observations.append((dict(x), float(reward)))
 
     def tell_batch(self, xs: Sequence[dict], rewards: Sequence[float]):

@@ -35,10 +35,20 @@ The weights live in the module: the step takes the model when it is made,
 so ``eval_tta(step, batches, policy, key)`` drops the JAX ``params`` and
 ``batch_stats`` arguments (load a fold's weights with
 ``model.load_state_dict``).  The step runs on the device of its inputs,
-under ``torch.no_grad``, and puts the model in eval mode.  The JAX
-module's trace counter and compile seam (``seam_jit``), its dispatch
-enqueue guard and its telemetry spans are not ported (ROADMAP Queue 1
-item 12); the ``trace(t0, t1)`` callback is.  Each stage of a step runs in
+under ``torch.no_grad``, and puts the model in eval mode.
+
+Over a fold (:func:`eval_tta`, :func:`eval_tta_batched`,
+:func:`eval_audit`) the step on the card is the counterpart of the JAX
+package's one compiled program per argument shape: one CUDA graph per
+policy shape and batch shape, captured at its first use (a warm-up step,
+then capture under deterministic cuDNN) and replayed once per batch (a
+fold padded to one batch shape needs one graph), with
+the batch, policy and key staged into static buffers and the batch index a
+device counter (``_GraphedSums``).  :func:`~fast_autoaugment_tpu_torch.
+search.census.executable_census` counts the graphs.  Every batch is one
+dispatch through the dispatch guard and the telemetry seam (labels ``tta``,
+``tta_batched``, ``audit``); the first call of each label goes through the
+compile seam (``core/compilecache.py``).  Each stage of a step runs in
 a ``torch.profiler.record_function`` range (``tta.sampler``,
 ``tta.augment``, ``tta.model``, ``tta.reductions``), so a profiler trace
 splits the device time by stage; outside a profiler a range costs about a
@@ -47,6 +57,7 @@ microsecond.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Callable
 
@@ -54,9 +65,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from fast_autoaugment_tpu_torch.core.metrics import Accumulator
+from fast_autoaugment_tpu_torch.core import compilecache, telemetry
 from fast_autoaugment_tpu_torch.core.telemetry import mono
-from fast_autoaugment_tpu_torch.ops import rng
+from fast_autoaugment_tpu_torch.core.watchdog import capture_guard, dispatch_enqueue_guard
+from fast_autoaugment_tpu_torch.ops import _kernels, rng
 from fast_autoaugment_tpu_torch.ops.augment import (
     sample_crop,
     sample_exact,
@@ -68,7 +80,7 @@ from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import ImageNetDraws
 from fast_autoaugment_tpu_torch.ops.shake import ModelNoise
 
 __all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "prng_key", "cifar_augment_fn",
-           "make_tta_step", "make_audit_step", "eval_tta", "eval_tta_batched"]
+           "make_tta_step", "make_audit_step", "eval_tta", "eval_tta_batched", "eval_audit"]
 
 AUG_DISPATCH_MODES = ("exact", "grouped")
 
@@ -218,21 +230,206 @@ def _score(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> di
     }
 
 
-class _Step:
-    """A TTA or audit step bound to its model and draw source; ``fold_in``
-    derives per-batch keys the way the source's keys do."""
+#: how a step's fold sums add its batches' fields, as the JAX package's
+#: loops do: float32 from zero (``eval_tta``'s ``Accumulator``), float32
+#: from the first batch's fields (``eval_tta_batched``'s host sums), or
+#: float64 from zero (the audit's host sums)
+ACCUMULATE = ("float32", "float32_from_first", "float64")
 
-    def __init__(self, fn: Callable, draw_source):
+
+class _Step:
+    """A TTA or audit step bound to its model and draw source.
+
+    Called directly it runs one batch eagerly.  :meth:`sums` runs it over a
+    fold's batches and returns the fold's sums on the device: on a CUDA
+    device as one CUDA-graph replay per batch (:class:`_GraphedSums`), on
+    the CPU as the same step run eagerly (:func:`_eager_sums`).  `label`
+    names its dispatches in the telemetry seam (``tta``, ``tta_batched``,
+    ``audit``); `accumulate` is one of :data:`ACCUMULATE`."""
+
+    def __init__(self, fn: Callable, draw_source, label: str, accumulate: str):
+        if accumulate not in ACCUMULATE:
+            raise ValueError(f"accumulate must be one of {ACCUMULATE}, got {accumulate!r}")
         self._fn = fn
         self.draw_source = draw_source
+        self.label = label
+        self.accumulate = accumulate
+        self._graphs: dict[tuple, _GraphedSums] = {}
+        self._lock = threading.Lock()
 
     def __call__(self, images, labels, mask, policy, key) -> dict:
         with torch.no_grad():
             return self._fn(images, labels, mask, policy, key)
 
-    def fold_in(self, key, i: int, device):
+    def fold_in(self, key, i, device):
         with record_function("tta.sampler"):
             return self.draw_source.fold_in(key, i, device)
+
+    def num_graphs(self) -> int:
+        """The CUDA graphs this step holds (``search/census.py``)."""
+        with self._lock:
+            return sum(len(g.graphs) for g in self._graphs.values())
+
+    def _accumulate(self, sums: dict | None, out: dict, i) -> dict:
+        """Add batch `i`'s fields to `sums` in place (a new zero buffer
+        when None), in the order and precision that `accumulate` names."""
+        with torch.no_grad():
+            if sums is None:
+                dtype = torch.float64 if self.accumulate == "float64" else torch.float32
+                sums = {f: torch.zeros(v.shape, dtype=dtype, device=v.device)
+                        for f, v in out.items()}
+            for f, v in out.items():
+                if self.accumulate == "float32_from_first":
+                    sums[f].copy_(torch.where(i == 0, v, sums[f] + v) if torch.is_tensor(i)
+                                  else (v if i == 0 else sums[f] + v))
+                else:
+                    sums[f].add_(v.to(sums[f].dtype))
+        return sums
+
+    def sums(self, batches: list, policy, key, trace=None) -> dict:
+        """The fold's sums of every field over `batches`, batch i under key
+        ``fold_in(key, i)`` (a ``[K]`` stack of keys folds each).  Each
+        batch is one dispatch through the telemetry seam, and `trace(t0,
+        t1)` (optional) receives each batch's window, which synchronizes
+        after each batch (values never change).  On the card, graph capture
+        or replay failures raise; the step's lock covers a fold's staging,
+        replays and readback, so callers on other threads wait for it."""
+        if not batches:
+            return None
+        dev = batches[0]["x"].device
+        if dev.type != "cuda":
+            return _eager_sums(self, batches, policy, key, trace)
+        policy = torch.as_tensor(policy, dtype=torch.float32, device=dev)
+        key = self.draw_source.key(key, dev)
+        with self._lock:
+            graphed = self._graphs.setdefault((tuple(policy.shape), tuple(key.shape)),
+                                              _GraphedSums())
+            return graphed.run(self, batches, policy, key, trace)
+
+
+def _eager_sums(step: _Step, batches: list, policy, key, trace=None) -> dict:
+    """:meth:`_Step.sums` run eagerly: the step's call on each batch, its
+    fields added in the step's order and precision.  It is the path on the
+    CPU, and on the card the reference that the graphs are held against."""
+    dev = batches[0]["x"].device
+    out_sums = None
+    for i, batch in enumerate(batches):
+        t0 = mono()
+        with dispatch_enqueue_guard():
+            out = step(batch["x"], batch["y"], batch["m"], policy, step.fold_in(key, i, dev))
+            out_sums = step._accumulate(out_sums, out, i)
+        if trace is not None and dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        t1 = mono()
+        if trace is not None:
+            trace(t0, t1)
+        telemetry.record_dispatch(step.label, t0, t1, blocking=trace is not None)
+    return out_sums
+
+
+def _batch_shape(batch) -> tuple:
+    return tuple((f, tuple(batch[f].shape), batch[f].dtype) for f in ("x", "y", "m"))
+
+
+class _GraphedSums:
+    """A step over folds of one policy shape on the card: one CUDA graph
+    per batch shape, each captured at its first use and replayed once a
+    batch.
+
+    The policy, the key, a device counter (the batch index) and the sums
+    are static buffers shared by the graphs; each graph stages its batch
+    into buffers of its own.  The key's ``fold_in`` reads the counter at
+    replay time, so every batch draws the eager path's bits, and each
+    replay advances it; the sums accumulate on the device in the eager
+    path's order and precision.  A fold is one staging of the policy and
+    key, then per batch a copy of the batch and one replay; the sums are
+    read once.  A fold padded to one batch shape needs one graph; a ragged
+    last batch adds a second, captured in the middle of the fold.
+
+    A capture runs a warm-up step eagerly on a side stream (it reads the
+    static buffers and writes none of them), then captures on it under
+    deterministic cuDNN, whatever the caller's flags, in ``thread_local``
+    mode, so other threads may launch, copy and synchronize their streams
+    while it captures (the overlapped phases of the search pipeline);
+    captures take ``core/watchdog.py capture_guard``, one at a time in the
+    process.  The launches the capture records count once per replay
+    (``ops/_kernels.py count_replays``)."""
+
+    def __init__(self):
+        self.graphs: dict[tuple, tuple] = {}  # batch shape -> (graph, buffers, tally)
+        self.sums = None
+
+    def _capture(self, step, batch, policy, key) -> tuple:
+        dev = policy.device
+        first = self.sums is None
+        if first:
+            self.policy, self.key = torch.empty_like(policy), torch.empty_like(key)
+            self.counter = torch.zeros((), dtype=torch.int64, device=dev)
+        bufs = {f: torch.empty_like(batch[f]) for f in ("x", "y", "m")}
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        cudnn = torch.backends.cudnn
+        flags = cudnn.benchmark, cudnn.deterministic
+        cudnn.benchmark, cudnn.deterministic = False, True
+        try:
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                if first:
+                    self.policy.copy_(policy)
+                    self.key.copy_(key)
+                for f in bufs:
+                    bufs[f].copy_(batch[f])
+                # the warm-up: cuDNN's plans, the kernels' one-time set-up,
+                # and (at the first capture) the sums' shapes
+                out = step(bufs["x"], bufs["y"], bufs["m"], self.policy,
+                           step.fold_in(self.key, self.counter, dev))
+                if first:
+                    self.sums = step._accumulate(None, out, 0)
+            side.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with _kernels.counting_capture() as tally, \
+                    torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                key_i = step.fold_in(self.key, self.counter, dev)
+                out = step(bufs["x"], bufs["y"], bufs["m"], self.policy, key_i)
+                step._accumulate(self.sums, out, self.counter)
+                self.counter.add_(1)
+        finally:
+            cudnn.benchmark, cudnn.deterministic = flags
+        main.wait_stream(side)
+        return graph, bufs, tally
+
+    def _graph(self, step, batch, policy, key) -> tuple:
+        shape = _batch_shape(batch)
+        if shape not in self.graphs:
+            with compilecache.timed_first(step.label), dispatch_enqueue_guard(), \
+                    capture_guard():
+                self.graphs[shape] = self._capture(step, batch, policy, key)
+        return self.graphs[shape]
+
+    def run(self, step, batches, policy, key, trace) -> dict:
+        self._graph(step, batches[0], policy, key)
+        with dispatch_enqueue_guard():
+            self.policy.copy_(policy, non_blocking=True)
+            self.key.copy_(key, non_blocking=True)
+            self.counter.zero_()
+            for v in self.sums.values():
+                v.zero_()
+        stream = torch.cuda.current_stream(policy.device)
+        for batch in batches:
+            graph, bufs, tally = self._graph(step, batch, policy, key)
+            t0 = mono()
+            with dispatch_enqueue_guard():
+                for f in bufs:
+                    bufs[f].copy_(batch[f], non_blocking=True)
+                graph.replay()
+            _kernels.count_replays(tally)
+            if trace is not None:
+                stream.synchronize()
+            t1 = mono()
+            if trace is not None:
+                trace(t0, t1)
+            telemetry.record_dispatch(step.label, t0, t1, blocking=trace is not None)
+        return {f: v.clone() for f, v in self.sums.items()}
 
 
 def _lanes(images: torch.Tensor, copies: int) -> torch.Tensor:
@@ -260,7 +457,10 @@ def make_tta_step(model: torch.nn.Module, *, num_policy: int = 5, cutout_length:
     `augment_fn(images [L, H, W, 3] float32, policy, draws: LaneDraws) ->
     [L, 3, H, W]` replaces the CIFAR train stack.  ``aug_dispatch`` picks
     how a multi-sub policy is sampled (``exact``: per image; ``grouped``:
-    per chunk of `aug_groups`)."""
+    per chunk of `aug_groups`).  Over a fold (:func:`eval_tta`) the step on
+    the card replays one CUDA graph per batch, so an `augment_fn` that reads
+    values on the host (the kernels' plain versions) runs there only eagerly,
+    through ``_eager_sums``."""
     check_aug_dispatch(aug_dispatch)
     src = draw_source or PhiloxDraws()
     augment_fn = augment_fn or cifar_augment_fn(cutout_length)
@@ -294,7 +494,9 @@ def make_tta_step(model: torch.nn.Module, *, num_policy: int = 5, cutout_length:
             out = {f: v[0] for f, v in out.items()}
         return out
 
-    return _Step(run, src)
+    if num_candidates is None:
+        return _Step(run, src, "tta", "float32")
+    return _Step(run, src, "tta_batched", "float32_from_first")
 
 
 def make_audit_step(model: torch.nn.Module, *, num_policy: int = 5, cutout_length: int = 16,
@@ -305,7 +507,8 @@ def make_audit_step(model: torch.nn.Module, *, num_policy: int = 5, cutout_lengt
     mean-over-draws top-1 of every sub-policy alone in one pass over
     ``S * P * B`` lanes.  Draw ``(s, p)`` takes key ``split(key, S * P)[s * P
     + p]`` and applies sub-policy s alone; a single-sub policy is sampled
-    the same way under either dispatch."""
+    the same way under either dispatch.  Over a fold (:func:`eval_audit`)
+    it replays one CUDA graph per batch on the card, as the TTA step does."""
     check_aug_dispatch(aug_dispatch)
     src = draw_source or PhiloxDraws()
     augment_fn = augment_fn or cifar_augment_fn(cutout_length)
@@ -332,12 +535,7 @@ def make_audit_step(model: torch.nn.Module, *, num_policy: int = 5, cutout_lengt
             return {"correct_mean_sum": correct_mean.sum(dim=1),
                     "cnt": mask.sum().to(torch.float32)}
 
-    return _Step(run, src)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    return _Step(run, src, "audit", "float64")
 
 
 def eval_tta(tta_step, batches, policy, key, trace=None) -> dict:
@@ -345,28 +543,21 @@ def eval_tta(tta_step, batches, policy, key, trace=None) -> dict:
     "top1_valid", "top1_mean", "cnt"}`` normalized by the sample count
     (reference ``search.py:117-133``).
 
-    `batches` yields ``{"x", "y", "m"}`` dicts on one device
+    `batches` is a list of ``{"x", "y", "m"}`` dicts on one device
     (:func:`~fast_autoaugment_tpu_torch.data.pipeline.device_batches`
-    uploads a fold once for every trial).  Batch i's key is
-    ``fold_in(key, i)``.  The sums stay on the device, in float32, until
-    the end.  `trace(t0, t1)` (optional) receives each step's start and end
-    monotonic times; tracing synchronizes after each step, which never
-    changes values."""
-    acc = Accumulator()
-    for i, batch in enumerate(batches):
-        dev = batch["x"].device
-        t0 = mono()
-        out = tta_step(batch["x"], batch["y"], batch["m"], policy,
-                       tta_step.fold_in(key, i, dev))
-        if trace is not None:
-            _sync(dev)
-            trace(t0, mono())
-        acc.add_dict(out)
-    cnt = acc["cnt"]
+    uploads a fold once for every trial).  Batch i's key is ``fold_in(key,
+    i)``.  The sums stay on the device, in float32, until the end; on the
+    card each batch is one CUDA-graph replay (``_Step.sums``).  `trace(t0,
+    t1)` (optional) receives each batch's window."""
+    sums = tta_step.sums(batches, policy, key, trace)
+    if sums is None:
+        return {"minus_loss": 0.0, "top1_valid": 0.0, "top1_mean": 0.0, "cnt": 0.0}
+    vals = {f: float(v) for f, v in sums.items()}
+    cnt = vals["cnt"]
     return {
-        "minus_loss": acc["minus_loss_sum"] / cnt if cnt else 0.0,
-        "top1_valid": acc["correct_sum"] / cnt if cnt else 0.0,
-        "top1_mean": acc["correct_mean_sum"] / cnt if cnt else 0.0,
+        "minus_loss": vals["minus_loss_sum"] / cnt if cnt else 0.0,
+        "top1_valid": vals["correct_sum"] / cnt if cnt else 0.0,
+        "top1_mean": vals["correct_mean_sum"] / cnt if cnt else 0.0,
         "cnt": cnt,
     }
 
@@ -376,23 +567,17 @@ def eval_tta_batched(tta_step_k, batches, policies, keys, trace=None) -> list[di
     (``[K, num_sub, num_op, 3]``) with a ``[K]`` stack of trial keys through
     a ``make_tta_step(num_candidates=K)`` step, one pass per batch.
     Candidate k's batch key is ``fold_in(keys[k], i)``, as a sequential
-    :func:`eval_tta` with ``key=keys[k]`` derives it.  Each batch's fields
-    come back to the host and are summed there in float32, as the JAX
-    package does; `trace(t0, t1)` receives each step's window."""
-    sums: dict[str, np.ndarray] | None = None
-    for i, batch in enumerate(batches):
-        dev = batch["x"].device
-        t0 = mono()
-        out = tta_step_k(batch["x"], batch["y"], batch["m"], policies,
-                         tta_step_k.fold_in(keys, i, dev))
-        out = {f: v.cpu().numpy() for f, v in out.items()}
-        if trace is not None:
-            trace(t0, mono())
-        sums = out if sums is None else {f: sums[f] + out[f] for f in sums}
+    :func:`eval_tta` with ``key=keys[k]`` derives it.  The fields are summed
+    in float32 from the first batch's, as the JAX package sums them on the
+    host, but on the device, and read once; `trace(t0, t1)` receives each
+    batch's window."""
+    sums = tta_step_k.sums(batches, policies, keys, trace)
     if sums is None:
         k_dim = int(np.shape(policies)[0])
         sums = {f: np.zeros(k_dim, np.float32) for f in
                 ("minus_loss_sum", "correct_sum", "correct_mean_sum", "cnt")}
+    else:
+        sums = {f: v.cpu().numpy() for f, v in sums.items()}
     results = []
     for k in range(int(sums["cnt"].shape[0])):
         cnt = float(sums["cnt"][k])
@@ -403,3 +588,13 @@ def eval_tta_batched(tta_step_k, batches, policies, keys, trace=None) -> list[di
             "cnt": cnt,
         })
     return results
+
+
+def eval_audit(audit_step, batches, subs, key) -> tuple[np.ndarray, float]:
+    """The audit step over a fold's batches, batch i under ``fold_in(key,
+    i)``: the float64 sums of ``correct_mean_sum`` (``[S]``) and of
+    ``cnt``, as the JAX driver adds them on the host."""
+    sums = audit_step.sums(batches, subs, key)
+    if sums is None:
+        return np.zeros(int(np.shape(subs)[0])), 0.0
+    return sums["correct_mean_sum"].cpu().numpy(), float(sums["cnt"])

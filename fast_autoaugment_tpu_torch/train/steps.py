@@ -57,12 +57,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from fast_autoaugment_tpu_torch.core import compilecache
 from fast_autoaugment_tpu_torch.core.metrics import (
     mixup_batch,
     mixup_cross_entropy,
     smooth_cross_entropy,
     top_k_correct,
 )
+from fast_autoaugment_tpu_torch.core.watchdog import capture_guard
 from fast_autoaugment_tpu_torch.models.layers import at_least_float32
 from fast_autoaugment_tpu_torch.ops import _kernels
 from fast_autoaugment_tpu_torch.ops.optim import (
@@ -310,7 +312,8 @@ class _GraphedDispatch:
             self.scalars = torch.zeros((self.capacity, 4), dtype=torch.float64, device=dev)
             self.row = torch.zeros(1, dtype=torch.int64, device=dev)
             self._stage(idx, scalars)
-            self._capture(state, *reads)
+            with compilecache.timed_first("train_dispatch"), capture_guard():
+                self._capture(state, *reads)
             self.refs = self._refs(state, reads)
         elif self._refs(state, reads) != self.refs:
             raise ValueError("a graphed dispatch was called with other tensors than it "
@@ -353,7 +356,10 @@ class _GraphedDispatch:
             del saved
             side.wait_stream(main)
             graph = torch.cuda.CUDAGraph()
-            with _kernels.counting_capture() as tally, torch.cuda.graph(graph, stream=side):
+            # thread_local: other threads (the search pipeline's actors) may
+            # launch and synchronize while this thread captures
+            with _kernels.counting_capture() as tally, \
+                    torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 self._step(state, *reads)
         finally:
             cudnn.benchmark, cudnn.deterministic = flags

@@ -52,11 +52,30 @@ epoch-boundary link, ``:466-497``); a run whose link is at the last epoch
 turns into an evaluation (``only_eval``).  The ``imported_from`` records
 of the reference importer are refused by name.
 
-Arguments whose machinery is not ported raise and name the ROADMAP item
-that ports it: the watchdog, the compile cache and divergence retries
-(item 12).  Preemption signals are item 12's too.  The entry point runs on
-``cuda`` unless the caller passes ``device="cpu"`` (the plain versions of
-the kernels; for tests).
+The runtime seams, as in the JAX trainer (``:158-215``, ``:618-877``):
+
+- every train dispatch, host-fed step and eval replay goes through
+  :func:`_monitored_dispatch`: the dispatch guard of the search pipeline,
+  the telemetry span seam, and the watchdog when ``watchdog`` is ``auto``
+  or seconds (``core/watchdog.py``; a fired deadline raises
+  ``DispatchHungError``); the ``hang``/``slow`` fault verbs are consulted
+  there;
+- preemption: SIGTERM/SIGUSR1 set a flag (``core/resilience.py``) that the
+  loop reads at every dispatch boundary of the cache path (a mid-epoch
+  ``in_epoch`` link with ``preempted: true``) and at every epoch boundary
+  (an epoch link with ``preempted: true``), then raises
+  ``PreemptedError``; the resume is bitwise the uninterrupted run;
+- ``divergence_retries`` R: a non-finite epoch loss rolls back to the
+  newest intact epoch-boundary link and replays with retry-folded
+  randomness (the step key ``fold_in(key, 1_000_003 * r)``, the shuffle
+  seed ``seed + 1_000_003 * r``) up to R times; with r = 0 every draw is
+  the run's own; the result records the retries taken
+  (``divergence_retries_used``);
+- ``compile_cache`` points the kernels' build at a directory
+  (``core/compilecache.py``).
+
+The entry point runs on ``cuda`` unless the caller passes ``device="cpu"``
+(the plain versions of the kernels; for tests).
 """
 
 from __future__ import annotations
@@ -68,13 +87,22 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from fast_autoaugment_tpu_torch.core import telemetry
 from fast_autoaugment_tpu_torch.core.checkpoint import (
     load_checkpoint_chain,
     read_metadata,
     save_checkpoint,
 )
+from fast_autoaugment_tpu_torch.core.compilecache import configure_compile_cache
 from fast_autoaugment_tpu_torch.core.device import resolve_device
 from fast_autoaugment_tpu_torch.core.metrics import Accumulator
+from fast_autoaugment_tpu_torch.core.resilience import (
+    PREEMPTED_EXIT_CODE,
+    PreemptedError,
+    install_signal_handlers,
+    preemption_requested,
+)
+from fast_autoaugment_tpu_torch.core.watchdog import dispatch_enqueue_guard, resolve_watchdog
 from fast_autoaugment_tpu_torch.data.datasets import cv_split, load_dataset
 from fast_autoaugment_tpu_torch.data.pipeline import (
     BatchIterator,
@@ -88,7 +116,7 @@ from fast_autoaugment_tpu_torch.ops.optim import build_optimizer
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import imagenet_eval_batch
 from fast_autoaugment_tpu_torch.ops.schedules import build_schedule
 from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
-from fast_autoaugment_tpu_torch.search.tta import prng_key
+from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws, prng_key
 from fast_autoaugment_tpu_torch.train.steps import (
     METRIC_KEYS,
     create_train_state,
@@ -99,6 +127,7 @@ from fast_autoaugment_tpu_torch.train.steps import (
     make_train_step_body,
     swapped_weights,
 )
+from fast_autoaugment_tpu_torch.utils import faultinject
 from fast_autoaugment_tpu_torch.utils.interop import load_flax_train_state, train_state_to_flax
 from fast_autoaugment_tpu_torch.utils.logging import get_logger, make_writers
 
@@ -150,39 +179,88 @@ def _stacked_eval_splits(it: BatchIterator, batch: int, dev: torch.device) -> li
             for g in groups.values()]
 
 
-def _run_eval(eval_step, groups: list) -> dict:
-    """One device-summed pass per shape group; the groups' sums chain on the
-    device in float32 and are read once."""
+def _monitored_dispatch(wd, label: str, fi, step: int, fn, *args):
+    """One dispatch through the watchdog and the telemetry span seam (JAX
+    ``train/trainer.py:180-215``).  With the watchdog off and no injected
+    ``hang``/``slow`` fault it is the direct call under the dispatch guard,
+    with no wait (the span times the enqueue); otherwise it runs
+    deadline-guarded and waits for the device (``core/watchdog.py``)."""
+    inject = fi.dispatch_delay(step) if fi is not None else None
+    if inject is None and not wd.enabled:
+        t0 = telemetry.mono()
+        with dispatch_enqueue_guard():
+            out = fn(*args)
+        telemetry.record_dispatch(label, t0, telemetry.mono(), step=step, blocking=False)
+        return out
+    delay = 0.0
+    if inject is not None:
+        kind, val = inject
+        # slow = a straggler at F x the label's EMA (F seconds before any
+        # observation); hang = forever
+        delay = val if kind == "hang" else val * (wd.ema(label) or 1.0)
+    t0 = telemetry.mono()
+    out = wd.run(label, fn, *args, inject_delay=delay)
+    telemetry.record_dispatch(label, t0, telemetry.mono(), step=step, blocking=True)
+    return out
+
+
+def _run_eval(eval_step, groups: list, wd, step: int) -> dict:
+    """One device-summed pass per shape group, each a watched dispatch
+    (label ``replay_eval``); the groups' sums chain on the device in float32
+    and are read once."""
     acc = Accumulator()
     for g in groups:
-        acc.add_dict(eval_step(g["x"], g["y"], g["m"]))
+        acc.add_dict(_monitored_dispatch(wd, "replay_eval", None, step, eval_step,
+                                         g["x"], g["y"], g["m"]))
     return acc.normalize()
+
+
+def _save_in_epoch(save_path, state, optimizer, sums, *, epoch, pos, steps_per_epoch,
+                   retries, ckpt_keep) -> None:
+    """A mid-epoch link at dispatch position `pos` (JAX ``:700-725``)."""
+    read = dict(zip(METRIC_KEYS, sums.tolist()))
+    save_checkpoint(save_path, train_state_to_flax(state, optimizer), {
+        "epoch": epoch - 1, "step": (epoch - 1) * steps_per_epoch + pos,
+        "preempted": preemption_requested(),
+        "in_epoch": {"epoch": epoch, "pos": pos, "sums": read, "retries": retries}},
+        keep=ckpt_keep)
 
 
 def _cache_epoch(state, cache: DeviceCache, mat: np.ndarray, multi_step: Callable, pol,
                  key, sums: torch.Tensor, epoch: int, steps_per_epoch: int,
                  steps_per_dispatch: int, checkpoint_every: int, heartbeat, save_path,
-                 ckpt_keep: int, optimizer, resume_pos: int, resume_sums) -> dict:
+                 ckpt_keep: int, optimizer, resume_pos: int, resume_sums, wd, fi,
+                 retries: int) -> dict:
     """One epoch of the device-cache path from dispatch position
     `resume_pos` (with the metric sums saved there); returns the epoch's
-    normalized train metrics."""
+    normalized train metrics.  Every dispatch boundary is a resume point:
+    the periodic snapshot (`checkpoint_every`) and a preemption request
+    save an ``in_epoch`` link there, and the request raises
+    ``PreemptedError``."""
     sums.zero_()
     if resume_pos and resume_sums:
         sums.copy_(torch.tensor([np.float32(resume_sums.get(k, 0.0)) for k in METRIC_KEYS]))
     pos = resume_pos
     for di, n in enumerate(split_dispatch_chunks(len(mat) - pos, steps_per_dispatch)):
-        multi_step(state, cache.images, cache.labels, mat[pos:pos + n], pol, key, sums)
+        _monitored_dispatch(wd, "train_dispatch", fi, (epoch - 1) * steps_per_epoch + pos + n,
+                            multi_step, state, cache.images, cache.labels, mat[pos:pos + n],
+                            pol, key, sums)
         pos += n
         if heartbeat is not None:
             heartbeat()
-        if checkpoint_every and (di + 1) % checkpoint_every == 0 and pos < len(mat) \
-                and save_path:
-            read = dict(zip(METRIC_KEYS, sums.tolist()))
-            save_checkpoint(save_path, train_state_to_flax(state, optimizer), {
-                "epoch": epoch - 1, "step": (epoch - 1) * steps_per_epoch + pos,
-                "preempted": False,
-                "in_epoch": {"epoch": epoch, "pos": pos, "sums": read, "retries": 0}},
-                keep=ckpt_keep)
+        if fi is not None:
+            fi.maybe_signal((epoch - 1) * steps_per_epoch + pos)
+        periodic = checkpoint_every and (di + 1) % checkpoint_every == 0
+        if pos < len(mat) and (preemption_requested() or periodic):
+            if save_path:
+                _save_in_epoch(save_path, state, optimizer, sums, epoch=epoch, pos=pos,
+                               steps_per_epoch=steps_per_epoch, retries=retries,
+                               ckpt_keep=ckpt_keep)
+            if preemption_requested():
+                logger.warning("preempted at epoch %d dispatch boundary (position %d/%d) - "
+                               "checkpointed, exit %d means 'resume me'", epoch, pos, len(mat),
+                               PREEMPTED_EXIT_CODE)
+                raise PreemptedError(f"preempted mid-epoch {epoch} at dispatch position {pos}")
     acc = Accumulator()
     acc.add_dict(dict(zip(METRIC_KEYS, sums.tolist())))
     return acc.normalize()
@@ -211,13 +289,15 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     "off"), ``steps_per_dispatch`` (N, needs the cache) and
     ``checkpoint_every_dispatch`` (M, cache path only) pick the data path of
     the module docstring; `save_path`, `only_eval` and `ckpt_keep` are its
-    checkpoint options."""
-    if watchdog not in ("off", None, False, 0):
-        _refuse("the dispatch watchdog", "12")
-    if compile_cache not in ("off", None, ""):
-        _refuse("the compile cache", "12")
-    if int(divergence_retries) > 0:
-        _refuse("divergence retries (they roll back to checkpoints)", "12")
+    checkpoint options; ``watchdog`` (``"off"``, ``"auto"``, seconds, or a
+    shared ``DispatchWatchdog``), ``divergence_retries`` and
+    ``compile_cache`` are the runtime seams of the module docstring."""
+    configure_compile_cache(compile_cache)
+    wd = resolve_watchdog(watchdog)
+    divergence_retries = max(0, int(divergence_retries))
+    # flag-setting SIGTERM/SIGUSR1 handlers (main thread only; another
+    # thread reads the process-wide flag)
+    install_signal_handlers()
     dev = resolve_device(device)
 
     dataset_name = conf["dataset"]
@@ -284,6 +364,7 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     pol = torch.as_tensor(policy if use_policy else np.zeros((1, 1, 3), np.float32),
                           device=dev)
     key = prng_key(seed)
+    src = draw_source or PhiloxDraws()
     if draw_source is None:
         key = torch.as_tensor(key.astype(np.int64), device=dev)
 
@@ -296,11 +377,11 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                 continue
             if split not in eval_splits:
                 eval_splits[split] = _stacked_eval_splits(it, global_batch, dev)
-            norm = _run_eval(eval_step, eval_splits[split])
+            norm = _run_eval(eval_step, eval_splits[split], wd, int(state.step))
             out[split] = norm
             if state.ema is not None:
                 with swapped_weights(model, state.ema):
-                    norm_ema = _run_eval(eval_step, eval_splits[split])
+                    norm_ema = _run_eval(eval_step, eval_splits[split], wd, int(state.step))
                 # with EMA on, the reported numbers are the EMA model's
                 # (reference train.py:277-280); the raw ones stay under _raw
                 out[split + "_raw"], out[split + "_ema"], out[split] = norm, norm_ema, norm_ema
@@ -309,6 +390,7 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     ckpt_keep = max(1, int(ckpt_keep))
     epoch_start = 1
     resume_pos, resume_sums = 0, None  # a mid-epoch link's dispatch position and sums
+    retries_done = 0  # divergence retries taken (they fold the randomness)
     restored = None
     if save_path:
         meta = read_metadata(save_path) or {}
@@ -336,6 +418,7 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
         if meta.get("in_epoch"):
             resume_pos = int(meta["in_epoch"]["pos"])
             resume_sums = meta["in_epoch"].get("sums") or {}
+            retries_done = int(meta["in_epoch"].get("retries", 0))
             logger.info("resuming mid-epoch: epoch %d from dispatch position %d (%s)",
                         epoch_start, resume_pos, used_path)
         logger.info("resumed %s at epoch %d", used_path, epoch_start - 1)
@@ -370,23 +453,68 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
         # the epoch's metric chain, in place: a graph reads this buffer
         epoch_sums = torch.zeros(len(METRIC_KEYS), device=dev)
     t_start = time.time()
-    for epoch in range(epoch_start, epochs + 1):
+    # the step key a graph reads stays one tensor; a retry copies its folded
+    # key into it
+    key_live = key.clone() if torch.is_tensor(key) else key
+    # while, not for: divergence recovery rolls `epoch` back
+    epoch = epoch_start
+    while epoch <= epochs:
+        fi = faultinject.active_plan()
+        # retry-folded randomness after a rollback; retries_done == 0 is the
+        # run's own stream
+        if retries_done:
+            key_epoch = src.fold_in(key, 1_000_003 * retries_done, dev)
+            seed_epoch = seed + 1_000_003 * retries_done
+        else:
+            key_epoch, seed_epoch = key, seed
+        if torch.is_tensor(key_live):
+            key_live.copy_(torch.as_tensor(key_epoch, device=dev))
+        else:
+            key_live = key_epoch
         if use_cache:
             train_metrics = _cache_epoch(
-                state, cache, train_index_matrix(train_idx, global_batch, epoch, seed=seed),
-                multi_step, pol, key, epoch_sums, epoch, steps_per_epoch,
+                state, cache, train_index_matrix(train_idx, global_batch, epoch, seed=seed_epoch),
+                multi_step, pol, key_live, epoch_sums, epoch, steps_per_epoch,
                 steps_per_dispatch, checkpoint_every_dispatch, heartbeat, save_path, ckpt_keep,
-                optimizer, resume_pos if epoch == epoch_start else 0, resume_sums)
+                optimizer, resume_pos if epoch == epoch_start else 0, resume_sums, wd, fi,
+                retries_done)
         else:
             acc = Accumulator()
-            for x, y in train_it.train_epoch(global_batch, epoch, seed=seed):
+            for bi, (x, y) in enumerate(train_it.train_epoch(global_batch, epoch,
+                                                             seed=seed_epoch)):
                 xs, ys = _upload(x, y, dev)
-                state, metrics = train_step(state, xs, ys, pol, key)
+                step_no = (epoch - 1) * steps_per_epoch + bi + 1
+                state, metrics = _monitored_dispatch(wd, "train_step", fi, step_no, train_step,
+                                                     state, xs, ys, pol, key_live)
                 acc.add_dict(metrics)
+                if fi is not None:
+                    fi.maybe_signal(step_no)
             train_metrics = acc.normalize()
+        resume_pos, resume_sums = 0, None  # consumed by the first epoch
         if heartbeat is not None:
             heartbeat()
+        if fi is not None and fi.nan_loss_in((epoch - 1) * steps_per_epoch,
+                                             epoch * steps_per_epoch):
+            train_metrics["loss"] = float("nan")  # injected at the seam
         if not np.isfinite(train_metrics["loss"]):
+            # divergence recovery: roll back to the newest intact
+            # epoch-boundary link and replay with retry-folded randomness
+            if retries_done < divergence_retries and save_path:
+                rolled = load_checkpoint_chain(save_path, keep=ckpt_keep,
+                                               accept=lambda m: "in_epoch" not in m)
+                if rolled is not None:
+                    retries_done += 1
+                    tree, meta_rb, used_rb = rolled
+                    load_flax_train_state(tree, state, optimizer)
+                    rollback_epoch = int(meta_rb.get("epoch", 0)) + 1
+                    logger.warning("divergence: non-finite loss at epoch %d - rolled back to "
+                                   "%s (replaying from epoch %d), retry %d/%d with "
+                                   "retry-folded randomness", epoch, used_rb, rollback_epoch,
+                                   retries_done, divergence_retries)
+                    epoch = rollback_epoch
+                    continue
+                logger.error("divergence: retries remain but no intact rollback checkpoint "
+                             "under %s - re-raising", save_path)
             raise RuntimeError("loss is NaN — training diverged (reference train.py:259)")
         ema_interval = int(optimizer_conf.get("ema_interval", -1) or -1)
         if state.ema is not None and ema_interval > 0 and epoch % ema_interval == 0:
@@ -433,6 +561,20 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                          top1_valid=evals.get("valid", {}).get("top1", 0.0),
                          loss_train=train_metrics["loss"], top1_train=train_metrics["top1"],
                          epoch=epoch)
+        # graceful preemption at the epoch boundary (the host feed's only
+        # safe point): checkpoint the completed epoch and raise
+        if preemption_requested():
+            if save_path:
+                save_checkpoint(save_path, train_state_to_flax(state, optimizer), {
+                    "epoch": epoch, "step": int(state.step), "preempted": True,
+                    "metrics": {k: float(v) for k, v in result.items()
+                                if isinstance(v, (int, float))}}, keep=ckpt_keep)
+            logger.warning("preempted at epoch %d boundary - checkpointed, exit %d means "
+                           "'resume me'", epoch, PREEMPTED_EXIT_CODE)
+            raise PreemptedError(f"preempted after epoch {epoch}")
+        epoch += 1
+    if retries_done:
+        result["divergence_retries_used"] = retries_done
     result["elapsed_sec"] = time.time() - t_start
     for w in writers:
         w.close()

@@ -1,0 +1,256 @@
+"""Deterministic fault injection: ``FAA_FAULT`` -> seeded trigger points
+(the port's copy of ``fast_autoaugment_tpu/utils/faultinject.py``).
+
+The grammar is the JAX package's, unchanged, so one spec string drives
+both packages: semicolon-separated specs, each
+``kind@key=value[,key=value]``::
+
+    FAA_FAULT="nan_loss@step=7;sigterm@step=12;torn_ckpt@save=3"
+
+Every kind of the JAX grammar parses (a typo fails loudly).  The port's
+seams consult these:
+
+``nan_loss@step=K``
+    The epoch whose step range covers global step K reads back a NaN
+    train loss (the trainer's loss readout).
+``sigterm@step=K`` / ``sigusr1@step=K`` / ``sigkill@step=K``
+    The signal is delivered to this process once global step >= K
+    (consulted after every dispatch or batch).
+``torn_ckpt@save=N`` / ``corrupt_ckpt@save=N``
+    The N-th ``save_checkpoint`` writes half its payload under the full
+    payload's digest (a torn write), or flips a byte after the digest.
+``trial_error@trial=K``
+    Phase 2 raises at trial K (per fold): the quarantine path.
+``sigkill_trial@trial=K``
+    SIGKILL once a phase-2 evaluation covers trial K or later.
+``hang@step=K``
+    The dispatch covering step K sleeps forever inside the watched region
+    (``core/watchdog.py``).
+``slow@step=K,factor=F``
+    The dispatch covering step K takes F x the watchdog's EMA for its
+    label (F seconds before any observation).
+
+The other kinds (``io_error``, ``stale_lease``, ``serve_error``,
+``serve_slow``, ``replica_down``, ``readyz_flap``, ``drift``) belong to
+seams the port does not have yet and are parsed but never consulted.
+Pinned specs fire once per process; the signal, hang and slow kinds take an
+optional ``attempt=N`` gate (they fire only when ``FAA_ATTEMPT`` equals N).
+Tests call :func:`reset` after changing ``os.environ['FAA_FAULT']``.
+"""
+
+from __future__ import annotations
+
+import os
+
+from fast_autoaugment_tpu_torch.utils.logging import get_logger
+
+__all__ = ["FaultPlan", "active_plan", "reset", "parse_fault_spec",
+           "current_attempt", "ATTEMPT_ENV_VAR"]
+
+logger = get_logger("faa_torch.faultinject")
+
+ENV_VAR = "FAA_FAULT"
+
+_KINDS = {
+    "nan_loss": ("step",),
+    "sigterm": ("step", "attempt"),
+    "sigusr1": ("step", "attempt"),
+    "sigkill": ("step", "attempt"),
+    "torn_ckpt": ("save",),
+    "corrupt_ckpt": ("save",),
+    "io_error": ("p", "seed"),
+    "trial_error": ("trial",),
+    "sigkill_trial": ("trial", "attempt"),
+    "hang": ("step", "attempt"),
+    "slow": ("step", "factor", "attempt"),
+    "stale_lease": ("unit",),
+    "serve_error": ("dispatch", "attempt"),
+    "serve_slow": ("dispatch", "factor", "attempt"),
+    "replica_down": ("request", "attempt"),
+    "readyz_flap": ("period", "attempt"),
+    "drift": ("dispatch", "shift", "attempt"),
+}
+
+# keys that are optional for their kind (everything else is required)
+_OPTIONAL_KEYS = {"attempt"}
+# value parsers: default int
+_FLOAT_KEYS = {"p", "factor", "shift"}
+_STR_KEYS = {"unit"}
+
+#: env var carrying the per-host launch counter (fleet exports it on
+#: every (re)launch; absent = attempt 1)
+ATTEMPT_ENV_VAR = "FAA_ATTEMPT"
+
+
+def current_attempt() -> int:
+    try:
+        return int(os.environ.get(ATTEMPT_ENV_VAR, "1") or 1)
+    except ValueError:
+        logger.warning("%s=%r is not an integer — treating as attempt 1",
+                       ATTEMPT_ENV_VAR, os.environ.get(ATTEMPT_ENV_VAR))
+        return 1
+
+
+def parse_fault_spec(spec: str) -> list[dict]:
+    """Parse the ``FAA_FAULT`` grammar into a list of fault dicts.
+
+    Raises ValueError on unknown kinds, missing/unknown keys or
+    malformed values — a typo in a fault spec must fail loudly, never
+    silently inject nothing.
+    """
+    faults = []
+    for part in spec.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        if "@" not in part:
+            raise ValueError(
+                f"bad fault spec {part!r}: expected kind@key=value[,key=value]")
+        kind, _, argstr = part.partition("@")
+        kind = kind.strip()
+        if kind not in _KINDS:
+            raise ValueError(
+                f"unknown fault kind {kind!r}: known {sorted(_KINDS)}")
+        args: dict = {}
+        for kv in argstr.split(","):
+            kv = kv.strip()
+            if not kv:
+                continue
+            if "=" not in kv:
+                raise ValueError(f"bad fault arg {kv!r} in {part!r}")
+            key, _, val = kv.partition("=")
+            key = key.strip()
+            if key not in _KINDS[kind]:
+                raise ValueError(
+                    f"fault {kind!r} takes keys {_KINDS[kind]}, got {key!r}")
+            if key in _FLOAT_KEYS:
+                args[key] = float(val)
+            elif key in _STR_KEYS:
+                val = val.strip()
+                if not val:
+                    raise ValueError(f"fault {kind!r} key {key!r} is empty")
+                args[key] = val
+            else:
+                args[key] = int(val)
+        required = {"io_error": ("p",)}.get(
+            kind, tuple(k for k in _KINDS[kind] if k not in _OPTIONAL_KEYS))
+        missing = [k for k in required if k not in args]
+        if missing:
+            raise ValueError(f"fault {kind!r} missing keys {missing}")
+        if kind == "io_error":
+            args.setdefault("seed", 0)
+            if not 0.0 <= args["p"] <= 1.0:
+                raise ValueError(f"io_error p={args['p']} outside [0, 1]")
+        faults.append({"kind": kind, **args, "fired": False})
+    return faults
+
+
+class FaultPlan:
+    """The parsed plan plus per-kind trigger state."""
+
+    def __init__(self, faults: list[dict]):
+        self.faults = faults
+        self.save_count = 0  # process-wide save_checkpoint counter
+
+    # -- counter-pinned kinds -----------------------------------------
+    def _take(self, kind: str, key: str, value: int,
+              at_least: bool = False) -> dict | None:
+        """Consume-once match of a pinned spec against a coordinate."""
+        for f in self.faults:
+            if f["kind"] != kind or f["fired"]:
+                continue
+            if "attempt" in f and current_attempt() != f["attempt"]:
+                continue  # gated to a different process-chain attempt
+            hit = value >= f[key] if at_least else value == f[key]
+            if hit:
+                f["fired"] = True
+                logger.warning("faultinject: firing %s@%s=%d (at %s=%d)",
+                               kind, key, f[key], key, value)
+                return f
+        return None
+
+    def nan_loss_in(self, step_lo: int, step_hi: int) -> bool:
+        """True when a nan_loss spec's step falls in [step_lo, step_hi)
+        — the step range the just-finished epoch covered."""
+        for f in self.faults:
+            if f["kind"] == "nan_loss" and not f["fired"] \
+                    and step_lo <= f["step"] < step_hi:
+                f["fired"] = True
+                logger.warning(
+                    "faultinject: injecting NaN loss (step %d in epoch "
+                    "range [%d, %d))", f["step"], step_lo, step_hi)
+                return True
+        return False
+
+    def maybe_signal(self, step: int) -> None:
+        """Deliver any pending sig* spec whose step has been reached
+        (consulted after each dispatch/batch)."""
+        import signal as _signal
+
+        for kind, signum in (("sigterm", _signal.SIGTERM),
+                             ("sigusr1", _signal.SIGUSR1),
+                             ("sigkill", _signal.SIGKILL)):
+            if self._take(kind, "step", step, at_least=True):
+                os.kill(os.getpid(), signum)
+
+    def next_save(self) -> int:
+        self.save_count += 1
+        return self.save_count
+
+    def torn_at(self, save_n: int) -> bool:
+        return self._take("torn_ckpt", "save", save_n) is not None
+
+    def corrupt_at(self, save_n: int) -> bool:
+        return self._take("corrupt_ckpt", "save", save_n) is not None
+
+    def trial_error_at(self, trial: int) -> bool:
+        return self._take("trial_error", "trial", trial) is not None
+
+    def maybe_kill_trial(self, trial: int) -> None:
+        """Deliver the sigkill_trial verb once an evaluation covers a
+        trial index at or past the spec's coordinate (consulted at the
+        search pipeline's round seam)."""
+        if self._take("sigkill_trial", "trial", trial, at_least=True):
+            import signal as _signal
+
+            os.kill(os.getpid(), _signal.SIGKILL)
+
+    def dispatch_delay(self, step: int) -> tuple[str, float] | None:
+        """Consult the hang/slow verbs at the dispatch seam (with the
+        step the dispatch will reach).  Returns ``("hang", inf)``,
+        ``("slow", factor)``, or None.  The caller (the watchdog seam)
+        turns "slow" into ``factor x EMA`` seconds."""
+        if self._take("hang", "step", step, at_least=True):
+            return ("hang", float("inf"))
+        f = self._take("slow", "step", step, at_least=True)
+        if f is not None:
+            return ("slow", float(f["factor"]))
+        return None
+
+_plan: FaultPlan | None = None
+_plan_env: str | None = None
+
+
+def active_plan() -> FaultPlan | None:
+    """The process-wide plan, or None when ``FAA_FAULT`` is unset/empty.
+
+    Parsed once and cached; the cache is invalidated automatically when
+    the env var's VALUE changes (tests flip it between cases), but
+    trigger state within one value is preserved across consults.
+    """
+    global _plan, _plan_env
+    env = os.environ.get(ENV_VAR, "")
+    if env != _plan_env:
+        _plan_env = env
+        _plan = FaultPlan(parse_fault_spec(env)) if env.strip() else None
+        if _plan is not None:
+            logger.warning("faultinject: ACTIVE with %d fault(s): %s",
+                           len(_plan.faults), env)
+    return _plan
+
+
+def reset() -> None:
+    """Forget the cached plan and all trigger state (test isolation)."""
+    global _plan, _plan_env
+    _plan = None
+    _plan_env = None

@@ -534,12 +534,8 @@ def test_train_and_eval_matches_jax(refs, monkeypatch):
 
 
 def test_train_and_eval_refuses_what_is_not_ported():
-    for kw, item in [({"watchdog": "auto"}, "item 12"),
-                     ({"compile_cache": "/tmp/cc"}, "item 12"),
-                     ({"divergence_retries": 2}, "item 12")]:
-        with pytest.raises(NotImplementedError, match=item):
-            TR.train_and_eval(TRAIN_CONF, "", device="cpu", **kw)
-    # multistep dispatch gathers from the device cache: the host feed refuses it
+    # the watchdog, the compile cache and divergence retries are ported
+    # (tests/test_torch_resilience.py, tests/test_torch_runtime.py); multistep dispatch gathers from the device cache: the host feed refuses it
     with pytest.raises(ValueError, match="needs the device cache"):
         TR.train_and_eval(TRAIN_CONF, "", device="cpu", device_cache="off",
                           steps_per_dispatch=4)
@@ -694,6 +690,10 @@ def test_training_modules_import_nothing_the_card_lacks():
     mods += ["fast_autoaugment_tpu_torch." + m for m in (
         "ops.rng", "ops.shake", "core.metrics", "models", "models.shake_resnet",
         "models.pyramidnet", "models.efficientnet")]
+    # the search runtime's modules
+    mods += ["fast_autoaugment_tpu_torch." + m for m in (
+        "core.telemetry", "core.watchdog", "core.compilecache", "utils.faultinject",
+        "utils.profiling", "search.census", "search.pipeline", "search.tta")]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

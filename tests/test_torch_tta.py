@@ -10,7 +10,10 @@ Oracles and bounds:
   batches of 6 (the last padded with 2 masked repeats), run in one JAX
   process without fused multiply-add; the port is given the JAX key tree's
   draws (``test_torch_replay.JaxDraws``), so its augmented lanes are the
-  JAX ones bit for bit (``test_torch_preprocess.py``).  Rule:
+  JAX ones bit for bit (``test_torch_preprocess.py``); the same fold in
+  ragged batches (6, then 4: ``pad_multiple=1``) through ``eval_tta``, a
+  fold the port captures two graphs for on the card (one per batch shape).
+  Rule:
   ``minus_loss`` within ``2 * LOGIT_TOL`` (an NLL moves by at most twice
   the logits' largest change; ``LOGIT_TOL`` is ``test_torch_models.py``'s
   1e-5); ``cnt`` exactly; ``top1_valid`` and ``top1_mean`` exactly wherever
@@ -68,6 +71,11 @@ RUNS = [
      np.stack([FA_CIFAR, FA_CIFAR[::-1].copy()]), KEYS),
     ("audit_exact", "audit", "exact", SUBS, KEYS[0]),
 ]
+#: the runs over the ragged fold (the same policies and keys)
+RAGGED = [("ragged_" + RUNS[0][0],) + RUNS[0][1:]]
+#: (run, fold, index of the run's reference in that fold's job)
+CASES = [(r, "batches", i) for i, r in enumerate(RUNS)] + \
+    [(r, "ragged", i) for i, r in enumerate(RAGGED)]
 
 
 def _fold():
@@ -81,12 +89,20 @@ def setup(tmp_path_factory):
     jmodel = JaxWideResNet(depth=DEPTH, widen_factor=WIDEN, num_classes=CLASSES)
     variables = _random_variables(jmodel, 7)
     batches = list(eval_batches(_fold(), None, BATCH, pad_multiple=BATCH))
-    runs = [{"fn": fn, "dispatch": d, "groups": 3, "num_policy": P, "cutout_length": 16,
-             "policy": pol, "key": key, "batch": 1} for _, fn, d, pol, key in RUNS]
-    job = {"kind": "tta", "model": (DEPTH, WIDEN, CLASSES), "variables": variables,
-           "batches": batches, "runs": runs}
-    [refs] = jax_reference([job], tmp_path_factory.mktemp("tta"))
-    return {"jmodel": jmodel, "variables": variables, "batches": batches, "refs": refs}
+    ragged = list(eval_batches(_fold(), None, BATCH, pad_multiple=1))
+    assert [len(y) for _, y, _ in ragged] == [6, 4]
+
+    def job(batches, runs):
+        return {"kind": "tta", "model": (DEPTH, WIDEN, CLASSES), "variables": variables,
+                "batches": batches, "runs": [
+                    {"fn": fn, "dispatch": d, "groups": 3, "num_policy": P, "cutout_length": 16,
+                     "policy": pol, "key": key, "batch": 1} for _, fn, d, pol, key in runs]}
+
+    refs, ragged_refs = jax_reference([job(batches, RUNS), job(ragged, RAGGED)],
+                                      tmp_path_factory.mktemp("tta"))
+    return {"jmodel": jmodel, "variables": variables, "batches": batches, "refs": refs,
+            "ragged": ragged, "ragged_refs": ragged_refs,
+            "sizes": {"batches": (BATCH, BATCH), "ragged": (6, 4)}}
 
 
 class Recorder(torch.nn.Module):
@@ -108,14 +124,16 @@ def _port_model(variables):
     return Recorder(model.to(memory_format=torch.channels_last))
 
 
-def _small_margin_samples(setup, inputs, lanes_per_sample) -> int:
-    """Samples with a lane whose JAX top-2 logit margin is <= LOGIT_TOL."""
+def _small_margin_samples(setup, inputs, lanes_per_sample, batch_sizes=None) -> int:
+    """Samples with a lane whose JAX top-2 logit margin is <= LOGIT_TOL
+    (batches of `batch_sizes`, by default all of ``BATCH``)."""
+    batch_sizes = batch_sizes or (BATCH,) * len(inputs)
     small = 0
-    for x in inputs:
+    for x, b in zip(inputs, batch_sizes):
         nhwc = jnp.asarray(x.permute(0, 2, 3, 1).numpy())
         logits = np.asarray(setup["jmodel"].apply(setup["variables"], nhwc, train=False))
         top2 = np.sort(logits, axis=-1)[:, -2:]
-        tight = (top2[:, 1] - top2[:, 0] <= LOGIT_TOL).reshape(lanes_per_sample, -1, BATCH)
+        tight = (top2[:, 1] - top2[:, 0] <= LOGIT_TOL).reshape(lanes_per_sample, -1, b)
         small += int(tight.any(axis=(0, 1)).sum())
     return small
 
@@ -130,9 +148,9 @@ def _check_fields(got, want, small):
             assert abs(got[f] - want[f]) * FOLD <= small, (f, got, want, small)
 
 
-def _port_run(setup, name, fn, dispatch, policy, key):
+def _port_run(setup, name, fn, dispatch, policy, key, fold="batches"):
     model = _port_model(setup["variables"])
-    dev_batches = device_batches(setup["batches"], device="cpu")
+    dev_batches = device_batches(setup[fold], device="cpu")
     opts = dict(num_policy=P, cutout_length=16, aug_dispatch=dispatch, aug_groups=3,
                 draw_source=JaxDraws())
     if fn == "eval_tta":
@@ -146,11 +164,11 @@ def _port_run(setup, name, fn, dispatch, policy, key):
     return model, step(b["x"], b["y"], b["m"], policy, key)
 
 
-@pytest.mark.parametrize("idx", range(len(RUNS)), ids=[r[0] for r in RUNS])
+@pytest.mark.parametrize("idx", range(len(CASES)), ids=[c[0][0] for c in CASES])
 def test_port_matches_jax(idx, setup):
-    name, fn, dispatch, policy, key = RUNS[idx]
-    model, got = _port_run(setup, name, fn, dispatch, policy, key)
-    want = setup["refs"][idx]
+    (name, fn, dispatch, policy, key), fold, i = CASES[idx]
+    model, got = _port_run(setup, name, fn, dispatch, policy, key, fold)
+    want = setup["refs" if fold == "batches" else "ragged_refs"][i]
     if fn == "audit":
         lanes = len(policy) * P
         small = _small_margin_samples(setup, model.inputs, lanes)
@@ -160,8 +178,9 @@ def test_port_matches_jax(idx, setup):
         assert (diff == 0).all() if small == 0 else (diff <= small).all(), (got, want)
         return
     k = len(policy) if fn == "eval_tta_batched" else 1
-    small = _small_margin_samples(setup, model.inputs, k * P)
-    assert len(model.inputs) == 2 and model.inputs[0].shape == (k * P * BATCH, 3, 32, 32)
+    sizes = setup["sizes"][fold]
+    small = _small_margin_samples(setup, model.inputs, k * P, sizes)
+    assert [tuple(x.shape) for x in model.inputs] == [(k * P * b, 3, 32, 32) for b in sizes]
     for g, w in zip(got, want if fn == "eval_tta_batched" else [want]):
         _check_fields(g, w, small)
 
