@@ -39,7 +39,30 @@ each printing one JSON line:
    concurrent requests; every answer is checked against the plain version
    applied on the card to the same draws; the kernel's launch count in
    ``/stats`` must equal dispatches x launches per call (1 on the cluster
-   path); SIGTERM must drain to exit 0;
+   path) plus each shape's graph warm-up call; SIGTERM must drain to exit 0;
+   then the serving plane (``serve_plane``): (a) every padded shape's CUDA
+   graph replay against the eager dispatch, bitwise (``fa_reduced_cifar10``
+   grouped at 32x32, shapes 1-128; one ImageNet sub-policy exact at
+   224x224, shapes 1 and 8), K1's kernel records in traced stretches against
+   the counters, the capture seconds, and at 128x32x32 ms per ``apply``
+   call, host runtime calls per call and the idle share of the graph and
+   the eager arm; the card-only tests ``tests/test_torch_serve_graphs.py``
+   in a process of their own; (b) two replicas (``--donate --double-buffer
+   --watchdog auto --telemetry --compile-cache --port-dir --heartbeat-dir
+   --traffic-stats --breaker-threshold 3 --breaker-exit``, one with
+   ``--tenant-capacity 2 --policy-dir``) behind ``router_cli``, which
+   finds them in the port dir: a closed loop through the router and one
+   straight to a replica; (c) a hot ``/reload`` mid-burst: no failed
+   request, each answer's digest header names one of the two policies and
+   its bytes equal the eager path's under that policy; (d) a tenant warmed
+   with ``/tenants/warm`` and reached through the router by its digest;
+   (e) ``/augment_batch`` frames and the shm lane equal ``/augment``
+   bitwise; (f) ``FAA_FAULT=serve_error`` opens a replica's breaker (typed
+   500s, then 503 or exit) and it exits 77, a replica SIGKILLed mid-burst
+   is failed over with no lost request, ``/metrics`` carries the
+   ``faa_serve_*`` families; (g) one autoscaler cycle (scale up from one
+   ``serve_cli`` replica to two on the queue signal, then down).
+   ``--serve-only`` runs phase 3 alone;
 4. the TTA policy-scoring path (``tta_main_path``): WRN-40-2 from the
    flagship config (:data:`FLAGSHIP`) with seeded weights, a seeded 20,000
    image uint8 fold uploaded once (157 batches of 128, the last with 32
@@ -150,6 +173,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -576,16 +600,20 @@ def phase_k5_vs_plain(dev) -> dict:
 
 
 class Replica:
-    """One ``serve_cli`` process on the card."""
+    """One ``serve_cli`` process on the card (or, with `module`, another of
+    the port's HTTP entry points that takes ``--port 0 --port-file``)."""
 
-    def __init__(self, args: list[str], workdir: str, tag: str):
+    def __init__(self, args: list[str], workdir: str, tag: str,
+                 module: str = "fast_autoaugment_tpu_torch.serve.serve_cli",
+                 env_extra: dict | None = None):
+        self.tag = tag
         self.port_file = os.path.join(workdir, f"{tag}.port")
         self.log_path = os.path.join(workdir, f"{tag}.log")
         self.log = open(self.log_path, "w")
-        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                   **(env_extra or {}))
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "fast_autoaugment_tpu_torch.serve.serve_cli", *args,
-             "--port", "0", "--port-file", self.port_file],
+            [sys.executable, "-m", module, *args, "--port", "0", "--port-file", self.port_file],
             cwd=REPO, env=env, stdout=self.log, stderr=subprocess.STDOUT)
         self.port = None
 
@@ -617,6 +645,11 @@ class Replica:
                 fail(f"/augment answered {r.status}")
             return r.read()
 
+    def request(self, path: str, body: bytes | None = None, ctype: str = "application/json",
+                headers: dict | None = None) -> tuple[int, dict, bytes]:
+        """One exchange that does not raise on an error status."""
+        return _http(self.port, path, body, ctype, headers)
+
     def stop(self) -> int:
         if self.proc.poll() is None:
             self.proc.send_signal(signal.SIGTERM)
@@ -631,6 +664,21 @@ class Replica:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait(timeout=30)
+
+
+def _http(port: int, path: str, body: bytes | None = None, ctype: str = "application/json",
+          headers: dict | None = None, timeout: float = 120.0) -> tuple[int, dict, bytes]:
+    """One HTTP exchange with a local endpoint: ``(status, headers, body)``,
+    without raising on an error status."""
+    hdrs = dict(headers or {})
+    if body is not None:
+        hdrs.setdefault("Content-Type", ctype)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, headers=hdrs)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
 
 
 def _npz(images, seeds=None) -> bytes:
@@ -676,8 +724,11 @@ def phase_main_path(dev, workdir: str) -> dict:
             r.wait_ready()
         before = {id(r): r.get("/stats") for r in replicas}
         for r in replicas:
-            if before[id(r)]["kernel_launches"]["augment"] != 0 or before[id(r)]["dispatches"]:
-                fail("a replica launched the kernel before serving any request")
+            st0 = before[id(r)]
+            if st0["kernel_launches"]["augment"] != st0["kernel_launches_warmup"]["augment"] \
+                    or st0["dispatches"] or not st0["graphs"]:
+                fail("a replica launched the kernel before serving any request, beyond its "
+                     "graphs' warm-up calls, or serves without graphs")
             if not r.get("/readyz")["ready"]:
                 fail("a replica is not ready")
         requests = 0
@@ -761,13 +812,16 @@ def phase_main_path(dev, workdir: str) -> dict:
         launches, dispatches = 0, 0
         per_call = {id(grouped): _kernels.augment_plan(32, 32, int(cifar.shape[1])).launches,
                     id(exact): _kernels.augment_plan(224, 224, int(single.shape[1])).launches}
+        warmups = 0
         for r in replicas:
             st = after[id(r)]
             n_launch = st["kernel_launches"]["augment"]
-            if n_launch <= 0 or n_launch != st["dispatches"] * per_call[id(r)]:
-                fail(f"launch count {n_launch} != dispatches {st['dispatches']} x "
-                     f"{per_call[id(r)]} launches per call")
+            replays = n_launch - st["kernel_launches_warmup"]["augment"]
+            if replays <= 0 or replays != st["dispatches"] * per_call[id(r)]:
+                fail(f"launch count {n_launch} less the warm-ups is not dispatches "
+                     f"{st['dispatches']} x {per_call[id(r)]} launches per call")
             launches += n_launch
+            warmups += st["kernel_launches_warmup"]["augment"]
             dispatches += st["dispatches"]
         if _kernels.launch_counts()["augment"] != 0:
             fail("the smoke process itself launched the kernel during the main path")
@@ -776,6 +830,9 @@ def phase_main_path(dev, workdir: str) -> dict:
             fail(f"replicas served {served} requests, sent {requests}")
         emit({"phase": "main_path", "requests": requests, "dispatches": dispatches,
               "kernel_launches": launches, "launches_per_dispatch": list(per_call.values()),
+              "warmup_launches": warmups,
+              "launches_are": "graph warm-up calls (one a shape) + dispatches x launches "
+                              "per call, counted at each replay",
               "burst_requests": burst_n,
               "burst_dispatches": burst_dispatches,
               "grouped_stats": {k: after[id(grouped)][k] for k in
@@ -784,7 +841,8 @@ def phase_main_path(dev, workdir: str) -> dict:
                               ("dispatches", "requests", "images_served", "mean_batch")}})
         serve = phase_serve_burst(grouped)
         final = grouped.get("/stats")
-        if final["kernel_launches"]["augment"] != final["dispatches"] * per_call[id(grouped)]:
+        if final["kernel_launches"]["augment"] - final["kernel_launches_warmup"]["augment"] \
+                != final["dispatches"] * per_call[id(grouped)]:
             fail("launch count drifted from dispatches x launches per call during the burst")
         rcs = [r.stop() for r in replicas]
         if rcs != [0, 0]:
@@ -796,12 +854,14 @@ def phase_main_path(dev, workdir: str) -> dict:
             r.kill()
 
 
-def phase_serve_burst(replica, clients: int = 16, per_client: int = 25, n: int = 8) -> dict:
-    """Closed loop: `clients` threads each send `per_client` raw requests of
-    `n` 32x32 images back to back."""
+def _closed_loop(post, clients: int, per_client: int, n: int, seed: int = 2,
+                 on_progress=None) -> dict:
+    """`clients` threads each send `per_client` raw requests of `n` 32x32
+    images back to back through ``post(body, ctype)``; `on_progress(done)`
+    is called after each answer."""
     from fast_autoaugment_tpu_torch.serve import wire
 
-    g = np.random.default_rng(2)
+    g = np.random.default_rng(seed)
     body = wire.encode_raw(g.integers(0, 256, (n, 32, 32, 3)).astype(np.uint8))
     lat: list[float] = []
     lock = threading.Lock()
@@ -811,14 +871,16 @@ def phase_serve_burst(replica, clients: int = 16, per_client: int = 25, n: int =
         for _ in range(per_client):
             t0 = time.perf_counter()
             try:
-                replica.post(body, wire.RAW_CONTENT_TYPE)
-            except Exception as e:  # noqa: BLE001 -- counted, fails the phase below
+                post(body, wire.RAW_CONTENT_TYPE)
+            except Exception as e:  # noqa: BLE001 -- counted, fails the phase
                 errors.append(repr(e))
                 return
             with lock:
                 lat.append(time.perf_counter() - t0)
+                done = len(lat)
+            if on_progress is not None:
+                on_progress(done)
 
-    d0 = replica.get("/stats")["dispatches"]
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client) for _ in range(clients)]
     for t in threads:
@@ -826,17 +888,539 @@ def phase_serve_burst(replica, clients: int = 16, per_client: int = 25, n: int =
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
-    if errors or len(lat) != clients * per_client:
-        fail(f"closed-loop burst lost requests: {errors[:3]}")
-    ms = np.array(lat) * 1e3
-    out = {"phase": "serve_burst", "card": nvidia_smi(), "clients": clients,
-           "requests": len(lat), "images_per_request": n, "image": 32,
+    ms = np.array(lat or [0.0]) * 1e3
+    return {"clients": clients, "requests": len(lat), "failed": clients * per_client - len(lat),
+            "errors": errors[:3], "images_per_request": n, "image": 32,
+            "requests_per_s": len(lat) / wall, "images_per_s": len(lat) * n / wall,
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+
+def phase_serve_burst(replica, clients: int = 16, per_client: int = 25, n: int = 8) -> dict:
+    """Closed loop: `clients` threads each send `per_client` raw requests of
+    `n` 32x32 images back to back."""
+    d0 = replica.get("/stats")["dispatches"]
+    loop = _closed_loop(replica.post, clients, per_client, n)
+    if loop["failed"]:
+        fail(f"closed-loop burst lost requests: {loop['errors']}")
+    out = {"phase": "serve_burst", "card": nvidia_smi(), **loop,
            "policy": "fa_reduced_cifar10", "dispatch": "grouped",
-           "requests_per_s": len(lat) / wall, "images_per_s": len(lat) * n / wall,
-           "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
            "dispatches": replica.get("/stats")["dispatches"] - d0}
     emit(out)
     return out
+
+
+# ------------------------------------------------------- the serving plane
+
+#: the flags of both replicas behind the router, beyond policy and dirs
+SERVE_PLANE_FLAGS = ["--donate", "--double-buffer", "--watchdog", "auto", "--traffic-stats",
+                     "--breaker-threshold", "3", "--breaker-exit", "--shm-ingest"]
+#: the (c) reload burst: clients, answers before the reload, answers after it
+RELOAD_CLIENTS, RELOAD_BEFORE, RELOAD_AFTER = 8, 40, 40
+#: the (f) SIGKILL burst through the router
+KILL_CLIENTS, KILL_PER_CLIENT = 16, 15
+#: the (g) fleet replica's dispatch floor (ms), one image a dispatch: 16
+#: one-image clients hold its queue above the high watermark
+FLEET_FLOOR_MS = 150
+SERVE_FAMILIES = ("faa_serve_dispatches_total", "faa_serve_requests_total",
+                  "faa_serve_images_total", "faa_serve_robustness_total",
+                  "faa_serve_stage_seconds", "faa_serve_queue_depth", "faa_serve_input_mean",
+                  "faa_serve_input_std", "faa_serve_reward_proxy", "faa_tenant_events_total")
+
+
+def _seeded_single_sub(seed: int) -> np.ndarray:
+    """A seeded single-sub policy of 2 ops: served exactly, so each lane's
+    output is a function of its image and key alone and can be checked."""
+    from fast_autoaugment_tpu_torch.ops.augment import NUM_OPS
+
+    g = np.random.default_rng(seed)
+    arr = np.zeros((1, 2, 3), np.float32)
+    arr[0, :, 0] = g.choice(NUM_OPS, 2, replace=False)
+    arr[0, :, 1] = g.uniform(0.5, 1.0, 2).round(3)
+    arr[0, :, 2] = g.uniform(0.0, 1.0, 2).round(3)
+    return arr
+
+
+def _u8(x: np.ndarray) -> np.ndarray:
+    return np.clip(x, 0, 255).astype(np.uint8)
+
+
+def _wait_for(cond, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.1)
+    fail(f"timed out after {timeout}s waiting for {what}")
+
+
+def _arm_times(apply, imgs, key, calls: int = 50, traced: int = 20) -> dict:
+    """ms per `apply` call at one shape (each call reads its result back),
+    and over a traced stretch the host's runtime calls per call and the
+    device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        apply(imgs, key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        apply(imgs, key)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(traced):
+            apply(imgs, key)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    busy = device_busy(prof)
+    host = _host_launches(prof)
+    return {"ms_per_call": ms, "traced_calls": traced,
+            "traced_ms_per_call": wall_s * 1e3 / traced,
+            "host_runtime_calls_per_call": sum(host.values()) / traced,
+            "host_runtime_calls": {k: v / traced for k, v in host.items()},
+            "device_busy_ms_per_call": busy["union_us"] / 1e3 / traced,
+            "device_idle_share": 1 - busy["union_us"] / 1e6 / wall_s}
+
+
+def _serve_graphs_bitwise(dev, card: str) -> dict:
+    """(a): every shape's graph replay against the eager path, bitwise; K1's
+    records in traced stretches against the counters; capture seconds; the
+    128x32x32 graph and eager arms' times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
+    from fast_autoaugment_tpu_torch.serve.policy_server import PolicyApplier
+
+    g = np.random.default_rng(20)
+    before = _kernels.launch_counts()
+    cifar = PolicyApplier(policy_to_tensor(load_policy("fa_reduced_cifar10")), image=32,
+                          shapes=(1, 8, 32, 128), device=dev)
+    single = PolicyApplier(policy_to_tensor([load_policy("fa_resnet50_rimagenet")[0]]),
+                           image=224, shapes=(1, 8), device=dev)
+    checked, problems = 0, []
+    for ap, size in ((cifar, 32), (single, 224)):
+        for s in ap.shapes:
+            for n in sorted({s, s // 2 + 1}):
+                for _ in range(2):
+                    imgs = g.integers(0, 256, (n, size, size, 3)).astype(np.uint8)
+                    if ap.dispatch == "exact":
+                        key = g.integers(0, 2**31, (n, 2)).astype(np.uint32)
+                    else:
+                        key = np.uint32([0, int(g.integers(0, 2**31))])
+                    checked += 1
+                    if not np.array_equal(ap.apply(imgs, key), ap.apply_eager(imgs, key)):
+                        problems.append(f"{ap.dispatch} {size}px shape {s} n {n}: "
+                                        "graph != eager")
+    imgs = g.integers(0, 256, (128, 32, 32, 3)).astype(np.uint8)
+    key = np.uint32([0, 77])
+    arms = {"graph": _arm_times(cifar.apply, imgs, key),
+            "eager": _arm_times(cifar.apply_eager, imgs, key)}
+    k1 = _kernels.augment_plan(32, 32, cifar.num_op).kernel
+    records = {}
+    for name, apply in (("graph", cifar.apply), ("eager", cifar.apply_eager)):
+        c0 = _kernels.launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                apply(imgs, key)
+            torch.cuda.synchronize()
+        counted = counts_since(c0)
+        seen, found = records_vs_counters(prof, counted, k1, f"serve {name}")
+        records[name] = {"kernel_records": seen, "launches_counted": counted}
+        problems += found
+    if problems:
+        fail("serve_plane (a): " + "; ".join(problems))
+    out = {"phase": "serve_plane", "part": "a_graphs", "card": card,
+           "calls_checked_bitwise": checked,
+           "capture_s": {"cifar_grouped_32": {s: r["sec"] for s, r in cifar.compile_log.items()},
+                         "imagenet_exact_224": {s: r["sec"]
+                                                for s, r in single.compile_log.items()}},
+           "at_128x32x32": arms, "records_vs_counters": records,
+           "launches": counts_since(before),
+           "timing": "host clock around 50 apply calls (each waits for its result), after 3 "
+                     "warm-up calls; traced: 20 calls under torch.profiler, host runtime calls "
+                     "= kernel launches, graph launches, async copies and memsets, device "
+                     "busy = the union of the device's activities, idle = 1 - busy / the "
+                     "traced wall"}
+    emit(out)
+    return out
+
+
+def _card_tests() -> dict:
+    """The card-only serving tests, in a process of their own."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "tests/test_torch_serve_graphs.py", "-m", "cuda",
+         "--noconftest", "-q", "-p", "no:cacheprovider"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    tail = proc.stdout.strip().splitlines()[-1:] if proc.stdout.strip() else [""]
+    if proc.returncode != 0 or "passed" not in tail[0] or "skipped" in tail[0]:
+        fail(f"card-only serving tests failed: {proc.stdout[-3000:]} {proc.stderr[-2000:]}")
+    return {"card_tests": tail[0], "card_tests_s": time.perf_counter() - t0}
+
+
+def _reload_mid_burst(b, pols: dict) -> dict:
+    """(c): exact requests with keys go to B from several clients while B
+    reloads from p1 to p3; every answer must be 200, name p1 or p3 in its
+    digest header and equal the eager reference under that policy."""
+    from fast_autoaugment_tpu_torch.serve import wire
+
+    answers, lock = [], threading.Lock()
+    reloaded, stop = threading.Event(), threading.Event()
+    info: dict = {}
+
+    def do_reload():
+        info["answer"] = b.request("/reload", json.dumps({"policy": pols["p3"]["path"]})
+                                   .encode())
+        with lock:
+            info["at"] = len(answers)
+        reloaded.set()
+
+    def client(cid):
+        i = 0
+        while not stop.is_set():
+            imgs = np.random.default_rng(1000 * cid + i).integers(
+                0, 256, (8, 32, 32, 3)).astype(np.uint8)
+            keys = np.stack([np.uint32([cid, 1000 * i + j]) for j in range(8)])
+            st, hdr, body = b.request("/augment", wire.encode_raw(imgs, seeds=keys),
+                                      wire.RAW_CONTENT_TYPE)
+            with lock:
+                answers.append((imgs, keys, st, hdr.get("X-FAA-Policy-Digest"), body))
+                done = len(answers)
+                start = done >= RELOAD_BEFORE and "started" not in info
+                if start:
+                    info["started"] = done
+            if start:
+                threading.Thread(target=do_reload).start()
+            if reloaded.is_set() and done >= info["at"] + RELOAD_AFTER:
+                stop.set()
+            i += 1
+
+    threads = [threading.Thread(target=client, args=(cid,)) for cid in range(RELOAD_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    rst, _, rbody = info["answer"]
+    if rst != 200 or json.loads(rbody)["digest"] != pols["p3"]["digest"]:
+        fail(f"serve_plane (c): /reload answered {rst} {rbody[:300]}")
+    by = {pols["p1"]["digest"]: "p1", pols["p3"]["digest"]: "p3"}
+    bad, served = [], {"p1": 0, "p3": 0}
+    for imgs, keys, st, digest, body in answers:
+        if st != 200 or digest not in by:
+            bad.append(f"status {st} digest {digest}")
+            continue
+        served[by[digest]] += 1
+        if not np.array_equal(wire.decode_raw(body)[0],
+                              _u8(pols[by[digest]]["ref"].apply_eager(imgs, keys))):
+            bad.append(f"an output differs from the reference under {by[digest]}")
+    if bad or not served["p1"] or not served["p3"]:
+        fail(f"serve_plane (c): {len(bad)} bad answers {bad[:3]}, served {served}")
+    return {"requests": len(answers), "failed": 0, "served_by": served,
+            "reload_started_after": info["started"], "reload_done_after": info["at"],
+            "reload": json.loads(rbody), "outputs_bitwise": True}
+
+
+def _tenancy_via_router(b, rt, pols: dict) -> dict:
+    """(d): p2 warmed on B; requests naming p2 go through the router, which
+    tries the replicas in rendezvous order and lands on B."""
+    from fast_autoaugment_tpu_torch.serve import wire
+    from fast_autoaugment_tpu_torch.serve.router import rendezvous_order
+
+    st, _, body = b.request("/tenants/warm", json.dumps({"policy": pols["p2"]["path"]})
+                            .encode())
+    if st != 200 or json.loads(body)["digest"] != pols["p2"]["digest"]:
+        fail(f"serve_plane (d): /tenants/warm answered {st} {body[:300]}")
+    routed, bad = [], []
+    for i in range(10):
+        imgs = np.random.default_rng(500 + i).integers(0, 256, (4, 32, 32, 3)).astype(np.uint8)
+        keys = np.stack([np.uint32([9, 100 * i + j]) for j in range(4)])
+        st, hdr, body = rt.request("/augment", wire.encode_raw(imgs, seeds=keys),
+                                   wire.RAW_CONTENT_TYPE,
+                                   {"X-FAA-Policy-Digest": pols["p2"]["digest"]})
+        routed.append(hdr.get("X-FAA-Routed-To"))
+        if st != 200 or routed[-1] != "rB" or not np.array_equal(
+                wire.decode_raw(body)[0], _u8(pols["p2"]["ref"].apply_eager(imgs, keys))):
+            bad.append(f"request {i}: {st} via {routed[-1]}")
+    ten = b.get("/stats")["tenancy"]
+    if bad or pols["p2"]["digest"] not in ten["resident"] or ten["hits"] < 10:
+        fail(f"serve_plane (d): {bad[:3]}, tenancy {ten}")
+    return {"rendezvous_order": rendezvous_order(pols["p2"]["digest"], ["rA", "rB"]),
+            "routed_to": routed, "tenancy": ten, "outputs_bitwise": True}
+
+
+def _lanes(b, ref) -> dict:
+    """(e): the raw lane, two frames of /augment_batch and the shm lane
+    give B's answer for the same images and keys, bitwise."""
+    from fast_autoaugment_tpu_torch.serve import wire
+
+    imgs = np.random.default_rng(600).integers(0, 256, (8, 32, 32, 3)).astype(np.uint8)
+    keys = np.stack([np.uint32([3, j]) for j in range(8)])
+    st, _, body = b.request("/augment", wire.encode_raw(imgs, seeds=keys), wire.RAW_CONTENT_TYPE)
+    raw = wire.decode_raw(body)[0]
+    frames = wire.encode_frames([
+        ({"ctype": wire.RAW_CONTENT_TYPE}, wire.encode_raw(imgs[:5], seeds=keys[:5])),
+        ({"ctype": wire.RAW_CONTENT_TYPE}, wire.encode_raw(imgs[5:], seeds=keys[5:]))])
+    fst, _, fbody = b.request("/augment_batch", frames, wire.FRAME_CONTENT_TYPE)
+    framed = np.concatenate([wire.decode_raw(bytes(pb))[0]
+                             for _, pb in wire.decode_frames(fbody)])
+    region = wire.ShmRegion(imgs.shape, np.uint8)
+    try:
+        region.write(imgs)
+        sst, _, _ = b.request("/augment", region.request_body(seeds=keys), wire.SHM_CONTENT_TYPE)
+        shm = region.read_result()
+    finally:
+        region.close()
+    same = (np.array_equal(raw, _u8(ref.apply_eager(imgs, keys)))
+            and np.array_equal(framed, raw) and np.array_equal(shm, raw))
+    if (st, fst, sst) != (200, 200, 200) or not same:
+        fail(f"serve_plane (e): the lanes answered {(st, fst, sst)}, bitwise equal {same}")
+    return {"raw_frames_shm_bitwise": True, "images": 8, "frames": 2}
+
+
+def _breaker_drill(c) -> dict:
+    """(f): C runs under ``FAA_FAULT=serve_error@dispatch=1..3`` with
+    ``--breaker-threshold 3 --breaker-exit``: three typed 500s open the
+    breaker, the next request is refused with a typed 503 (or finds the
+    replica gone), and the replica exits 77."""
+    from fast_autoaugment_tpu_torch.serve import wire
+
+    body = wire.encode_raw(np.zeros((2, 32, 32, 3), np.uint8))
+    drill = []
+    for _ in range(4):
+        try:
+            st, _, resp = c.request("/augment", body, wire.RAW_CONTENT_TYPE)
+            drill.append([st, json.loads(resp).get("type")])
+        except OSError as e:  # the replica exited after the breaker opened
+            drill.append(["gone", type(e).__name__])
+    rc = c.proc.wait(timeout=60)
+    typed_503 = drill[3][0] == "gone" or (drill[3][0] == 503
+                                          and drill[3][1] in ("breaker_open", "draining"))
+    if drill[:3] != [[500, "dispatch_error"]] * 3 or not typed_503 or rc != 77:
+        fail(f"serve_plane (f): breaker drill {drill}, exit {rc}: {c.tail()}")
+    return {"answers": drill, "exit_code": rc}
+
+
+def _autoscaler_cycle(fleet, port_dir: str) -> dict:
+    """(g): the fleet's one replica is held above the queue watermark by 16
+    one-image clients; one step scales up to two (the port's serve_cli);
+    once the burst ends and the queue drains, one step scales back down."""
+    from fast_autoaugment_tpu_torch.serve import autoscaler, wire
+    from fast_autoaugment_tpu_torch.serve.router import discover_replicas
+
+    t0 = time.perf_counter()
+
+    def ready():
+        up = []
+        for r in discover_replicas(port_dir) or []:
+            try:
+                if _http(r["port"], "/readyz", timeout=5)[0] == 200:
+                    up.append(r)
+            except OSError:
+                pass
+        return up
+
+    first = _wait_for(ready, 180, "the fleet's first replica")[0]
+    scraper = autoscaler.ReplicaScraper(port_dir)
+    policy = autoscaler.AutoscalerPolicy(high_queue=4.0, low_queue=0.0, high_shed_rate=1e9,
+                                         low_shed_rate=1e9, up_polls=1, down_polls=1,
+                                         cooldown_s=0.0, min_replicas=1, max_replicas=2)
+    scaler = autoscaler.Autoscaler(scraper.scrape, fleet.scale_up, fleet.scale_down,
+                                   fleet.count, policy, name="smoke")
+    stop, errors = threading.Event(), []
+    body = wire.encode_raw(np.zeros((1, 32, 32, 3), np.uint8))
+
+    def client():
+        while not stop.is_set():
+            try:
+                st = _http(first["port"], "/augment", body, wire.RAW_CONTENT_TYPE)[0]
+                if st != 200:
+                    errors.append(st)
+            except OSError as e:
+                errors.append(repr(e))
+
+    def signal_where(pred):
+        sig = scraper.scrape()
+        return sig if pred(sig) else None
+
+    threads = [threading.Thread(target=client) for _ in range(16)]
+    for t in threads:
+        t.start()
+    try:
+        sig_up = _wait_for(lambda: signal_where(lambda s: s["queue_depth"] >= 4), 60,
+                           "the fleet's queue above the high watermark")
+        up = scaler.step()
+        if up != "up" or fleet.count() != 2:
+            fail(f"serve_plane (g): the scale-up step did {up}, fleet {fleet.count()}")
+        _wait_for(lambda: len(ready()) == 2, 180, "the scaled-up replica")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    sig_down = _wait_for(lambda: signal_where(lambda s: s["queue_depth"] == 0), 60,
+                         "the fleet's queue to drain")
+    down = scaler.step()
+    if down != "down" or fleet.count() != 1 or errors:
+        fail(f"serve_plane (g): the scale-down step did {down}, fleet {fleet.count()}, "
+             f"client errors {errors[:3]}")
+    keys = ("queue_depth", "shed_rate", "breaker_open", "reachable")
+    return {"scale_up_signal": {k: sig_up[k] for k in keys},
+            "scale_down_signal": {k: sig_down[k] for k in keys},
+            "decisions": scaler.stats()["decisions"], "replicas_after": fleet.count(),
+            "records_after": sorted(r["tag"] for r in discover_replicas(port_dir) or []),
+            "cycle_s": time.perf_counter() - t0}
+
+
+def phase_serve_plane(dev, workdir: str, card: str) -> dict:
+    """The serving plane on the card: (a) graphs bitwise, (b) two replicas
+    behind ``router_cli``, (c) a hot reload mid-burst, (d) tenancy, (e) the
+    frame and shm lanes, (f) the breaker, SIGKILL and /metrics drills, (g)
+    one autoscaler cycle.  The replicas start together at the phase's start
+    and come up while (a) runs."""
+    import shutil
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.policies.archive import tensor_to_policy
+    from fast_autoaugment_tpu_torch.serve import autoscaler
+    from fast_autoaugment_tpu_torch.serve.policy_server import PolicyApplier, policy_digest
+    from fast_autoaugment_tpu_torch.serve.router import discover_replicas
+
+    t_phase = time.perf_counter()
+    d = {k: os.path.join(workdir, k) for k in ("ports", "beats", "journal", "cache",
+                                                 "policies", "fleet")}
+    for path in d.values():
+        os.makedirs(path, exist_ok=True)
+    for name in _kernels.SOURCES:  # the replicas load this process's build from the cache
+        lib = _kernels._library_path(name)
+        shutil.copy2(lib, os.path.join(d["cache"], lib.name))
+    pols = {}
+    for name, seed in (("p1", 11), ("p2", 12), ("p3", 13)):
+        arr = _seeded_single_sub(seed)
+        path = os.path.join(workdir, f"{name}.json")
+        with open(path, "w") as fh:
+            json.dump(tensor_to_policy(arr), fh)
+        pols[name] = {"path": path, "digest": policy_digest(arr),
+                      "ref": PolicyApplier(arr, image=32, shapes=(1, 8, 32, 128), device=dev)}
+    shutil.copy2(pols["p2"]["path"], os.path.join(d["policies"], "p2.json"))
+    common = ["--image", "32", "--port-dir", d["ports"], "--heartbeat-dir", d["beats"],
+              "--telemetry", d["journal"], "--compile-cache", d["cache"], *SERVE_PLANE_FLAGS]
+    pypath = {"PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = {
+        "A": Replica(["--policy", "fa_reduced_cifar10", "--host-tag", "rA", *common],
+                     workdir, "plane_a"),
+        "B": Replica(["--policy", pols["p1"]["path"], "--host-tag", "rB", "--tenant-capacity",
+                      "2", "--policy-dir", d["policies"], *common], workdir, "plane_b"),
+        "C": Replica(["--policy", pols["p1"]["path"], "--image", "32", "--shapes", "1,8",
+                      "--breaker-threshold", "3", "--breaker-exit", "--host-tag", "rC"],
+                     workdir, "plane_c",
+                     env_extra={"FAA_FAULT": "serve_error@dispatch=1;serve_error@dispatch=2;"
+                                             "serve_error@dispatch=3"}),
+        "router": Replica(["--port-dir", d["ports"], "--poll-interval", "0.2",
+                           "--eject-after", "1", "--readmit-after", "1",
+                           "--failover-attempts", "2"], workdir, "plane_router",
+                          module="fast_autoaugment_tpu_torch.serve.router_cli"),
+    }
+    fleet = autoscaler.LocalReplicaFleet(
+        ["--policy", pols["p1"]["path"], "--image", "32", "--shapes", "1", "--max-batch", "1",
+         "--dispatch-floor-ms", str(FLEET_FLOOR_MS), "--compile-cache", d["cache"]],
+        d["fleet"], extra_env=pypath, tag_prefix="fleet")
+    fleet.scale_up()
+    out = {"phase": "serve_plane", "card": card}
+    try:
+        out.update(_card_tests())
+        graphs = _serve_graphs_bitwise(dev, card)
+        for p in procs.values():
+            p.wait_ready()
+        a, b, c, rt = procs["A"], procs["B"], procs["C"], procs["router"]
+        _wait_for(lambda: json.loads(rt.request("/readyz")[2]).get("in_rotation") == 2, 120,
+                  "both replicas in the router's rotation")
+        out["startup_s"] = time.perf_counter() - t_phase
+        for k, r in (("A", a), ("B", b)):
+            st = r.get("/stats")
+            cc = st["compile_cache"]
+            if not st["graphs"] or cc["misses"] or not cc["hits"]:
+                fail(f"replica {k}: graphs {st['graphs']}, compile cache {cc}")
+            out[f"graph_capture_{k}"] = st["graph_capture"]
+
+        # (b) the closed loop through the router, then straight to one replica
+        routed = _closed_loop(rt.post, 16, 25, 8)
+        direct = _closed_loop(a.post, 16, 25, 8)
+        if routed["failed"] or direct["failed"]:
+            fail(f"serve_plane (b): failed requests {routed['errors']} {direct['errors']}")
+        rstats = json.loads(rt.request("/stats")[2])
+        out["b_burst"] = {"through_router": routed, "direct_to_A": direct,
+                          "router_outcomes": rstats["outcomes"],
+                          "in_rotation": rstats["in_rotation"]}
+        out["c_reload"] = _reload_mid_burst(b, pols)
+        out["d_tenancy"] = _tenancy_via_router(b, rt, pols)
+        out["e_lanes"] = _lanes(b, pols["p3"]["ref"])
+
+        # (f) drills: the breaker on C, SIGKILL of A mid-burst, /metrics on B
+        breaker = _breaker_drill(c)
+        stats_a = a.get("/stats")
+        killed = threading.Event()
+
+        def kill_a(done):
+            if done >= KILL_CLIENTS * KILL_PER_CLIENT // 3 and not killed.is_set():
+                killed.set()
+                a.proc.kill()
+
+        kill_loop = _closed_loop(rt.post, KILL_CLIENTS, KILL_PER_CLIENT, 8, seed=7,
+                                 on_progress=kill_a)
+        rstats = json.loads(rt.request("/stats")[2])
+        if kill_loop["failed"] or not killed.is_set():
+            fail(f"serve_plane (f): the SIGKILL burst lost {kill_loop['failed']} requests: "
+                 f"{kill_loop['errors']}")
+        metrics = b.request("/metrics")[2].decode()
+        missing = [f for f in SERVE_FAMILIES if f not in metrics]
+        if missing:
+            fail(f"serve_plane (f): /metrics lacks {missing}")
+        out["f_drills"] = {"breaker": breaker, "sigkill_burst": kill_loop,
+                           "router_after_kill": {k: rstats[k] for k in
+                                                 ("in_rotation", "failovers", "outcomes")},
+                           "metrics_families": len(SERVE_FAMILIES)}
+        out["g_autoscaler"] = _autoscaler_cycle(fleet, d["fleet"])
+
+        # the records the replicas left, and their launch accounting
+        stats_b = b.get("/stats")
+        beats = sorted(os.listdir(os.path.join(d["beats"], "hosts")))
+        records = sorted(r["tag"] for r in discover_replicas(d["ports"]) or [])
+        journal = [n for n in os.listdir(d["journal"]) if n.endswith(".jsonl")]
+        rc_b, rc_rt = b.stop(), rt.stop()
+        left = sorted(r["tag"] for r in discover_replicas(d["ports"]) or [])
+        if rc_b != 0 or rc_rt != 0 or "rB.json" not in beats or not journal or "rB" in left:
+            fail(f"serve_plane: exits B {rc_b} router {rc_rt}, beats {beats}, journal "
+                 f"{journal}, records after B's drain {left}")
+        launches = {}
+        for k, st in (("A", stats_a), ("B", stats_b)):
+            total = st["kernel_launches"]["augment"]
+            replays = total - st["kernel_launches_warmup"]["augment"]
+            per_call = _kernels.augment_plan(32, 32, st["num_op"]).launches
+            if replays != st["dispatches"] * per_call:
+                fail(f"replica {k}: {replays} replayed launches != {st['dispatches']} "
+                     f"dispatches x {per_call}")
+            launches[k] = {"total": total, "warmup": st["kernel_launches_warmup"]["augment"],
+                           "dispatches": st["dispatches"]}
+        out.update({"records_before_drain": records, "beats": beats,
+                    "journal_segments": len(journal), "replica_launches": launches,
+                    "in_process_launches": graphs["launches"],
+                    "launches": graphs["launches"]["augment"]
+                    + sum(v["total"] for v in launches.values()),
+                    "stats_b": {k: stats_b.get(k) for k in ("dispatches", "requests",
+                                                             "images_served", "reloads",
+                                                             "traffic", "data_plane")},
+                    "phase_s": time.perf_counter() - t_phase})
+        emit(out)
+        return out
+    finally:
+        for p in procs.values():
+            p.kill()
+        fleet.stop_all(drain_timeout=10.0)
 
 
 # --------------------------------------------------------------- phase 4
@@ -3506,6 +4090,13 @@ def main() -> int:
         print(card, flush=True)
         phase_dispatch_main_path(dev, card)
         return 0
+    if sys.argv[1:2] == ["--serve-only"]:  # the serving phases alone
+        _kernels.load_libraries()
+        print(card, flush=True)
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_main_path(dev, workdir)
+            phase_serve_plane(dev, workdir, card)
+        return 0
     if sys.argv[1:2] == ["--runtime-only"]:  # the search runtime's phases alone
         _kernels.load_libraries()
         print(card, flush=True)
@@ -3531,6 +4122,7 @@ def main() -> int:
     lighting = phase_lighting_cpu_vs_card(dev)
     with tempfile.TemporaryDirectory() as workdir:
         main_path = phase_main_path(dev, workdir)
+        plane = phase_serve_plane(dev, workdir, card)
     st = tta_setup(dev)
     tta_path = phase_tta_main_path(dev, st)
     graphs = phase_tta_graphs(dev, st, card)
@@ -3580,11 +4172,12 @@ def main() -> int:
         "name": "augment", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/augment.cu",
         "replaces": "fast_autoaugment_tpu/ops/augment.py:409",
-        "launches": main_path["launches"] + tta_path["launches"]["augment"]
+        "launches": main_path["launches"] + plane["launches"] + tta_path["launches"]["augment"]
         + graph_launches["augment"]
         + train_path["launches"]["augment"] + flagship["launches"]["augment"]
         + search["launches"]["augment"] + zoo_launches["augment"] + cached["augment"],
         "launches_by_path": {"serve": main_path["launches"],
+                             "serve_plane": plane["launches"],
                              "tta": tta_path["launches"]["augment"],
                              "tta_graphed_vs_eager": graph_launches["augment"],
                              "train_resnet50": train_path["launches"]["augment"],

@@ -34,6 +34,7 @@ import re
 import threading
 import time
 
+from fast_autoaugment_tpu_torch.core import fsfault
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
 
 __all__ = [
@@ -111,8 +112,14 @@ EVENT_TYPES = frozenset({
 
 
 def wall() -> float:
-    """Wall-clock seconds (``time.time``): anchors cross-host comparison."""
-    return time.time()
+    """Wall-clock seconds (``time.time``): anchors cross-host comparison.
+
+    The ``FAA_FSFAULT skew@host=H,offset=S`` verb lands here: a matched
+    host sees (and stamps) wall time offset by S seconds
+    (``core/fsfault.py``).  Unset, the consult is one cached None check."""
+    t = time.time()
+    plan = fsfault.active_plan()
+    return t + plan.wall_offset if plan is not None else t
 
 
 def mono() -> float:

@@ -30,11 +30,27 @@ seams consult these:
     The dispatch covering step K takes F x the watchdog's EMA for its
     label (F seconds before any observation).
 
-The other kinds (``io_error``, ``stale_lease``, ``serve_error``,
-``serve_slow``, ``replica_down``, ``readyz_flap``, ``drift``) belong to
-seams the port does not have yet and are parsed but never consulted.
-Pinned specs fire once per process; the signal, hang and slow kinds take an
-optional ``attempt=N`` gate (they fire only when ``FAA_ATTEMPT`` equals N).
+The serving plane consults these:
+
+``serve_error@dispatch=N`` / ``serve_slow@dispatch=N,factor=F``
+    The policy server's N-th dispatch attempt (1-based) raises a serving
+    error, or sleeps F x the dispatch-wall EMA first (F seconds before
+    any observation) (``serve/policy_server.py``).
+``drift@dispatch=N,shift=S``
+    From the policy server's N-th dispatch on, every input batch is
+    shifted by S pixel levels (clipped to [0, 255]) before statistics and
+    device work; it latches (drifted traffic stays drifted).
+``replica_down@request=N``
+    The router declares its first replica (sorted by tag) down once N
+    requests were routed, for good (``serve/router.py``).
+``readyz_flap@period=P``
+    The router's readiness verdict for that replica alternates every P
+    health-poll rounds from its first consult on.
+
+The other kinds (``io_error``, ``stale_lease``) belong to seams the port
+does not have yet and are parsed but never consulted.  Pinned specs fire
+once per process; every kind that lists it takes an optional
+``attempt=N`` gate (it fires only when ``FAA_ATTEMPT`` equals N).
 Tests call :func:`reset` after changing ``os.environ['FAA_FAULT']``.
 """
 
@@ -226,6 +242,62 @@ class FaultPlan:
         if f is not None:
             return ("slow", float(f["factor"]))
         return None
+
+    def serve_fault(self, dispatch_n: int) -> tuple[str, float] | None:
+        """Consult the serve_error/serve_slow verbs at the policy
+        server's dispatch seam with the 1-based dispatch-attempt
+        counter.  Returns ``("error", 0.0)``, ``("slow", factor)``, or
+        None."""
+        if self._take("serve_error", "dispatch", dispatch_n):
+            return ("error", 0.0)
+        f = self._take("serve_slow", "dispatch", dispatch_n)
+        if f is not None:
+            return ("slow", float(f["factor"]))
+        return None
+
+    def drift_shift(self, dispatch_n: int) -> float | None:
+        """The active injected distribution shift for the policy
+        server's `dispatch_n`-th dispatch, or None.  LATCHES from the
+        first matching dispatch onward; honors the ``attempt=N`` gate."""
+        for f in self.faults:
+            if f["kind"] != "drift":
+                continue
+            if "attempt" in f and current_attempt() != f["attempt"]:
+                continue
+            if dispatch_n < f["dispatch"]:
+                continue
+            if not f["fired"]:
+                f["fired"] = True
+                logger.warning(
+                    "faultinject: input distribution SHIFTED by %+g from "
+                    "dispatch %d onward (drift)", f["shift"], dispatch_n)
+            return float(f["shift"])
+        return None
+
+    def replica_down_now(self, request_n: int) -> bool:
+        """Consulted at the router's health-poll seam with the routed-
+        request counter.  Fires ONCE when the counter reaches the spec's
+        coordinate; the router latches the verdict itself."""
+        return self._take("replica_down", "request", request_n,
+                          at_least=True) is not None
+
+    def readyz_flap_period(self) -> int | None:
+        """The active readyz_flap period, or None.  LATCHES: the flap
+        governs every later poll round (the router applies
+        ``((round-1)//P) % 2`` to its own counter)."""
+        for f in self.faults:
+            if f["kind"] != "readyz_flap":
+                continue
+            if "attempt" in f and current_attempt() != f["attempt"]:
+                continue
+            if not f["fired"]:
+                f["fired"] = True
+                logger.warning(
+                    "faultinject: readyz verdict flapping every %d "
+                    "health-poll round(s) from now on", f["period"])
+            return int(f["period"])
+        return None
+
 
 _plan: FaultPlan | None = None
 _plan_env: str | None = None

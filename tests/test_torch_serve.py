@@ -358,8 +358,18 @@ def test_serve_cli_without_gpu_fails_loudly():
 
 
 def test_serve_cli_rejects_deferred_flags():
+    """The port's serve_cli takes every flag of the JAX serve_cli, with the
+    same defaults, plus ``--device``, and rejects a flag neither has."""
+    def flags(parser):
+        return {a.dest: (tuple(a.option_strings), a.default, a.required)
+                for a in parser._actions if a.option_strings and a.dest != "help"}
+
+    port, ref = flags(serve_cli.build_parser()), flags(jax_cli.build_parser())
+    assert set(port) - set(ref) == {"device"} and set(ref) <= set(port)
+    for dest, spec in ref.items():
+        assert port[dest] == spec, dest
     with pytest.raises(SystemExit):
-        serve_cli.build_parser().parse_args(["--policy", "x", "--tenant-capacity", "2"])
+        serve_cli.build_parser().parse_args(["--policy", "x", "--no-such-flag", "2"])
 
 
 def test_port_imports_no_jax():

@@ -694,6 +694,10 @@ def test_training_modules_import_nothing_the_card_lacks():
     mods += ["fast_autoaugment_tpu_torch." + m for m in (
         "core.telemetry", "core.watchdog", "core.compilecache", "utils.faultinject",
         "utils.profiling", "search.census", "search.pipeline", "search.tta")]
+    # the serving plane's modules
+    mods += ["fast_autoaugment_tpu_torch." + m for m in (
+        "core.fsfault", "serve.wire", "serve.policy_server", "serve.serve_cli",
+        "serve.router", "serve.router_cli", "serve.autoscaler")]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
