@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --imagenet-only
     python3 chip_smoke.py --pair-with OTHER_CHECKOUT
 
 Run from the root of a checkout; it needs one CUDA card and ``nvcc``.  With
@@ -107,19 +108,29 @@ each printing one JSON line:
    augmented arm; the fold checkpoints load back with their digests; two
    trials re-scored with the plain versions of K1 and K5 equal the kernels'
    bitwise; the same command again trains and dispatches nothing; the same
-   search with ``--device-cache off`` gives the same trial log, policy,
+   search with ``--device-cache off --host-step eager`` (the eager host
+   feed) gives the same trial log, policy,
    audit, checkpoint digests and phase-3 values (both arms under
    deterministic cuDNN); seconds per fold, per trial and per run and the
    device's idle share over phase 2, from a profiled replay whose K1 and K5
    kernel records must match the launch counters;
-8. ``train_times``: the ResNet-50 step's median time and images/s, a
-   profiler trace split by stage (sampler, K1, K6, model forward and
-   backward with the convolutions' TFLOP/s, optimizer) with the device's
-   idle share, K1 and K6 at 128x224x224 against their bounds and plain
-   versions, also by CUDA-graph replay (K1 also with clusters of 8 and of
-   16 blocks, K6 at every cluster size that fits, on float32 and uint8
-   input, and how many such clusters the card holds at once), and the peak
-   device memory;
+8. ``train_times``: K1 and K6 at 128x224x224 against their bounds and
+   plain versions, also by CUDA-graph replay (K1 also with clusters of 8
+   and of 16 blocks, K6 at every cluster size that fits, on float32 and
+   uint8 input, and how many such clusters the card holds at once); then
+   the ImageNet data path (``imagenet_main_path``, ``--imagenet-only`` runs
+   it alone): a JPEG listing written here (1,280 train and 256 val images
+   in 10 ``<wnid>`` folders, sides 256-512 px, smooth seeded content, the
+   Kaggle ``train_cls.txt``/``val_cls.txt``), K1, K6 and K5 against their
+   plain versions on its first decoded batch, ``train_and_eval`` of
+   ``confs/resnet50.yaml`` on it (1 epoch of 10 steps at 128x224x224, then
+   the val set) twice, the host-fed step replayed as a CUDA graph and run
+   eagerly (equal results and checkpoint bytes; the native decoder by name,
+   0 decode failures, the launches the plans predict, kernel records
+   against the counters; ms per step, decode rate, runtime calls per step,
+   idle share, peak memory), and ``search_cli`` on it (1 fold, 1 phase-1
+   epoch, 2 trials, phases 1-2: the lazy fold stream into the graphed TTA
+   and audit steps);
 9. the model zoo (:data:`ZOO`): ``zoo_noise_cpu_vs_card`` draws one step's
    model noise of Shake-Shake 26 2x96d, PyramidNet-272 and EfficientNet-b0
    with 8 CondConv experts, mixup's draws and 4096 Beta(0.2) draws on the
@@ -128,15 +139,17 @@ each printing one JSON line:
    with K1 and K5 (CIFAR) or K1 and K6 (EfficientNet, mixup 0.2, seeded
    uint8 224x224 batches): 3 steps with the kernels against 3 with the
    plain versions under deterministic cuDNN (bitwise), launches against
-   the plans, then the median of 10 timed steps, images/s, peak memory and
-   a profiled trace of 3 steps (idle share, stages, CondConv's share);
+   the plans, then the median of 6 timed steps, images/s, peak memory and
+   a profiled trace of 1 step (idle share, stages, CondConv's share);
    ``zoo_train_cli`` runs ``launch/train_cli.py`` on
    ``confs/shake26_2x96d_cifar.yaml`` with ``dataset=synthetic epoch=1``,
    saving, then with ``--only-eval`` (result keys, digest, equal metrics);
 10. the device-resident data path (``dispatch_main_path``): ``train_and_eval``
-   of the flagship on ``synthetic_shapes`` in seven arms (the host feed, N =
-   1, N = 8, N = 3, N = 3 resumed from a mid-epoch link, and an EMA pair)
-   with equal checkpoints and results and the predicted launches; ms per
+   of the flagship on ``synthetic_shapes`` in nine arms (the eager host
+   feed, the reference; the host feed as a graph replay, N = 1, N = 8, N =
+   3, N = 3 resumed from a mid-epoch link; and with an EMA the eager and
+   the graphed host feed and N = 3) with checkpoints and results equal to
+   the eager host feed's and the predicted launches; ms per
    step, images/s, host launches per step, the device's idle share and peak
    memory of the host feed, N = 1 and N = 8 over a seeded 50,000-image set;
    PyramidNet-272 eager against CUDA-graph replays, bitwise.
@@ -308,9 +321,10 @@ def counts_since(before: dict) -> dict:
 ANNOTATIONS = ("train.", "tta.", "search.")
 
 
-def device_busy(prof, launched_by=None) -> dict:
+def device_busy(prof, launched_by=None, skip_streams=frozenset()) -> dict:
     """The device's work in a profile (kernels, copies, fills; not the
-    ranges of `ANNOTATIONS`), or only that launched by the operators for
+    ranges of `ANNOTATIONS`; not the streams in `skip_streams`), or only
+    that launched by the operators for
     which ``launched_by(name, input_shapes)`` holds: the summed durations in
     µs, their union on the device's clock (the time the card was busy: the
     sum counts an overlap twice, and cuDNN runs some convolutions on streams
@@ -323,7 +337,8 @@ def device_busy(prof, launched_by=None) -> dict:
     spans, streams = [], set()
     for e in events:
         if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0 \
-                or e.is_user_annotation() or e.name().startswith(ANNOTATIONS):
+                or e.is_user_annotation() or e.name().startswith(ANNOTATIONS) \
+                or int(e.device_resource_id()) in skip_streams:
             continue
         if launched_by is not None:
             op = ops.get(e.linked_correlation_id())
@@ -1701,8 +1716,9 @@ def phase_tta_main_path(dev, st: dict) -> dict:
     return out
 
 
-#: timed trials of each arm of phase_tta_graphs
-ARM_TRIALS = 2
+#: timed trials of each arm of phase_tta_graphs (2 before the ImageNet
+#: phase joined the script)
+ARM_TRIALS = 1
 
 
 def _tta_arm(dev, st: dict, step, tag: str) -> tuple[dict, object, list]:
@@ -2101,7 +2117,7 @@ def _search_argv(save_dir: str, epochs: int, until: int = 3, extra=()) -> list[s
 
 
 def _search_expected_launches(epochs: int, audited: int, audit_folds: int,
-                              cached: bool = True) -> dict:
+                              graphed: bool = True) -> dict:
     """K1 and K5 launches of one search run at :data:`SEARCH_FLAGS` on
     ``synthetic_shapes`` (600 train images, 2,000 test; batch 128): phase 1
     trains 2 folds of 360 images (2 steps an epoch, K5 only) and evaluates
@@ -2111,9 +2127,10 @@ def _search_expected_launches(epochs: int, audited: int, audit_folds: int,
     `audit_folds` folds that pass its floor (up to 4 through the TTA step,
     one per call; more in chunks of 8 through the audit step); phase 3
     trains 2 arms on 600 images (4 steps an epoch; the
-    augmented arm through K1 too) with the test evaluations; on the device
-    cache (`cached`, the default) each training run adds a warm-up step, and
-    each CUDA graph of phase 2 and the audit one warm-up call."""
+    augmented arm through K1 too) with the test evaluations; each training
+    run whose step is a CUDA graph (`graphed`: the device cache's, or the
+    host feed's unless ``--host-step eager``) adds the graph's warm-up step,
+    and each CUDA graph of phase 2 and the audit one warm-up call."""
     from fast_autoaugment_tpu_torch.ops import _kernels
 
     evals = len([e for e in range(1, epochs + 1) if e % 5 == 0 or e == epochs])
@@ -2125,9 +2142,9 @@ def _search_expected_launches(epochs: int, audited: int, audit_folds: int,
     phase3_steps = 4 * epochs
     phase3_evals = evals * test
     per_call = _kernels.augment_plan(32, 32, 2).launches
-    # the default device cache: each of the 2 fold and 2 phase-3 runs
-    # replays one CUDA graph (N = 1) after one warm-up step
-    warm = 1 if cached else 0
+    # each of the 2 fold and 2 phase-3 runs replays one CUDA graph of a step
+    # after one warm-up step, unless it steps eagerly
+    warm = 1 if graphed else 0
     # phase 2 and the audit replay one CUDA graph a batch: a warm-up call
     # each for the trials' policy shape, the single-sub shape (the
     # baselines, and up to 4 audited sub-policies) and, past 4 audited
@@ -2147,7 +2164,8 @@ def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EP
     """The three-phase search through ``launch/search_cli.py main`` on the
     card (:data:`SEARCH_CONF`, :data:`SEARCH_FLAGS`; the default device
     cache), with the launch counts set to 0 just before and read just after,
-    and again with ``--device-cache off`` (both under deterministic cuDNN:
+    and again with ``--device-cache off --host-step eager``, the eager host
+    feed (both under deterministic cuDNN:
     trial log, final policy, audit, every checkpoint's digest and the
     phase-3 values equal); then the checks: all three
     phases ran, both phase-3 arms have a ``top1_test``, the final policy is
@@ -2189,7 +2207,8 @@ def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EP
     save_off = os.path.join(workdir, "search_off")
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    off = search_cli.main(_search_argv(save_off, epochs, extra=["--device-cache", "off"]))
+    off = search_cli.main(_search_argv(save_off, epochs,
+                                       extra=["--device-cache", "off", "--host-step", "eager"]))
     torch.cuda.synchronize()
     off_wall = time.perf_counter() - t0
     off_counts = _kernels.launch_counts()
@@ -2221,7 +2240,7 @@ def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EP
     if counts != want:
         problems.append(f"search launch counts {counts} != {want}")
     want_off = _search_expected_launches(epochs, len(audit.get("scores", [])),
-                                         len(audit.get("audit_folds", [])), cached=False)
+                                         len(audit.get("audit_folds", [])), graphed=False)
     if off_counts != want_off:
         problems.append(f"host-fed search launch counts {off_counts} != {want_off}")
     arms_equal = {}
@@ -2688,8 +2707,6 @@ def phase_search_runtime(dev, workdir: str, card: str, serial: dict) -> dict:
 
 TRAIN_STAGES = ("train.sampler", "train.augment", "train.model", "train.optimizer")
 TRAIN_STEPS = 10
-TIMED_STEPS = 20
-TRACE_STEPS = 3
 #: K6's kernels (csrc/imagenet.cu): the cluster path and the two-pass path
 K6_KERNELS = ("imagenet_cluster_kernel", "grey_sum_kernel", "imagenet_stack_kernel")
 #: K6's check shapes: the train shape, odd sizes, bands of unequal height,
@@ -3045,11 +3062,10 @@ def phase_train_flagship(dev) -> dict:
 
 
 def phase_train_times(dev, st: dict, card: str) -> dict:
-    """The ResNet-50 step: median ms per step and images/s, a profiler
-    trace split by stage, K1 and K6 at 128x224x224 against their bounds,
-    and the peak device memory."""
+    """K1 and K6 at the ResNet-50 step's shape (128x224x224, with a step's
+    draws) against their bounds and plain versions.  The step itself is
+    timed and traced on JPEG-fed batches by ``imagenet_main_path``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from fast_autoaugment_tpu_torch.ops import _kernels
     from fast_autoaugment_tpu_torch.ops import augment as aug
@@ -3058,55 +3074,7 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
 
     c = RESNET50
     b, image = c["batch"], st["image"]
-    step = st["make"]("exact")
-    key = torch.tensor([1, 0], device=dev)
-    for i in range(3):
-        st["state"], _ = step(st["state"], *st["batches"][i % 4], st["policy"], key)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    times = []
-    for i in range(TIMED_STEPS):
-        t0 = time.perf_counter()
-        st["state"], _ = step(st["state"], *st["batches"][i % 4], st["policy"], key)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    step_ms = float(np.median(times)) * 1e3
-    peak = torch.cuda.max_memory_allocated(dev)
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(TRACE_STEPS):
-            st["state"], _ = step(st["state"], *st["batches"][i % 4], st["policy"], key)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    # kernel rows only: the stage ranges show up as device rows of their own
-    by_name = {k: v for k, v in kernel_device_us(prof).items() if not k.startswith("train.")}
-    busy_us = sum(by_name.values())
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.key in by_name and device_us_of(e) > 0)
-    # K1 and K6 run a known number of times: the profile's rows of them
-    # show whether it lost kernel records (then busy time is a floor)
     plan = _kernels.augment_plan(image, image, int(st["policy"].shape[1]))
-    plan6 = _kernels.imagenet_plan(image, image, torch.float32)  # K6 reads K1's output
-    rows_seen = kernel_counts(prof, (plan.kernel,) + plan6.kernel)
-    rows_want = {plan.kernel: plan.launches * TRACE_STEPS,
-                 **{k: TRACE_STEPS for k in plan6.kernel}}
-    # a range's device time counts the PyTorch operators launched inside it:
-    # not the kernels launched through ctypes (K1, K6), and not the backward,
-    # which autograd runs on a thread of its own; so the model's share is
-    # what remains of the busy time
-    stages = _stage_device_us(prof, TRAIN_STAGES)
-    k1_us, k6_us = device_us(prof, K1_KERNELS), device_us(prof, K6_KERNELS)
-    conv_us = sum(v for k, v in by_name.items()
-                  if "conv" in k.lower() or "fprop" in k or "dgrad" in k or "wgrad" in k)
-    flop = 3 * model_flops(st["model"], dev, size=image) * b  # forward + 2 backward
-    n = TRACE_STEPS
-    split = {"sampler": stages["train.sampler"], "augment_kernel_K1": k1_us,
-             "imagenet_stack_kernel_K6": k6_us, "augment_other": stages["train.augment"],
-             "optimizer_and_metrics": stages["train.optimizer"]}
-    split["model_forward_backward"] = busy_us - sum(split.values())
-    split = {k: v / 1e3 / n for k, v in split.items()}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
 
     # K1 and K6 at the step's shape, with the step's draws
     x, _ = st["batches"][0]
@@ -3175,34 +3143,383 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
         k.update(bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
     out = {"phase": "train_times", "card": card, "model": c["model"]["type"], "batch": b,
-           "image": image, "median_step_ms": step_ms, "step_ms": [t * 1e3 for t in times],
-           "images_per_s": b / step_ms * 1e3, "max_memory_allocated_bytes": peak,
-           "k1": k1, "k6": k6,
-           "trace": {"steps": n, "wall_ms_per_step": wall_s * 1e3 / n,
-                     "device_busy_ms_per_step": busy_us / 1e3 / n,
-                     "known_kernel_rows": rows_seen, "known_kernel_rows_expected": rows_want,
-                     "kernel_launches_per_step": launches / n,
-                     "device_idle_share": 1 - busy_us / 1e6 / wall_s if busy_us else None,
-                     "device_idle_share_at_step_wall": (1 - busy_us / 1e3 / n / step_ms)
-                     if busy_us else None,
-                     "device_ms_per_step_by_stage": split,
-                     "convolution_kernels_ms_per_step": conv_us / 1e3 / n,
-                     "model_tflop_per_step": flop / 1e12,
-                     "model_flop_bound_ms": flop / FP32_OPS_PER_S * 1e3,
-                     "convolution_tflop_per_s": flop / (conv_us / n * 1e-6) / 1e12
-                     if conv_us else None,
-                     "stage_ranges_found": any(v > 0 for v in stages.values()),
-                     "top_device_ms_per_step": {k[:90]: v / 1e3 / n for k, v in top}},
-           "timing": "median_step_ms: host clock around each of 20 steps after 3 warm-up "
-                     "steps, synchronized; kernel_ms: device time from torch.profiler over 20 "
-                     "calls; kernel_graph_ms, by_op_graph_ms and by_cluster: CUDA-graph "
-                     "replay, as is K6's copy_graph_ms (PyTorch copying the same bytes); "
-                     "*_event_ms and plain_ms: CUDA events around back-to-back calls "
-                     "(K6's kernel_event_ms: the launch alone, 50 calls); "
-                     "the trace runs with the profiler on (host time inflated); "
-                     "convolution TFLOP/s counts 3x the forward's convolution and dense "
-                     "FLOPs against the convolution kernels' device time"}
+           "image": image, "k1": k1, "k6": k6,
+           "timing": "kernel_ms: device time from torch.profiler over 20 calls; "
+                     "kernel_graph_ms, by_op_graph_ms and by_cluster: CUDA-graph replay, as is "
+                     "K6's copy_graph_ms (PyTorch copying the same bytes); *_event_ms and "
+                     "plain_ms: CUDA events around back-to-back calls (K6's kernel_event_ms: "
+                     "the launch alone, 50 calls)"}
     emit(out)
+    return out
+
+
+# -------------------------------------------------- the ImageNet data path
+
+#: the JPEG listing the ImageNet phase writes: 10 classes, 1,280 train and 256
+#: val images with sides drawn from 256-512 px (ImageNet photographs'
+#: range), seeded smooth content (a small random image upscaled), quality 90
+IMAGENET_LISTING = {"classes": 10, "train": 1280, "val": 256, "side": (256, 512),
+                    "quality": 90, "seed": 11}
+#: the steps of each train_and_eval arm that a profiler traces (after the
+#: 6th step's end, through the 9th's)
+IMAGENET_TRACE = (6, 9)
+#: the search on the listing: 1 fold at cv_ratio 0.4, 1 phase-1 epoch, 2 TPE
+#: trials, the top one kept, phases 1-2; the preset's step schedule is defined for 90 or 270
+#: epochs only, so a 1-epoch run takes the cosine schedule (same lr and
+#: warmup)
+IMAGENET_SEARCH_FLAGS = ["--num-fold", "1", "--cv-ratio", "0.4", "--num-search", "2",
+                         "--num-top", "1", "--until", "2", "--phase1-epochs", "1",
+                         "--fold-quality-floor", "off", "lr_schedule.type=cosine"]
+
+
+def _write_jpeg_listing(root: str, spec: dict) -> dict:
+    """``train/`` and ``val/`` of seeded JPEGs, one ``n0000000c`` folder a
+    class, and the Kaggle ``train_cls.txt``/``val_cls.txt`` written by the
+    port's ``write_listfile``.  Each image is a random 6x6 image upscaled
+    bicubically to a side drawn from ``spec["side"]``, so its content is
+    smooth like a photograph's (white noise is unlike any photograph and
+    makes the files 5-10x larger); PIL encodes, in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import PIL.Image
+
+    from fast_autoaugment_tpu_torch.data.imagenet_tools import write_listfile
+
+    g = np.random.default_rng(spec["seed"])
+    jobs = []
+    for split in ("train", "val"):
+        for c in range(spec["classes"]):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d)
+            per_class, extra = divmod(spec[split], spec["classes"])
+            for i in range(per_class + (c < extra)):
+                w, h = (int(v) for v in g.integers(spec["side"][0], spec["side"][1] + 1, 2))
+                jobs.append((os.path.join(d, f"img{i:04d}.JPEG"), w, h,
+                             g.integers(0, 256, (6, 6, 3), dtype=np.uint8)))
+
+    def write(job):
+        path, w, h, small = job
+        PIL.Image.fromarray(small).resize((w, h), PIL.Image.BICUBIC).save(
+            path, quality=spec["quality"])
+        return os.path.getsize(path)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        sizes = list(pool.map(write, jobs))
+    lines = {split: write_listfile(os.path.join(root, split),
+                                   os.path.join(root, f"{split}_cls.txt"))
+             for split in ("train", "val")}
+    return {"images": len(jobs), "bytes": int(sum(sizes)), "listed": lines,
+            "mean_kb": sum(sizes) / len(sizes) / 1024, "write_s": time.perf_counter() - t0}
+
+
+def _decoder_vs_golden() -> dict:
+    """The loader's decode of the golden JPEGs (``tests/data/jpeg_golden``)
+    against what libjpeg makes of them, with the tolerance that
+    ``data/jpeg_golden.py`` states (0 for the libjpeg build)."""
+    from fast_autoaugment_tpu_torch.data import jpeg_golden, native_loader
+
+    name = native_loader.loaded_backend()
+    got = jpeg_golden.golden_arrays(native_loader._lib())
+    want = dict(np.load(jpeg_golden.GOLDEN_DIR / "libjpeg.npz"))
+    d = jpeg_golden.departure(got, want)
+    tol = {k: v if name == "nvjpeg" else {"max_abs": 0, "mean_abs": 0.0}
+           for k, v in jpeg_golden.NVJPEG_TOLERANCE.items()}
+    if not d["sizes_equal"] or d["failures"]:
+        fail(f"imagenet_main_path: the decoder misreads the golden JPEGs: {d}")
+    return {"decoder": name, "departure": d, "tolerance": tol}
+
+
+def _imagenet_kernels_vs_plain(dev, root: str) -> dict:
+    """K1, K6 and K5 against their plain versions on this phase's own data:
+    the first train batch as the trainer decodes it (the native loader,
+    ``random_crop_box`` boxes at 224), with the ImageNet draws of one key;
+    the train stack (K1 then K6) and the eval stack (K5)."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.data.datasets import load_dataset
+    from fast_autoaugment_tpu_torch.data.pipeline import BatchIterator, DecodeStats
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+    from fast_autoaugment_tpu_torch.ops import preprocess as pre
+    from fast_autoaugment_tpu_torch.ops import preprocess_imagenet as pi
+    from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
+    from fast_autoaugment_tpu_torch.train.trainer import resolve_policy_tensor
+
+    c = RESNET50
+    image = int(c.get("imgsize", 0) or 0) or 224
+    train, _ = load_dataset("imagenet", root)
+    it = BatchIterator(train, None, train_box_fn=lambda rng, w, h: pi.random_crop_box(
+        rng, w, h, image), imgsize=image, decoder="native", stats=DecodeStats())
+    x, _ = next(iter(it.train_epoch(c["batch"], 1)))
+    x = torch.from_numpy(x).to(dev)
+    pol = torch.from_numpy(resolve_policy_tensor(c["aug"])).to(dev)
+    d = PhiloxDraws().imagenet_draws(torch.tensor([3, 1], device=dev), batch=c["batch"],
+                                     policy_shape=tuple(pol.shape[:2]), height=image,
+                                     width=image, dispatch="exact", groups=8, device=dev)
+    xf = x.to(torch.float32).contiguous()
+    y1 = aug.apply_subpolicy_draws(xf, pol, d.sub_idx, d.policy)
+    p1 = aug.apply_subpolicy_draws_plain(xf, pol, d.sub_idx, d.policy)
+    y6, p6 = pi.imagenet_stack(y1, d), pi.imagenet_stack_plain(p1, d)
+    y5 = pi.imagenet_eval_batch(x)
+    p5 = pre.cifar_stack_plain(xf, pre.eval_draws(c["batch"], dev), cutout_length=0,
+                               mean=pre.IMAGENET_MEAN, std=pre.IMAGENET_STD)
+    torch.cuda.synchronize()
+    out = {}
+    for name, (got, want) in (("augment", (y1, p1)), ("imagenet_stack", (y6, p6)),
+                              ("cifar_stack", (y5, p5))):
+        diff = (got.float() - want.float()).abs()
+        out[name] = {"shape": list(got.shape), "differing_elements": int((diff > 0).sum()),
+                     "max_abs_err": float(diff.max()),
+                     "finite": bool(torch.isfinite(got.float()).all())}
+    out["decoded"] = it.stats.snapshot()
+    return out
+
+
+def _stream_busy(prof) -> dict:
+    """Device time by stream (µs) in a profile, and whether each is one of
+    the decoder's (its kernels all nvJPEG's, or copies only; the training
+    stream and cuDNN's and the graph's own streams run other kernels)."""
+    from torch.autograd import DeviceType
+
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0 \
+                or e.is_user_annotation() or e.name().startswith(ANNOTATIONS):
+            continue
+        s = by.setdefault(int(e.device_resource_id()), {"us": 0.0, "activities": 0, "top": {}})
+        s["us"] += e.duration_ns() / 1e3
+        s["activities"] += 1
+        s["top"][e.name()[:60]] = s["top"].get(e.name()[:60], 0.0) + e.duration_ns() / 1e3
+    for s in by.values():
+        s["decoder"] = all("nvjpeg" in name or name.startswith("Memcpy") for name in s["top"])
+        s["top"] = dict(sorted(s["top"].items(), key=lambda kv: -kv[1])[:3])
+    return by
+
+
+def _imagenet_arm(dev, conf: dict, root: str, save: str, graphed: bool) -> dict:
+    """One ``train_and_eval`` of `conf` on the listing at `root`, saving to
+    `save`: host-fed, each step one CUDA-graph replay (`graphed`) or the
+    eager step (``host_step="eager"``), under deterministic cuDNN.  Each
+    step is followed by a synchronize (its wall runs from the previous
+    step's end, so it holds the wait for the next decoded batch), and steps
+    :data:`IMAGENET_TRACE` are profiled.  The idle share is given twice:
+    over the union of all the device's work, the decoder's nvJPEG kernels
+    and copies included, and over the training's streams alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.train import trainer
+
+    marks, window = [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    # the builder that train_and_eval calls for this host_step, wrapped to
+    # time each step (the eager step itself is picked by the argument)
+    builder = "make_graphed_train_step" if graphed else "make_train_step"
+    make = getattr(trainer, builder)
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args):
+            out = step(*args)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if len(marks) == IMAGENET_TRACE[0]:
+                prof.start()
+                window.append(time.perf_counter())
+            elif len(marks) == IMAGENET_TRACE[1]:
+                window.append(marks[-1])
+                prof.stop()
+            return out
+
+        return run
+
+    setattr(trainer, builder, timed_make)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = trainer.train_and_eval(conf, root, save_path=save, evaluation_interval=1,
+                                        device=dev, host_step="graph" if graphed else "eager")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _kernels.launch_counts()
+    finally:
+        setattr(trainer, builder, make)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    n = IMAGENET_TRACE[1] - IMAGENET_TRACE[0]
+    window_s = window[1] - window[0]
+    busy = device_busy(prof)
+    by_stream = _stream_busy(prof)
+    decoder = frozenset(k for k, v in by_stream.items() if v["decoder"])
+    training = device_busy(prof, skip_streams=decoder)
+    # every thread's: the decoder's threads launch nvJPEG's kernels and copies
+    calls = _host_launches(prof)
+    image = int(conf.get("imgsize", 0) or 0) or 224
+    plan = _kernels.augment_plan(image, image, 2)
+    rows = kernel_counts(prof, (plan.kernel,) + K6_KERNELS)
+    seen = {"augment": rows[plan.kernel], "imagenet_stack": sum(rows[k] for k in K6_KERNELS)}
+    with open(save, "rb") as fh:
+        payload = fh.read()
+    return {"result": result, "payload": payload, "wall_s": wall, "launches": counts,
+            "steps": len(marks), "step_ms": steps_ms,
+            "median_step_ms": float(np.median(steps_ms)) if steps_ms else None,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+            "trace": {"steps": n, "wall_ms_per_step": window_s * 1e3 / n,
+                      "device_union_ms_per_step": busy["union_us"] / 1e3 / n,
+                      "device_idle_share": 1 - busy["union_us"] / 1e6 / window_s,
+                      "training_union_ms_per_step": training["union_us"] / 1e3 / n,
+                      "training_idle_share": 1 - training["union_us"] / 1e6 / window_s,
+                      "decoder_streams": len(decoder),
+                      "decoder_ms_per_step": sum(by_stream[k]["us"] for k in decoder) / 1e3 / n,
+                      "streams": busy["streams"], "by_stream": by_stream,
+                      "host_runtime_calls_per_step": sum(calls.values()) / n,
+                      "host_runtime_calls_per_step_by_name": {k: v / n
+                                                              for k, v in calls.items()},
+                      "kernel_records": seen}}
+
+
+def phase_imagenet_main_path(dev, workdir: str, card: str) -> dict:
+    """The ImageNet data path (``imagenet_main_path``): a JPEG listing
+    written here (:data:`IMAGENET_LISTING`); K1, K6 and K5 against their
+    plain versions on its first decoded batch; ``train_and_eval`` of
+    ``confs/resnet50.yaml`` (:data:`RESNET50`, ``epoch=1``: 10 steps of 128
+    at 224x224, then the 256 val images) twice from the same seed, the
+    host-fed step replayed as a CUDA graph and run eagerly, under
+    deterministic cuDNN, with the launch counts set to 0 just before each
+    and read just after: equal results and checkpoint bytes, the native
+    decoder by name, 0 decode failures, the launches the plans predict, the
+    kernel records of a traced stretch against the counters; ms per step,
+    the decode rate, runtime calls per step, the idle share and peak memory
+    of both; then ``search_cli`` on the listing (:data:`IMAGENET_SEARCH_FLAGS`),
+    which streams its fold through the same loader into the graphed TTA
+    and audit steps.  Both runs are cut to 1 epoch, under the cosine
+    schedule: the preset's step schedule is defined for 90 or 270 epochs
+    only."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.data import native_loader
+    from fast_autoaugment_tpu_torch.launch import search_cli
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "imagenet")
+    listing = _write_jpeg_listing(root, IMAGENET_LISTING)
+    backend = native_loader.backend()
+    t_build = time.perf_counter()
+    if not native_loader.available():
+        fail("imagenet_main_path: the native JPEG loader is not available on the card")
+    build_s = time.perf_counter() - t_build
+    golden = _decoder_vs_golden()
+    checks = _imagenet_kernels_vs_plain(dev, root)
+    # 1 epoch: the preset's step schedule exists for 90 or 270 epochs only
+    conf = dict(RESNET50, epoch=1, lr_schedule=dict(RESNET50["lr_schedule"], type="cosine"))
+    arms = {name: _imagenet_arm(dev, conf, root, os.path.join(workdir, f"imagenet_{name}.msgpack"),
+                                name == "graphed")
+            for name in ("graphed", "eager")}
+    steps_n = IMAGENET_LISTING["train"] // conf["batch"]
+    evals = -(-IMAGENET_LISTING["val"] // conf["batch"])
+    image = int(conf.get("imgsize", 0) or 0) or 224
+    per_call = _kernels.augment_plan(image, image, 2).launches
+    problems = []
+    for name, arm in arms.items():
+        n = steps_n + (1 if name == "graphed" else 0)  # the graph's warm-up step
+        want = {"augment": per_call * n, "cifar_stack": evals, "imagenet_stack": n}
+        arm["expected_launches"] = want
+        if arm["launches"] != want:
+            problems.append(f"{name}: launches {arm['launches']} != {want}")
+        loader = arm["result"]["loader"]
+        if loader["decoder"] != backend or loader["failures"] or \
+                loader["images"] != IMAGENET_LISTING["train"] + IMAGENET_LISTING["val"]:
+            problems.append(f"{name}: the loader {loader} (want {backend}, 0 failures)")
+        seen, traced = arm["trace"]["kernel_records"], arm["trace"]["steps"]
+        if seen != {"augment": per_call * traced, "imagenet_stack": traced}:
+            problems.append(f"{name}: the traced stretch holds {seen}, the counters "
+                            f"{per_call * traced} K1 and {traced} K6")
+        if not np.isfinite(arm["result"]["loss_train"]):
+            problems.append(f"{name}: the train loss is not finite")
+    drop = ("elapsed_sec", "loader")
+    same = {k: v for k, v in arms["graphed"]["result"].items() if k not in drop} == \
+        {k: v for k, v in arms["eager"]["result"].items() if k not in drop}
+    same_bytes = arms["graphed"].pop("payload") == arms["eager"].pop("payload")
+    if not (same and same_bytes):
+        problems.append("the graphed host-fed run differs from the eager one "
+                        f"(result equal {same}, checkpoint equal {same_bytes})")
+    for kind, bound in golden["tolerance"].items():
+        if golden["departure"][kind]["max_abs"] > bound["max_abs"] \
+                or golden["departure"][kind]["mean_abs"] > bound["mean_abs"]:
+            problems.append(f"the decoder departs from the libjpeg golden beyond the tolerance: "
+                            f"{golden}")
+    for name, r in checks.items():
+        if name != "decoded" and (r["differing_elements"] or not r["finite"]):
+            problems.append(f"{name} differs from its plain version on the listing: {r}")
+
+    # ---- the search on the listing: phases 1-2 through the lazy fold stream
+    save = os.path.join(workdir, "imagenet_search")
+    _kernels.reset_launch_counts()
+    ts = time.perf_counter()
+    with _LogLines() as log:
+        search = search_cli.main(["-c", os.path.join(REPO, "confs", "resnet50.yaml"),
+                                  "--dataroot", root, "--save-dir", save,
+                                  *IMAGENET_SEARCH_FLAGS])
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - ts
+    search_counts = _kernels.launch_counts()
+    trials = _read_json(os.path.join(save, "search_trials.json"))
+    final = _read_json(os.path.join(save, "final_policy.json"))
+    # a random model at chance may leave the audit nothing to keep: the
+    # policy file is written, possibly empty
+    if log.count("phase1: training fold") != 1 or sorted(trials) != ["0"] \
+            or len(trials["0"]) != 2 or not isinstance(final, list):
+        problems.append(f"the ImageNet search did not finish phases 1-2: trials {trials}, "
+                        f"final policy {final}")
+    if not all(search_counts[k] > 0 for k in ("augment", "cifar_stack", "imagenet_stack")):
+        problems.append(f"the ImageNet search launched {search_counts}")
+
+    decoded = {name: arm["result"]["loader"] for name, arm in arms.items()}
+    g, e = arms["graphed"], arms["eager"]
+    out = {"phase": "imagenet_main_path", "card": card, "listing": listing,
+           "decoder": backend, "loader_build_s": build_s, "decoder_vs_libjpeg_golden": golden,
+           "kernels_vs_plain": checks,
+           "tolerance": "kernels bitwise: 0 differing elements; arms: equal results "
+                        "and checkpoint bytes",
+           "model": conf["model"]["type"], "batch": conf["batch"], "image": image,
+           "steps": steps_n, "eval_batches": evals, "results_equal": same,
+           "checkpoints_equal": same_bytes,
+           "arms": {name: {k: v for k, v in arm.items() if k != "result"}
+                    for name, arm in arms.items()},
+           "result": {k: v for k, v in g["result"].items() if k != "loader"},
+           "loader": decoded,
+           "decode_images_per_s": {name: d["images"] / d["decode_s"] if d["decode_s"] else None
+                                   for name, d in decoded.items()},
+           "decode_ms_per_batch": {name: d["decode_s"] * 1e3 * conf["batch"] / d["images"]
+                                   for name, d in decoded.items()},
+           "graphed_over_eager_ms_per_step": g["median_step_ms"] / e["median_step_ms"],
+           "idle_share": {name: {k: arm["trace"][k]
+                                 for k in ("device_idle_share", "training_idle_share")}
+                          for name, arm in arms.items()},
+           "search": {"wall_s": search_s, "launches": search_counts,
+                      "trials": {k: len(v) for k, v in trials.items()},
+                      "final_policy_subs": len(final),
+                      "device_secs_phase1": search.get("device_secs_phase1"),
+                      "device_secs_phase2": search.get("device_secs_phase2")},
+           "phase_s": time.perf_counter() - t0,
+           "timing": "step_ms: the host clock between the ends of consecutive steps, each "
+                     "ended by a synchronize (the first step, with the graph's capture, "
+                     "excluded from the intervals); decode: the seconds inside the loader's "
+                     "calls (the prefetch worker, overlapped with the steps); trace: steps "
+                     f"{IMAGENET_TRACE[0] + 1}-{IMAGENET_TRACE[1]} profiled, device_idle_share = "
+                     "1 - the union of all device activity (the decoder's nvJPEG kernels and "
+                     "copies included) over their wall, training_idle_share = 1 - the union "
+                     "over the streams that are not the decoder's"}
+    emit(out)
+    if problems:
+        fail("imagenet_main_path: " + "; ".join(problems))
     return out
 
 
@@ -3218,9 +3535,11 @@ ZOO = (("shakeshake26_2x96d", "confs/shake26_2x96d_cifar.yaml", {}),
        ("efficientnet_b0_condconv8", "confs/efficientnet_b0_condconv.yaml",
         {"model.type": "efficientnet-b0-condconv"}))
 ZOO_EQUAL_STEPS = 3
-ZOO_WARMUP_STEPS = 3
-ZOO_TIMED_STEPS = 10
-ZOO_TRACE_STEPS = 3
+#: the zoo's warm-up, timed and traced steps (3, 10 and 3 before the
+#: ImageNet phase joined the script)
+ZOO_WARMUP_STEPS = 2
+ZOO_TIMED_STEPS = 6
+ZOO_TRACE_STEPS = 1
 #: the train_cli run of the zoo: the paper's Shake-Shake preset, one epoch
 ZOO_CLI_CONF = "confs/shake26_2x96d_cifar.yaml"
 
@@ -3376,9 +3695,10 @@ def phase_zoo_train_main_path(dev, st: dict, card: str) -> dict:
     launch counts set to 0 just before and read just after, against 3 steps
     with the plain versions from the same state and keys under deterministic
     cuDNN (parameters, BatchNorm statistics, EMA and metric sums bitwise);
-    then the median of 10 timed steps after 3 warm-up steps, images/s, the
-    peak device memory, and a profiled trace of 3 steps (idle share, device
-    time by stage, CondConv's share)."""
+    then the median of :data:`ZOO_TIMED_STEPS` timed steps after
+    :data:`ZOO_WARMUP_STEPS` warm-up steps, images/s, the peak device memory,
+    and a profiled trace of :data:`ZOO_TRACE_STEPS` (idle share, device time
+    by stage, CondConv's share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3496,9 +3816,10 @@ def phase_zoo_train_main_path(dev, st: dict, card: str) -> dict:
                      if condconv and union["union_us"] else None,
                      "stage_ranges_found": any(v > 0 for v in stages.values()),
                      "top_device_ms_per_step": {k[:90]: v / 1e3 / n for k, v in top}},
-           "timing": "median_step_ms: host clock around each of 10 steps after 3 warm-up steps, "
-                     "synchronized; step_event_ms: CUDA events around the same steps; the trace "
-                     "runs the next 3 steps with the profiler on, timed the same way; busy: the "
+           "timing": f"median_step_ms: host clock around each of {ZOO_TIMED_STEPS} steps after "
+                     f"{ZOO_WARMUP_STEPS} warm-up steps, synchronized; step_event_ms: CUDA events "
+                     f"around the same steps; the trace runs the next {ZOO_TRACE_STEPS} steps with "
+                     "the profiler on, timed the same way; busy: the "
                      "summed durations of the device's activities (by stage too), busy_union: "
                      "their union on the device's clock (streams overlap); idle shares: 1 - "
                      "busy_union over the traced steps' wall, and over step_event_ms"}
@@ -3585,7 +3906,7 @@ DISPATCH_N = 8
 #: steps timed between the first dispatch and the epoch's remainder, and
 #: steps traced: one dispatch of 8; 2 of the host feed, whose 3,300 runtime
 #: calls a step cost the profiler's post-processing about 3 s a step
-DISPATCH_TIMED_STEPS = 96
+DISPATCH_TIMED_STEPS = 48  # 96 before the ImageNet phase joined the script
 DISPATCH_TRACE_STEPS = {"host_fed": 2, "n1": 8, "n8": 8}
 #: K1 or K5 records the profiler may lose from a traced stretch
 LOST_RECORDS = 1
@@ -3631,14 +3952,17 @@ def _state_tensors(state) -> dict:
 def _dispatch_flagship_arms(dev, workdir: str) -> dict:
     """(a) ``train_and_eval`` of the flagship WRN-40-2 on ``synthetic_shapes``
     (600 train images: 4 steps an epoch; 2,000 test: 16 eval batches), 2
-    epochs, evaluation every epoch, in seven arms under deterministic cuDNN:
-    the host feed (``off``), the default (``auto``: N = 1, a graph replay a
-    step), ``on`` at N = 8 with a mid-epoch checkpoint every dispatch (one
-    dispatch of 4 an epoch), N = 3 (dispatches of 3 and 1, a mid-epoch
-    checkpoint each epoch) and that run resumed from its epoch-1
-    mid-epoch link; and N = 3 against the host feed with an EMA of 0.999.
-    Every arm's final checkpoint bytes and result dict must equal its host
-    feed's, and its launches the prediction."""
+    epochs, evaluation every epoch, in nine arms under deterministic cuDNN:
+    the eager host feed (``off_eager``: ``host_step="eager"``, the
+    reference), the host feed replaying a CUDA graph of its step (``off``),
+    the default (``auto``: N = 1, a graph replay a step), ``on`` at N = 8
+    with a mid-epoch checkpoint every dispatch (one dispatch of 4 an epoch),
+    N = 3 (dispatches of 3 and 1, a mid-epoch checkpoint each epoch) and
+    that run resumed from its epoch-1 mid-epoch link; and, with an EMA of
+    0.999 (its update inside the graphs), the eager host feed
+    (``off_ema_eager``), the graphed one and N = 3.  Every arm's final
+    checkpoint bytes and result dict must equal its eager host feed's, and
+    its launches the prediction."""
     import shutil
 
     import torch
@@ -3654,16 +3978,20 @@ def _dispatch_flagship_arms(dev, workdir: str) -> dict:
     spe, evals = 600 // c["batch"], 2 * -(-2000 // c["batch"])
     n3 = dict(device_cache="on", steps_per_dispatch=3, checkpoint_every_dispatch=1,
               ckpt_keep=4)
-    # (train_and_eval arguments, N, graphed, resume position, the arm it must equal)
-    arms = {"off": (dict(device_cache="off"), 1, False, 0, "off"),
-            "auto": ({}, 1, True, 0, "off"),
+    # (train_and_eval arguments, N, graphed, resume position, the arm it must
+    # equal): every graph is held against the eager host feed
+    eager = dict(device_cache="off", host_step="eager")
+    arms = {"off_eager": (eager, 1, False, 0, "off_eager"),
+            "off": (dict(device_cache="off"), 1, True, 0, "off_eager"),
+            "auto": ({}, 1, True, 0, "off_eager"),
             "on_n8": (dict(device_cache="on", steps_per_dispatch=8,
-                           checkpoint_every_dispatch=1), 8, True, 0, "off"),
-            "on_n3": (n3, 3, True, 0, "off"),
-            "on_n3_resumed": (n3, 3, True, 3, "off"),
+                           checkpoint_every_dispatch=1), 8, True, 0, "off_eager"),
+            "on_n3": (n3, 3, True, 0, "off_eager"),
+            "on_n3_resumed": (n3, 3, True, 3, "off_eager"),
             # the EMA's update inside the graph: the preset's optimizer with ema 0.999
-            "off_ema": (dict(device_cache="off"), 1, False, 0, "off_ema"),
-            "on_n3_ema": (n3, 3, True, 0, "off_ema")}
+            "off_ema_eager": (eager, 1, False, 0, "off_ema_eager"),
+            "off_ema": (dict(device_cache="off"), 1, True, 0, "off_ema_eager"),
+            "on_n3_ema": (n3, 3, True, 0, "off_ema_eager")}
     ema_conf = dict(conf, optimizer=dict(c["optimizer"], ema=0.999))
     out, problems = {}, []
     prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -3683,7 +4011,8 @@ def _dispatch_flagship_arms(dev, workdir: str) -> dict:
             torch.cuda.synchronize()
             _kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            result = train_and_eval(ema_conf if name.endswith("_ema") else conf, "",
+            ema = "_ema" in name
+            result = train_and_eval(ema_conf if ema else conf, "",
                                     save_path=path, evaluation_interval=1, device=dev, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -3691,8 +4020,8 @@ def _dispatch_flagship_arms(dev, workdir: str) -> dict:
             with open(path, "rb") as fh:
                 payload = fh.read()
             # with an EMA each split is evaluated twice: the raw and the EMA weights
-            want = _dispatch_expected_launches(spe, 2, n, evals * (2 if name.endswith("_ema")
-                                                                    else 1), graphed, start)
+            want = _dispatch_expected_launches(spe, 2, n, evals * (2 if ema else 1), graphed,
+                                               start)
             out[name] = {"result": result, "wall_s": wall, "launches": counts,
                          "expected_launches": want, "payload": payload}
             if counts != want:
@@ -3746,11 +4075,12 @@ def _flagship_state(dev, steps_per_epoch: int):
 
 def _dispatch_times(dev, card: str) -> dict:
     """(b) WRN-40-2 (the flagship) over a seeded CIFAR-10-sized set, batch
-    128, 390 steps an epoch, in three arms: the host feed (the trainer's:
-    gather on the host, upload, one eager step), the cache at N = 1 and at
+    128, 390 steps an epoch, in three arms: the eager host feed (gather on
+    the host, upload, one eager step; the trainer's host feed replays a
+    graph of the step), the cache at N = 1 and at
     N = 8 (dispatches of 8 and the epoch's remainder of 6; both replay one
     graph of a step).  Each arm runs the first 8 steps of an epoch (the
-    graph's capture), then 96 steps timed on the host's clock, synchronized
+    graph's capture), then 48 steps timed on the host's clock, synchronized
     at the ends, then the epoch's last 6; then 8 steps of the next epoch (2
     of the host feed) are traced for the device's idle share and the
     runtime calls that put work on the card per step; the peak memory is
@@ -3845,11 +4175,11 @@ def _dispatch_times(dev, card: str) -> dict:
                               "profile_postprocess_s": time.perf_counter() - t_post}}
         del state, optimizer
     out["card"] = card
-    out["timing"] = ("host clock, synchronized at the ends of 96 steps of an epoch (after its "
-                     "first 8, before its last 6); idle share = 1 - the union of the device's "
-                     "activities over the wall of 8 (host feed: 2) profiled steps of the next "
-                     "epoch; host "
-                     "launches = the runtime calls of HOST_LAUNCH_CALLS in that trace per step")
+    out["timing"] = (f"host clock, synchronized at the ends of {DISPATCH_TIMED_STEPS} steps of "
+                     "an epoch (after its first 8, before its last 6); idle share = 1 - the "
+                     "union of the device's activities over the wall of 8 (host feed: 2) "
+                     "profiled steps of the next epoch; host launches = the runtime calls of "
+                     "HOST_LAUNCH_CALLS in that trace per step")
     out["problems"] = problems
     return out
 
@@ -3921,7 +4251,7 @@ def _pyramid_dispatch(dev) -> dict:
 
 def phase_dispatch_main_path(dev, card: str) -> dict:
     """The device-resident data path on the card: (a) the flagship through
-    ``train_and_eval`` in seven arms, (b) ms per step, images/s, host launches
+    ``train_and_eval`` in nine arms, (b) ms per step, images/s, host launches
     per step, idle share and peak memory of the host feed, N = 1 and N = 8
     over a CIFAR-10-sized set, (c) PyramidNet-272 eager against graph
     replays.  A capture that fails raises, and fails the run."""
@@ -4097,6 +4427,12 @@ def main() -> int:
             phase_main_path(dev, workdir)
             phase_serve_plane(dev, workdir, card)
         return 0
+    if sys.argv[1:2] == ["--imagenet-only"]:  # the ImageNet data path's phase alone
+        _kernels.load_libraries()
+        print(card, flush=True)
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_imagenet_main_path(dev, workdir, card)
+        return 0
     if sys.argv[1:2] == ["--runtime-only"]:  # the search runtime's phases alone
         _kernels.load_libraries()
         print(card, flush=True)
@@ -4141,6 +4477,12 @@ def main() -> int:
         phase_search_runtime(dev, workdir, card, search)
     train_t = phase_train_times(dev, rn, card)
     del rn
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        imagenet = phase_imagenet_main_path(dev, workdir, card)
+    imagenet_launches = {k: sum(imagenet["arms"][a]["launches"][k] for a in imagenet["arms"])
+                         + imagenet["search"]["launches"][k]
+                         for k in ("augment", "cifar_stack", "imagenet_stack")}
     zoo, zoo_cli = zoo_phases(dev, card)
     dispatch = phase_dispatch_main_path(dev, card)
     at = next(r for r in rows if r["batch"] == 128)  # the largest serving shape
@@ -4175,7 +4517,8 @@ def main() -> int:
         "launches": main_path["launches"] + plane["launches"] + tta_path["launches"]["augment"]
         + graph_launches["augment"]
         + train_path["launches"]["augment"] + flagship["launches"]["augment"]
-        + search["launches"]["augment"] + zoo_launches["augment"] + cached["augment"],
+        + search["launches"]["augment"] + zoo_launches["augment"] + cached["augment"]
+        + imagenet_launches["augment"],
         "launches_by_path": {"serve": main_path["launches"],
                              "serve_plane": plane["launches"],
                              "tta": tta_path["launches"]["augment"],
@@ -4184,7 +4527,8 @@ def main() -> int:
                              "train_and_eval_wrn40_2": flagship["launches"]["augment"],
                              "search_wrn40_2": search["launches"]["augment"],
                              **zoo_by_path("augment"),
-                             "device_cache_wrn40_2_arms": cached["augment"]},
+                             "device_cache_wrn40_2_arms": cached["augment"],
+                             "imagenet_resnet50_jpeg": imagenet_launches["augment"]},
         "launches_per_call": {"serve_32": at["launches_per_call"],
                               "tta_32": k1["launches_per_call"],
                               "train_224": k1_train["launches_per_call"]},
@@ -4203,13 +4547,14 @@ def main() -> int:
         "launches": tta_path["launches"]["cifar_stack"] + graph_launches["cifar_stack"]
         + flagship["launches"]["cifar_stack"]
         + search["launches"]["cifar_stack"] + zoo_launches["cifar_stack"]
-        + cached["cifar_stack"],
+        + cached["cifar_stack"] + imagenet_launches["cifar_stack"],
         "launches_by_path": {"tta": tta_path["launches"]["cifar_stack"],
                              "tta_graphed_vs_eager": graph_launches["cifar_stack"],
                              "train_and_eval_wrn40_2": flagship["launches"]["cifar_stack"],
                              "search_wrn40_2": search["launches"]["cifar_stack"],
                              **zoo_by_path("cifar_stack"),
-                             "device_cache_wrn40_2_arms": cached["cifar_stack"]},
+                             "device_cache_wrn40_2_arms": cached["cifar_stack"],
+                             "imagenet_resnet50_jpeg_eval": imagenet_launches["cifar_stack"]},
         "train_and_eval_launches_are": f"{flagship['train_steps']} train steps + 1 warm-up "
                                        f"step of the graph + {flagship['eval_batches']} eval "
                                        "batches",
@@ -4221,9 +4566,11 @@ def main() -> int:
         "name": "imagenet_stack", "route": "cuda",
         "source": "fast_autoaugment_tpu_torch/csrc/imagenet.cu",
         "replaces": "fast_autoaugment_tpu/ops/preprocess_imagenet.py:191",
-        "launches": train_path["launches"]["imagenet_stack"] + zoo_launches["imagenet_stack"],
+        "launches": train_path["launches"]["imagenet_stack"] + zoo_launches["imagenet_stack"]
+        + imagenet_launches["imagenet_stack"],
         "launches_by_path": {"train_resnet50": train_path["launches"]["imagenet_stack"],
-                             **zoo_by_path("imagenet_stack")},
+                             **zoo_by_path("imagenet_stack"),
+                             "imagenet_resnet50_jpeg": imagenet_launches["imagenet_stack"]},
         "launches_per_call": {"train_224_float32": k6["launches_per_call"],
                               "train_224_uint8": train_t["k6"]["uint8"]["launches_per_call"]},
         "max_abs_err": check6["max_abs_err"],

@@ -1,10 +1,21 @@
-"""In-memory datasets and the CV split (``fast_autoaugment_tpu/data/datasets.py``).
+"""Dataset readers and the CV split (``fast_autoaugment_tpu/data/datasets.py``).
 
-:class:`ArrayDataset`, the CIFAR pickle reader (no download), and the
-deterministic numpy-only ``synthetic`` and ``synthetic_shapes`` datasets are
-copied; :func:`load_dataset` serves ``cifar10``, ``cifar100``,
-``reduced_cifar10`` and the ``synthetic*`` names.  SVHN (a ``.mat`` reader)
-and ImageNet (lazy JPEG listings, ROADMAP Queue 1 item 11) raise.
+:class:`ArrayDataset`, the readers and the deterministic numpy-only
+``synthetic`` and ``synthetic_shapes`` datasets are copied, and
+:func:`load_dataset` serves every name of the JAX registry: ``cifar10``,
+``cifar100``, ``reduced_cifar10`` (CIFAR pickle batches, no download),
+``svhn`` and ``reduced_svhn`` (``scipy.io.loadmat`` of the ``.mat`` files),
+``cifar10.1`` (the CIFAR-10 train set and the v6 ``.npy`` test set),
+``imagenet`` and ``reduced_imagenet`` (lazy JPEG listings: the images stay
+on disk as an object array of paths, decoded per batch by
+``data/pipeline.py``), and the ``synthetic*`` names.
+
+An ImageNet split is listed from ``{split}_cls.txt`` beside the split's
+folder when there is one, in either form: ``<relpath> <index> <label>``, or
+the Kaggle CLS-LOC ``<wnid>/<stem> <index>`` (labels are the ranks of the
+sorted wnids, extensionless stems get ``.JPEG``; a flat listing without
+``<wnid>/`` prefixes is refused, since its labels cannot be derived).
+Without a listfile the split's class folders are walked in sorted order.
 
 Split parity: the reference's reduced datasets and CV folds come from
 sklearn's ``StratifiedShuffleSplit(random_state=0)`` (``data.py:119,137,
@@ -25,15 +36,28 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 
-__all__ = ["ArrayDataset", "load_dataset", "cv_split"]
+__all__ = ["ArrayDataset", "load_dataset", "cv_split", "IDX120"]
+
+# reference data.py:154 - the fixed 120 ImageNet classes of reduced_imagenet
+IDX120 = [
+    16, 23, 52, 57, 76, 93, 95, 96, 99, 121, 122, 128, 148, 172, 181, 189,
+    202, 210, 232, 238, 257, 258, 259, 277, 283, 289, 295, 304, 307, 318,
+    322, 331, 337, 338, 345, 350, 361, 375, 376, 381, 388, 399, 401, 408,
+    424, 431, 432, 440, 447, 462, 464, 472, 483, 497, 506, 512, 530, 541,
+    553, 554, 557, 564, 570, 584, 612, 614, 619, 626, 631, 632, 650, 657,
+    658, 660, 674, 675, 680, 682, 691, 695, 699, 711, 734, 736, 741, 754,
+    757, 764, 769, 770, 780, 781, 787, 797, 799, 811, 822, 829, 830, 835,
+    837, 842, 843, 845, 873, 883, 897, 900, 902, 905, 913, 920, 925, 937,
+    938, 940, 941, 944, 949, 959,
+]
 
 
 @dataclass
 class ArrayDataset:
     """In-memory image classification dataset: uint8 NHWC + int labels.
 
-    ``lazy=True`` marks an object array of file paths (decoded per batch in
-    the JAX package); the port reads in-memory datasets only so far."""
+    ``lazy=True`` marks an object array of file paths instead of images
+    (ImageNet), decoded per batch by ``data/pipeline.py``."""
 
     images: np.ndarray
     labels: np.ndarray
@@ -179,6 +203,68 @@ def _load_cifar(dataroot: str, kind: str):
     )
 
 
+def _load_svhn(dataroot: str, split: str) -> ArrayDataset:
+    """SVHN ``{split}_32x32.mat``; labels 10 -> 0 as torchvision does."""
+    import scipy.io
+
+    mat = scipy.io.loadmat(os.path.join(dataroot, f"{split}_32x32.mat"))
+    images = np.transpose(mat["X"], (3, 0, 1, 2)).astype(np.uint8)
+    labels = mat["y"].reshape(-1).astype(np.int32) % 10
+    return ArrayDataset(images, labels, 10)
+
+
+def _load_imagenet_listing(dataroot: str, split: str) -> ArrayDataset:
+    """An ImageNet split as a lazy listing of ``{dataroot}/{split}``: from
+    ``{split}_cls.txt`` when present (the module docstring's two forms),
+    else by walking the class folders in sorted order."""
+    root = os.path.join(dataroot, split)
+    listfile = os.path.join(dataroot, f"{split}_cls.txt")
+    paths, labels = [], []
+    if os.path.exists(listfile):
+        with open(listfile) as fh:
+            lines = [ln.split() for ln in fh if ln.strip()]
+        if lines and len(lines[0]) >= 3:  # <relpath> <index> <label>
+            for rel, _idx, lb in lines:
+                paths.append(os.path.join(root, rel))
+                labels.append(int(lb))
+        else:  # Kaggle CLS-LOC: <wnid>/<stem> <index>
+            rels = [ln[0] for ln in lines]
+            flat = [r for r in rels if "/" not in r]
+            if flat:
+                raise ValueError(
+                    f"{listfile}: {len(flat)} entries lack a '<wnid>/' directory prefix "
+                    "(e.g. a flat val listing) - labels cannot be derived; move val into "
+                    "wnid folders with data/imagenet_tools.py prepare_val_folder and "
+                    "regenerate, or use the "
+                    "3-token '<relpath> <index> <label>' form")
+            class_to_idx = {w: i for i, w in enumerate(sorted({r.split("/")[0] for r in rels}))}
+            for rel in rels:
+                if not os.path.splitext(rel)[1]:
+                    rel += ".JPEG"
+                paths.append(os.path.join(root, rel))
+                labels.append(class_to_idx[rel.split("/")[0]])
+    else:
+        classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+        for lb, cls in enumerate(classes):
+            cdir = os.path.join(root, cls)
+            for name in sorted(os.listdir(cdir)):
+                paths.append(os.path.join(cdir, name))
+                labels.append(lb)
+    return ArrayDataset(np.asarray(paths, object), np.asarray(labels, np.int32), 1000,
+                        lazy=True)
+
+
+def _reduce_to_idx120(ds: ArrayDataset, idx) -> ArrayDataset:
+    """The samples of `idx` whose class is in :data:`IDX120`, relabelled
+    to their rank there (120 classes)."""
+    idx = np.asarray(idx)
+    idx = idx[np.isin(ds.labels[idx], IDX120)]
+    remap = {cls: i for i, cls in enumerate(IDX120)}
+    return ArrayDataset(ds.images[idx],
+                        np.asarray([remap[int(lb)] for lb in ds.labels[idx]], np.int32),
+                        120, lazy=True)
+
+
 def _synthetic_shapes(n_train: int = 600, n_test: int = 2000, size: int = 32,
                       noise: float = 12.0, fg_lo: float = 60.0, fg_hi: float = 130.0,
                       max_rot: float = 0.0, scale_lo: float = 1.0, scale_hi: float = 1.0):
@@ -248,11 +334,27 @@ def load_dataset(dataset: str, dataroot: str):
                                  scale_lo=0.7, scale_hi=1.3)
     if dataset.startswith("synthetic"):
         return _synthetic(100 if dataset.endswith("100") else 10)
-    if dataset.endswith("imagenet"):
-        raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet: lazy ImageNet listings and the host "
-            "JPEG decode are ROADMAP Queue 1 item 11")
-    if dataset in ("svhn", "reduced_svhn", "cifar10.1"):
-        raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet (ROADMAP Queue 1 item 8b)")
+    if dataset == "svhn":
+        train, extra = _load_svhn(dataroot, "train"), _load_svhn(dataroot, "extra")
+        merged = ArrayDataset(np.concatenate([train.images, extra.images]),
+                              np.concatenate([train.labels, extra.labels]), 10)
+        return merged, _load_svhn(dataroot, "test")
+    if dataset == "reduced_svhn":
+        train = _load_svhn(dataroot, "train")
+        train_idx, _ = _stratified_split(train.labels, test_size=73257 - 1000)  # 1000 kept
+        return train.subset(train_idx), _load_svhn(dataroot, "test")
+    if dataset == "imagenet":
+        return (_load_imagenet_listing(dataroot, "train"),
+                _load_imagenet_listing(dataroot, "val"))
+    if dataset == "reduced_imagenet":
+        train = _load_imagenet_listing(dataroot, "train")
+        test = _load_imagenet_listing(dataroot, "val")
+        train_idx, _ = _stratified_split(train.labels, test_size=len(train) - 50000)
+        return _reduce_to_idx120(train, train_idx), _reduce_to_idx120(test, np.arange(len(test)))
+    if dataset == "cifar10.1":
+        # the CIFAR-10.1 v6 test set (Recht et al.) with the CIFAR-10 train set
+        train, _ = _load_cifar(dataroot, "cifar10")
+        data = np.load(os.path.join(dataroot, "cifar10.1_v6_data.npy"))
+        labels = np.load(os.path.join(dataroot, "cifar10.1_v6_labels.npy"))
+        return train, ArrayDataset(data.astype(np.uint8), labels.astype(np.int32), 10)
     raise ValueError(f"invalid dataset name {dataset!r}")

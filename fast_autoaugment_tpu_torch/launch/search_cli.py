@@ -23,6 +23,13 @@ device it was.  The run is on ``cuda`` unless ``--device cpu`` asks for
 the CPU (the plain versions of the kernels); without a GPU it exits
 non-zero.
 
+Every preset of ``confs/`` runs, the ImageNet ones from JPEG files under
+``--dataroot`` (``train/`` and ``val/``, one ``<wnid>/`` folder a class, and
+``train_cls.txt``/``val_cls.txt`` listings when present): phase 1 trains on
+the host feed, each step one CUDA-graph replay, and phase 2 streams each
+fold's held-out crops through the native loader (libjpeg, or nvJPEG on a
+host without libjpeg; it raises on the card when neither builds).
+
 The runtime flags are the JAX CLI's: ``--async-pipeline on``
 (``--pipeline-actors N``, ``--pipeline-queue-depth D``), ``--watchdog
 {off,auto,SECONDS}``, ``--divergence-retries R``, ``--compile-cache DIR``,
@@ -56,7 +63,7 @@ from fast_autoaugment_tpu_torch.core.resilience import (
     install_signal_handlers,
 )
 from fast_autoaugment_tpu_torch.search.driver import search_policies, write_json_atomic
-from fast_autoaugment_tpu_torch.train.trainer import train_and_eval
+from fast_autoaugment_tpu_torch.train.trainer import HOST_STEPS, train_and_eval
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
 from fast_autoaugment_tpu_torch.utils.stats import paired_t_test
 
@@ -195,7 +202,11 @@ def build_parser() -> argparse.ArgumentParser:
         epilog="Not ported yet (ROADMAP Queue 1 item): " + ", ".join(
             f"{f} ({i})" for f, i in UNPORTED_FLAGS.items()))
     p.add_argument("-c", "--conf", required=True)
-    p.add_argument("--dataroot", default="./data")
+    p.add_argument("--dataroot", default="./data",
+                   help=("data folder: CIFAR's pickle batches, SVHN's .mat files, CIFAR-10.1's "
+                         ".npy files, or ImageNet's train/ and val/ folders of <wnid>/ JPEG "
+                         "folders (with train_cls.txt/val_cls.txt listings when present), "
+                         "read from disk and decoded per batch by the native loader"))
     p.add_argument("--save-dir", default="search_out")
     p.add_argument("--num-fold", type=int, default=5, help="K (reference cv_num=5)")
     p.add_argument("--cv-ratio", type=float, default=0.4)
@@ -232,6 +243,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "step on the card).  'auto' (default) = on for in-memory single-host "
                         "datasets, the host feed's training bit for bit (on the card under "
                         "deterministic cuDNN); 'on' errors where auto would fall back")
+    p.add_argument("--host-step", default="graph", choices=HOST_STEPS,
+                   help="the host feed's train step (--device-cache off, and every lazy "
+                        "dataset): 'graph' (default) replays one CUDA graph of the step on "
+                        "the card, 'eager' runs it eagerly, the reference the graph equals "
+                        "bit for bit under deterministic cuDNN (the CPU always runs it "
+                        "eagerly)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="N train steps per dispatch over the device cache (needs "
                         "--device-cache auto/on): one upload of N index rows, then N replays "
@@ -292,6 +309,7 @@ def _run(args, conf, draw_source) -> dict:
         random_control=args.phase3_random, trial_batch=args.trial_batch,
         aug_dispatch=args.aug_dispatch, aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep,
         device_cache=args.device_cache, steps_per_dispatch=args.steps_per_dispatch,
+        host_step=args.host_step,
         topup_trials=args.topup_trials, divergence_retries=args.divergence_retries,
         watchdog=args.watchdog, compile_cache=args.compile_cache,
         async_pipeline=args.async_pipeline, pipeline_actors=args.pipeline_actors,
@@ -360,6 +378,7 @@ def _run(args, conf, draw_source) -> dict:
                     metric="last", seed=seeds[run], aug_dispatch=args.aug_dispatch,
                     aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep,
                     device_cache=args.device_cache, steps_per_dispatch=args.steps_per_dispatch,
+                    host_step=args.host_step,
                     checkpoint_every_dispatch=args.ckpt_every_dispatch,
                     divergence_retries=args.divergence_retries, watchdog=args.watchdog,
                     compile_cache=args.compile_cache, device=args.device,

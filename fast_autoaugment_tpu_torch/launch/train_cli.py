@@ -4,6 +4,12 @@
     python -m fast_autoaugment_tpu_torch.launch.train_cli -c confs/wresnet40x2_cifar.yaml \\
         --dataroot /data --save ckpt/wrn.msgpack --tag wrn40x2
 
+Every preset of ``confs/`` runs: the ImageNet ones read JPEG files under
+``--dataroot`` (``train/`` and ``val/``, one ``<wnid>/`` folder a class, with
+``train_cls.txt``/``val_cls.txt`` listings when present), decoded per batch
+by the native loader in a prefetch thread, and each host-fed step is one
+CUDA-graph replay; SVHN reads ``{train,extra,test}_32x32.mat``.
+
 ``--save`` writes the checkpoint in the JAX package's format and resumes
 from it; ``--only-eval`` evaluates a saved checkpoint.  The run is on
 ``cuda`` unless ``--device cpu`` asks for the CPU (the plain versions of
@@ -29,7 +35,7 @@ from fast_autoaugment_tpu_torch.launch.search_cli import (
     require_device,
     run_with_exit_contract,
 )
-from fast_autoaugment_tpu_torch.train.trainer import train_and_eval
+from fast_autoaugment_tpu_torch.train.trainer import HOST_STEPS, train_and_eval
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
 
 __all__ = ["build_parser", "main"]
@@ -43,7 +49,11 @@ def build_parser() -> argparse.ArgumentParser:
         epilog="Not ported yet (ROADMAP Queue 1 item): " + ", ".join(
             f"{f} ({i})" for f, i in UNPORTED_FLAGS.items()))
     p.add_argument("-c", "--conf", required=True, help="YAML preset (confs/*.yaml)")
-    p.add_argument("--dataroot", default="./data")
+    p.add_argument("--dataroot", default="./data",
+                   help=("data folder: CIFAR's pickle batches, SVHN's .mat files, CIFAR-10.1's "
+                         ".npy files, or ImageNet's train/ and val/ folders of <wnid>/ JPEG "
+                         "folders (with train_cls.txt/val_cls.txt listings when present), "
+                         "read from disk and decoded per batch by the native loader"))
     p.add_argument("--save", default="", help="checkpoint path (.msgpack)")
     p.add_argument("--tag", default="", help="also log to train_{tag}.log")
     p.add_argument("--cv-ratio", type=float, default=0.0)
@@ -59,8 +69,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "graph of the step) - no per-step host image copy.  'auto' (default) "
                         "enables it for in-memory datasets on a single host (the host feed's "
                         "training bit for bit, on the card under deterministic cuDNN); lazy "
-                        "ImageNet datasets keep the host feed; 'on' errors where auto would "
+                        "ImageNet datasets keep the host feed (a CUDA-graph replay a step, "
+                        "batches decoded in a prefetch thread); 'on' errors where auto would "
                         "fall back")
+    p.add_argument("--host-step", default="graph", choices=HOST_STEPS,
+                   help="the host feed's train step (--device-cache off, and every lazy "
+                        "dataset): 'graph' (default) replays one CUDA graph of the step on "
+                        "the card, 'eager' runs it eagerly, the reference the graph equals "
+                        "bit for bit under deterministic cuDNN (the CPU always runs it "
+                        "eagerly)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="N train steps per dispatch over the device cache (needs "
                         "--device-cache auto/on): one upload of N index rows, then N replays "
@@ -96,6 +113,7 @@ def main(argv=None) -> dict:
         evaluation_interval=args.evaluation_interval, metric="last", seed=args.seed,
         aug_dispatch=args.aug_dispatch, aug_groups=args.aug_groups, ckpt_keep=args.ckpt_keep,
         device_cache=args.device_cache, steps_per_dispatch=args.steps_per_dispatch,
+        host_step=args.host_step,
         checkpoint_every_dispatch=args.ckpt_every_dispatch,
         divergence_retries=args.divergence_retries, watchdog=args.watchdog,
         compile_cache=args.compile_cache, device=args.device))

@@ -1,6 +1,17 @@
-"""The ImageNet train and eval stacks on the device, in PyTorch, with a
-hand-written CUDA kernel (``fast_autoaugment_tpu/ops/preprocess_imagenet.py``,
-the device side).
+"""The ImageNet train and eval stacks (``fast_autoaugment_tpu/ops/
+preprocess_imagenet.py``): the host's crop boxes, and the device side in
+PyTorch with a hand-written CUDA kernel.
+
+The host side (``:70-128``) picks each source image's crop before it is
+decoded and resized to the network's size: :func:`random_crop_box` is the
+TF sample-distorted-bounding-box rejection loop of
+``EfficientNetRandomCrop`` (reference ``data.py:267-320``) with its
+center-crop fallback, :func:`center_crop_box` the ``EfficientNetCenterCrop``
+box (``data.py:323-345``); both are bitwise the JAX functions for the same
+``np.random.Generator`` state.  ``data/pipeline.py`` hands them to the
+native loader, which crops and resizes in one pass;
+:func:`host_train_image` and :func:`host_eval_image` are the PIL path
+(bicubic), imported inside the functions and used on the CPU only.
 
 After the policy, ``_train_one`` (``:168-188``) takes each host-cropped
 image ``[S, S, 3]`` through:
@@ -33,12 +44,13 @@ sum, as in the augmentation kernel.
 On a CUDA tensor :func:`imagenet_stack` launches the kernel
 (``csrc/imagenet.cu``) or raises; only a CPU tensor goes to the plain
 version.  The eval stack is normalization alone, the CIFAR stack's kernel
-with the ImageNet constants.  The host side (crop boxes, bicubic resize)
-waits for the lazy ImageNet loader (ROADMAP Queue 1 item 11).
+with the ImageNet constants.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -62,9 +74,75 @@ from fast_autoaugment_tpu_torch.ops.preprocess import (
     random_hflip,
 )
 
-__all__ = ["PCA_EIGVAL", "PCA_EIGVEC", "JITTER_ORDERS", "ImageNetDraws", "lighting_rgb",
+__all__ = ["center_crop_box", "random_crop_box", "host_train_image", "host_eval_image",
+           "PCA_EIGVAL", "PCA_EIGVEC", "JITTER_ORDERS", "ImageNetDraws", "lighting_rgb",
            "color_jitter", "lighting", "imagenet_stack", "imagenet_stack_plain",
            "imagenet_train_batch", "imagenet_eval_batch"]
+
+def center_crop_box(width: int, height: int, imgsize: int):
+    """The ``EfficientNetCenterCrop`` box (``data.py:326-345``):
+    ``(left, top, right, bottom)`` of a square of side ``imgsize /
+    (imgsize + 32)`` of the short side."""
+    short = min(width, height)
+    crop_size = float(imgsize) / (imgsize + 32) * short
+    top = int(round((height - crop_size) / 2.0))
+    left = int(round((width - crop_size) / 2.0))
+    return left, top, left + crop_size, top + crop_size
+
+
+def random_crop_box(rng: np.random.Generator, width: int, height: int, imgsize: int,
+                    min_covered=0.1, aspect_ratio_range=(3.0 / 4, 4.0 / 3),
+                    area_range=(0.08, 1.0), max_attempts=10):
+    """The TF sample-distorted-bounding-box rejection loop
+    (``data.py:281-320``), drawing from `rng`; falls back to the center
+    crop."""
+    min_area = area_range[0] * width * height
+    max_area = area_range[1] * width * height
+    for _ in range(max_attempts):
+        aspect_ratio = rng.uniform(*aspect_ratio_range)
+        h = int(round(math.sqrt(min_area / aspect_ratio)))
+        max_h = int(round(math.sqrt(max_area / aspect_ratio)))
+        if max_h * aspect_ratio > width:
+            max_h = int((width + 0.5 - 1e-7) / aspect_ratio)
+            if max_h * aspect_ratio > width:
+                max_h -= 1
+        max_h = min(max_h, height)
+        if h >= max_h:
+            h = max_h
+        h = int(round(rng.uniform(h, max_h)))
+        w = int(round(h * aspect_ratio))
+        area = w * h
+        if area < min_area or area > max_area:
+            continue
+        if w > width or h > height:
+            continue
+        if area < min_covered * width * height:
+            continue
+        if w == width and h == height:
+            return center_crop_box(width, height, imgsize)
+        x = int(rng.integers(0, width - w + 1))
+        y = int(rng.integers(0, height - h + 1))
+        return x, y, x + w, y + h
+    return center_crop_box(width, height, imgsize)
+
+
+def host_train_image(img, rng: np.random.Generator, imgsize: int) -> np.ndarray:
+    """PIL image -> random-cropped, bicubic-resized uint8 ``[S, S, 3]``."""
+    import PIL.Image
+
+    box = random_crop_box(rng, img.width, img.height, imgsize)
+    out = img.crop(box).resize((imgsize, imgsize), PIL.Image.BICUBIC)
+    return np.asarray(out, np.uint8)
+
+
+def host_eval_image(img, imgsize: int) -> np.ndarray:
+    """PIL image -> center-cropped, bicubic-resized uint8 ``[S, S, 3]``."""
+    import PIL.Image
+
+    box = center_crop_box(img.width, img.height, imgsize)
+    out = img.crop(box).resize((imgsize, imgsize), PIL.Image.BICUBIC)
+    return np.asarray(out, np.uint8)
+
 
 # reference data.py:21-33
 PCA_EIGVAL = np.array([0.2175, 0.0188, 0.0045], np.float32)
@@ -99,12 +177,20 @@ class ImageNetDraws:
     centre: torch.Tensor
 
 
+@functools.lru_cache(maxsize=None)
+def _pca(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:data:`PCA_EIGVEC` and :data:`PCA_EIGVAL` on `device`, copied once: a
+    CUDA graph's capture may not copy from pageable host memory, and the
+    warm-up step before a capture makes them."""
+    return (torch.as_tensor(PCA_EIGVEC, device=device),
+            torch.as_tensor(PCA_EIGVAL, device=device))
+
+
 def lighting_rgb(alpha: torch.Tensor) -> torch.Tensor:
     """Per-image PCA offset ``[N, 3]``: ``(eigvec * alpha * eigval).sum(1)``
     in float32 (``_lighting``, ``:161-165``), the products and the
     three-term sum rounded in the reference's order."""
-    vec = torch.as_tensor(PCA_EIGVEC, device=alpha.device)
-    val = torch.as_tensor(PCA_EIGVAL, device=alpha.device)
+    vec, val = _pca(alpha.device)
     t = vec[None] * alpha.to(torch.float32)[:, None, :] * val[None, None, :]  # [N, 3, 3]
     return t[..., 0] + t[..., 1] + t[..., 2]
 

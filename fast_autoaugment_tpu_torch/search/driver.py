@@ -60,9 +60,20 @@ The runtime seams, as the JAX driver wires them (``:720-1260``,
   CUDA graph per policy shape on the card, none on the CPU; a census above
   its expectation writes the result with a ``failure`` record and raises.
 
+A fold's held-out split is uploaded once and replayed by every trial when
+the dataset is in memory; a lazy (on-disk) dataset, ImageNet, streams
+instead (JAX ``:398-434``): every evaluation decodes the fold anew through
+the prefetch worker (``data/pipeline.py prefetch``), with ``random_crop_box``
+boxes drawn from ``default_rng(0)`` (the same crops at every pass), full
+batches (the last padded), into the same graphed TTA and audit steps.  On
+ImageNet those steps augment with the ImageNet train stack
+(``make_tta_step(augment_fn=imagenet_augment_fn(cutout))``), as the JAX driver wires
+``imagenet_train_batch`` in (``:336-345``), at ``conf["imgsize"]`` or the
+model's input size.
+
 Refused, naming the ROADMAP item that ports them: fold stacking
 (``fold_stack`` != 0, item 10b); the work queue and the fleet transport
-(item 13).  ImageNet data is not ported (``load_dataset`` raises, item 11).
+(item 13).
 """
 
 from __future__ import annotations
@@ -92,9 +103,16 @@ from fast_autoaugment_tpu_torch.core.resilience import (
 )
 from fast_autoaugment_tpu_torch.core.watchdog import arm_dispatch_serializer, resolve_watchdog
 from fast_autoaugment_tpu_torch.data.datasets import cv_split, load_dataset
-from fast_autoaugment_tpu_torch.data.pipeline import device_batches, eval_batches
+from fast_autoaugment_tpu_torch.data.pipeline import (
+    BatchIterator,
+    device_batches,
+    eval_batches,
+    prefetch,
+    stage_batch,
+)
 from fast_autoaugment_tpu_torch.models import get_model, input_image_size, num_class
 from fast_autoaugment_tpu_torch.ops.augment import SEARCH_OP_NAMES
+from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import random_crop_box
 from fast_autoaugment_tpu_torch.policies.archive import (
     policy_decoder,
     policy_to_tensor,
@@ -116,6 +134,7 @@ from fast_autoaugment_tpu_torch.search.tta import (
     eval_audit,
     eval_tta,
     eval_tta_batched,
+    imagenet_augment_fn,
     make_audit_step,
     make_tta_step,
     prng_key,
@@ -299,11 +318,16 @@ class _FoldEval:
             model_conf.setdefault("precision", conf.get("precision", "f32"))
             self.model = get_model(model_conf, self.num_classes, device=self.dev)
             self.layout = flax_layout(self.model)
-            self.image = input_image_size(dataset_name, conf["model"]["type"])
-            kw = dict(num_policy=self.num_policy,
-                      cutout_length=int(conf.get("cutout", 0) or 0),
+            # conf['imgsize'] as train_and_eval reads it: phase 2 evaluates the
+            # fold models at the resolution they trained at
+            self.image = int(conf.get("imgsize", 0) or 0) or input_image_size(
+                dataset_name, conf["model"]["type"])
+            imagenet = dataset_name.endswith("imagenet")
+            cutout = int(conf.get("cutout", 0) or 0)
+            kw = dict(num_policy=self.num_policy, cutout_length=cutout,
                       aug_dispatch=self.aug_dispatch, aug_groups=self.aug_groups,
-                      draw_source=self.draw_source)
+                      draw_source=self.draw_source,
+                      augment_fn=imagenet_augment_fn(cutout) if imagenet else None)
             self.tta_step = make_tta_step(self.model, **kw)
             self.audit_step = make_audit_step(self.model, **kw)
             self.tta_step_batch = (make_tta_step(self.model, num_candidates=self.trial_batch,
@@ -325,17 +349,22 @@ class _FoldEval:
                     live[name].copy_(torch.from_numpy(arr))
             self._loaded = ident
 
-    def batches(self, fold: int) -> list:
+    def batches(self, fold: int):
         """The fold's held-out split in full batches (the last one padded,
-        so every batch has one shape), uploaded on first use."""
+        so every batch has one shape): uploaded on first use for an
+        in-memory dataset, a :class:`_FoldStream` for a lazy one."""
         self._build()
         with self._lock:
             if fold not in self._batches:
                 _train_idx, valid_idx = cv_split(self.total_train.labels, self.cv_ratio, fold)
                 batch = int(self.conf["batch"])
-                self._batches[fold] = device_batches(
-                    eval_batches(self.total_train, valid_idx, batch, pad_multiple=batch),
-                    self.dev)
+                if self.total_train.lazy:
+                    self._batches[fold] = _FoldStream(self.total_train, valid_idx, batch,
+                                                      self.image, self.dev)
+                else:
+                    self._batches[fold] = device_batches(
+                        eval_batches(self.total_train, valid_idx, batch, pad_multiple=batch),
+                        self.dev)
             return self._batches[fold]
 
     def policy_tensor(self, policies) -> torch.Tensor:
@@ -387,6 +416,33 @@ class _FoldEval:
         return float(out["top1_mean"])
 
 
+class _FoldStream:
+    """A lazy fold's held-out split as a stream (JAX ``_batches_locked``,
+    ``:398-434``): each iteration decodes the fold anew in the prefetch
+    worker, ``random_crop_box`` boxes drawn from ``default_rng(0)`` (so every
+    pass gives the same bytes), full batches with the last one padded, each
+    staged in pinned memory and copied to `device` in the worker as a
+    ``{"x", "y", "m"}`` dict.  The decoder is the native loader on the card
+    and ``"auto"`` on the CPU."""
+
+    def __init__(self, dataset, indices, batch: int, image: int, device):
+        box = lambda rng, w, h: random_crop_box(rng, w, h, image)  # noqa: E731
+        self.it = BatchIterator(dataset, indices, eval_box_fn=box, imgsize=image,
+                                decoder="native" if device.type == "cuda" else "auto")
+        self.batch, self.device = batch, device
+
+    def __len__(self):
+        return -(-len(self.it) // self.batch)
+
+    def _to_device(self, item) -> dict:
+        x, y, m = (t.to(self.device, non_blocking=True) for t in stage_batch(item, self.device))
+        return {"x": x, "y": y.to(torch.int64), "m": m}
+
+    def __iter__(self):
+        return prefetch(self.it.eval_epoch(self.batch, pad_multiple=self.batch),
+                        transform=self._to_device)
+
+
 def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                     cv_ratio: float = 0.4, num_policy: int = 5, num_op: int = 2,
                     num_search: int = 200, num_top: int = 10, smoke_test: bool = False,
@@ -401,7 +457,7 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                     work_queue=None, compile_cache: str = "off", async_pipeline="off",
                     pipeline_actors: int = 1, pipeline_queue_depth: int = 1,
                     telemetry_spec: str = "off", fleet_transport=None, topup_trials: int = 0,
-                    device="cuda", draw_source=None) -> SearchResult:
+                    device="cuda", draw_source=None, host_step: str = "graph") -> SearchResult:
     """Run phases 1 and 2; returns the final policy set and the accounting.
 
     The arguments are the JAX ``search_policies``' (its docstring has them
@@ -418,7 +474,8 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     extends a finished search's per-fold budget; `random_control` adds the
     random arm; `async_pipeline`, `pipeline_actors`, `pipeline_queue_depth`,
     `watchdog`, `divergence_retries`, `compile_cache` and `telemetry_spec`
-    are the runtime seams of the module docstring.  The unported options
+    are the runtime seams of the module docstring; `host_step` is
+    ``train_and_eval``'s, for phase 1's host-fed training.  The unported options
     raise."""
     if fold_stack not in (None, 0, "0"):
         _refuse(f"fold stacking (fold_stack={fold_stack!r})", "10b")
@@ -498,7 +555,7 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     # one watchdog for the trainer and the evaluations: fire counts add up
     train_kw = dict(ckpt_keep=ckpt_keep, device=dev, draw_source=draw_source,
                     device_cache=device_cache, steps_per_dispatch=steps_per_dispatch,
-                    divergence_retries=divergence_retries, watchdog=wd)
+                    divergence_retries=divergence_retries, watchdog=wd, host_step=host_step)
     fold_baselines: dict[int, float] = {}
     excluded_folds: list[int] = []
     # phase-1 training walls on one ledger, mirrored into the registry

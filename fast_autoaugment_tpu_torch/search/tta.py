@@ -57,6 +57,8 @@ microsecond.
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import threading
 from dataclasses import dataclass
 from typing import Callable
@@ -76,11 +78,12 @@ from fast_autoaugment_tpu_torch.ops.augment import (
     sample_imagenet,
 )
 from fast_autoaugment_tpu_torch.ops.preprocess import cifar_train_batch
-from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import ImageNetDraws
+from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import ImageNetDraws, imagenet_train_batch
 from fast_autoaugment_tpu_torch.ops.shake import ModelNoise
 
-__all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "prng_key", "cifar_augment_fn",
-           "make_tta_step", "make_audit_step", "eval_tta", "eval_tta_batched", "eval_audit"]
+__all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "prng_key",
+           "cifar_augment_fn", "imagenet_augment_fn", "make_tta_step", "make_audit_step",
+           "eval_tta", "eval_tta_batched", "eval_audit"]
 
 AUG_DISPATCH_MODES = ("exact", "grouped")
 
@@ -181,6 +184,20 @@ class PhiloxDraws:
                              order=ints[:, 1].contiguous(), factors=floats[:, :3].contiguous(),
                              alpha=floats[:, 3:].contiguous(), centre=ints[:, 2:].contiguous())
 
+    def imagenet_lane_draws(self, draw_keys, *, batch: int, num_sub: int, num_op: int,
+                            height: int, width: int, dispatch: str, groups: int,
+                            device) -> ImageNetDraws:
+        """The draws of D ``imagenet_train_batch`` calls, one per draw key
+        (``[D, 2]``), on the same `batch` images: draw-major lanes, as the
+        TTA step lays them out (the JAX step maps ``imagenet_train_batch``
+        over the split keys, ``search/tta.py:120-127``)."""
+        keys = self.key(draw_keys, device).reshape(-1, 2)
+        per_key = [self.imagenet_draws(k, batch=batch, policy_shape=(num_sub, num_op),
+                                       height=height, width=width, dispatch=dispatch,
+                                       groups=groups, device=device) for k in keys]
+        return ImageNetDraws(*(torch.cat([getattr(d, f.name) for d in per_key])
+                               for f in dataclasses.fields(ImageNetDraws)))
+
 
 def prng_key(seed: int) -> np.ndarray:
     """The words of ``jax.random.PRNGKey(seed)`` as a ``[2]`` uint32 array:
@@ -192,6 +209,29 @@ def check_aug_dispatch(mode: str) -> str:
     if mode not in AUG_DISPATCH_MODES:
         raise ValueError(f"aug_dispatch must be one of {AUG_DISPATCH_MODES}, got {mode!r}")
     return mode
+
+
+def imagenet_augment_fn(cutout_length: int) -> Callable:
+    """An ``augment_fn`` of the TTA and audit steps: the ImageNet train
+    stack (the policy, then flip/ColorJitter/lighting/normalize/cutout), as
+    the JAX driver wires ``imagenet_train_batch`` into its TTA and audit
+    steps (``search/driver.py:336-345``).  Its lanes take the draws of one
+    ImageNet train batch per draw key: its ``lane_draws`` names the draw
+    source's method that makes them (``PhiloxDraws.imagenet_lane_draws``)."""
+
+    def augment_fn(images: torch.Tensor, policy: torch.Tensor,
+                   draws: ImageNetDraws) -> torch.Tensor:
+        return imagenet_train_batch(images, draws, policy=policy, cutout_length=cutout_length)
+
+    augment_fn.lane_draws = "imagenet_lane_draws"
+    return augment_fn
+
+
+def _lane_draws(src, augment_fn: Callable) -> Callable:
+    """The draw source's method that makes `augment_fn`'s lane draws: the
+    one its ``lane_draws`` names, else ``draws`` (:class:`LaneDraws`, the
+    CIFAR stack's)."""
+    return getattr(src, getattr(augment_fn, "lane_draws", "draws"))
 
 
 def cifar_augment_fn(cutout_length: int) -> Callable:
@@ -286,17 +326,21 @@ class _Step:
                     sums[f].add_(v.to(sums[f].dtype))
         return sums
 
-    def sums(self, batches: list, policy, key, trace=None) -> dict:
-        """The fold's sums of every field over `batches`, batch i under key
+    def sums(self, batches, policy, key, trace=None) -> dict:
+        """The fold's sums of every field over `batches` (a list, or any
+        iterable of batches: a lazy fold's stream), batch i under key
         ``fold_in(key, i)`` (a ``[K]`` stack of keys folds each).  Each
         batch is one dispatch through the telemetry seam, and `trace(t0,
         t1)` (optional) receives each batch's window, which synchronizes
         after each batch (values never change).  On the card, graph capture
         or replay failures raise; the step's lock covers a fold's staging,
         replays and readback, so callers on other threads wait for it."""
-        if not batches:
+        batches = iter(batches)
+        first = next(batches, None)
+        if first is None:
             return None
-        dev = batches[0]["x"].device
+        batches = itertools.chain([first], batches)
+        dev = first["x"].device
         if dev.type != "cuda":
             return _eager_sums(self, batches, policy, key, trace)
         policy = torch.as_tensor(policy, dtype=torch.float32, device=dev)
@@ -304,16 +348,16 @@ class _Step:
         with self._lock:
             graphed = self._graphs.setdefault((tuple(policy.shape), tuple(key.shape)),
                                               _GraphedSums())
-            return graphed.run(self, batches, policy, key, trace)
+            return graphed.run(self, first, batches, policy, key, trace)
 
 
-def _eager_sums(step: _Step, batches: list, policy, key, trace=None) -> dict:
+def _eager_sums(step: _Step, batches, policy, key, trace=None) -> dict:
     """:meth:`_Step.sums` run eagerly: the step's call on each batch, its
     fields added in the step's order and precision.  It is the path on the
     CPU, and on the card the reference that the graphs are held against."""
-    dev = batches[0]["x"].device
     out_sums = None
     for i, batch in enumerate(batches):
+        dev = batch["x"].device
         t0 = mono()
         with dispatch_enqueue_guard():
             out = step(batch["x"], batch["y"], batch["m"], policy, step.fold_in(key, i, dev))
@@ -406,8 +450,8 @@ class _GraphedSums:
                 self.graphs[shape] = self._capture(step, batch, policy, key)
         return self.graphs[shape]
 
-    def run(self, step, batches, policy, key, trace) -> dict:
-        self._graph(step, batches[0], policy, key)
+    def run(self, step, first, batches, policy, key, trace) -> dict:
+        self._graph(step, first, policy, key)
         with dispatch_enqueue_guard():
             self.policy.copy_(policy, non_blocking=True)
             self.key.copy_(key, non_blocking=True)
@@ -454,16 +498,19 @@ def make_tta_step(model: torch.nn.Module, *, num_policy: int = 5, cutout_length:
     leading ``[K]``; all ``K * P * B`` lanes go through one launch per
     kernel and one forward.
 
-    `augment_fn(images [L, H, W, 3] float32, policy, draws: LaneDraws) ->
-    [L, 3, H, W]` replaces the CIFAR train stack.  ``aug_dispatch`` picks
-    how a multi-sub policy is sampled (``exact``: per image; ``grouped``:
-    per chunk of `aug_groups`).  Over a fold (:func:`eval_tta`) the step on
+    `augment_fn(images [L, H, W, 3] float32, policy, draws) -> [L, 3, H, W]`
+    is the train stack the lanes go through: :func:`cifar_augment_fn` (the
+    default) over :class:`LaneDraws`, or one whose ``lane_draws`` names the
+    draw source's method for its draws (:func:`imagenet_augment_fn`).
+    ``aug_dispatch`` picks how a multi-sub policy is sampled (``exact``: per
+    image; ``grouped``: per chunk of `aug_groups`).  Over a fold (:func:`eval_tta`) the step on
     the card replays one CUDA graph per batch, so an `augment_fn` that reads
     values on the host (the kernels' plain versions) runs there only eagerly,
     through ``_eager_sums``."""
     check_aug_dispatch(aug_dispatch)
     src = draw_source or PhiloxDraws()
     augment_fn = augment_fn or cifar_augment_fn(cutout_length)
+    lane_draws = _lane_draws(src, augment_fn)
     p = int(num_policy)
     model.eval()
 
@@ -478,8 +525,8 @@ def make_tta_step(model: torch.nn.Module, *, num_policy: int = 5, cutout_length:
         num_sub, num_op = int(pol.shape[1]), int(pol.shape[2])
         with record_function("tta.sampler"):
             draw_keys = src.split(key, p, dev).reshape(-1, 2)  # [K * P, 2]
-            d = src.draws(draw_keys, batch=b, num_sub=num_sub, num_op=num_op, height=h,
-                          width=w, dispatch=aug_dispatch, groups=aug_groups, device=dev)
+            d = lane_draws(draw_keys, batch=b, num_sub=num_sub, num_op=num_op, height=h,
+                           width=w, dispatch=aug_dispatch, groups=aug_groups, device=dev)
             if k > 1:  # candidate c's lanes index its own block of sub-policies
                 cand = torch.arange(k * p * b, device=dev) // (p * b)
                 d.sub_idx = (d.sub_idx.to(torch.int64) + cand * num_sub).to(torch.int32)
@@ -507,11 +554,13 @@ def make_audit_step(model: torch.nn.Module, *, num_policy: int = 5, cutout_lengt
     mean-over-draws top-1 of every sub-policy alone in one pass over
     ``S * P * B`` lanes.  Draw ``(s, p)`` takes key ``split(key, S * P)[s * P
     + p]`` and applies sub-policy s alone; a single-sub policy is sampled
-    the same way under either dispatch.  Over a fold (:func:`eval_audit`)
-    it replays one CUDA graph per batch on the card, as the TTA step does."""
+    the same way under either dispatch.  `augment_fn` is the TTA step's.
+    Over a fold (:func:`eval_audit`) it replays one CUDA graph
+    per batch on the card, as the TTA step does."""
     check_aug_dispatch(aug_dispatch)
     src = draw_source or PhiloxDraws()
     augment_fn = augment_fn or cifar_augment_fn(cutout_length)
+    lane_draws = _lane_draws(src, augment_fn)
     p = int(num_policy)
     model.eval()
 
@@ -522,8 +571,8 @@ def make_audit_step(model: torch.nn.Module, *, num_policy: int = 5, cutout_lengt
         s, num_op = int(subs.shape[0]), int(subs.shape[1])
         with record_function("tta.sampler"):
             draw_keys = src.split(key, s * p, dev).reshape(-1, 2)
-            d = src.draws(draw_keys, batch=b, num_sub=1, num_op=num_op, height=h, width=w,
-                          dispatch=aug_dispatch, groups=aug_groups, device=dev)
+            d = lane_draws(draw_keys, batch=b, num_sub=1, num_op=num_op, height=h, width=w,
+                           dispatch=aug_dispatch, groups=aug_groups, device=dev)
             d.sub_idx = (torch.arange(s * p * b, device=dev) // (p * b)).to(torch.int32)
         with record_function("tta.augment"):
             augmented = augment_fn(_lanes(images, s * p), subs, d)

@@ -29,7 +29,10 @@ A step's device work is :class:`StepBody`: it reads the step's counter,
 learning rate and EMA coefficients from a small device tensor
 (:meth:`StepBody.scalars`, made on the host from the state's counts), so
 nothing in it depends on a Python value that changes from step to step.
-:func:`make_train_step` runs one body per call (the host-fed path).
+:func:`make_train_step` runs one body per call, eagerly;
+:func:`make_graphed_train_step` (the trainer's host-fed path) replays one
+CUDA graph of it a step on ``cuda``, over static buffers that each batch is
+copied into.
 :func:`make_multistep_train_step` (``:381-469``) runs N bodies per dispatch
 over a device-resident dataset (``data/pipeline.py DeviceCache``), each
 gathering its batch by index: on the CPU as a loop, on ``cuda`` as N
@@ -82,7 +85,8 @@ from fast_autoaugment_tpu_torch.ops.shake import noise_sites
 from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws, check_aug_dispatch
 
 __all__ = ["TrainState", "create_train_state", "cifar_augment_fn", "imagenet_augment_fn",
-           "StepBody", "make_train_step_body", "make_train_step", "make_multistep_train_step",
+           "StepBody", "make_train_step_body", "make_train_step", "make_graphed_train_step",
+           "make_multistep_train_step",
            "make_eval_step", "make_replay_eval_step", "swapped_weights", "METRIC_KEYS"]
 
 #: the metric sums of a step, in the order of a sums buffer
@@ -263,9 +267,33 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, *, num_classes
         draw_source=draw_source)
 
     def step_fn(state: TrainState, images, labels, policy, key):
+        dev = policy.device
         scalars = torch.from_numpy(body.scalars(state.step, state.opt_state.count)[0])
-        metrics = body(state, images, labels, policy, key,
-                       scalars.to(images.device, non_blocking=True))
+        metrics = body(state, images.to(dev, non_blocking=True),
+                       labels.to(dev, non_blocking=True), policy, key,
+                       scalars.to(dev, non_blocking=True))
+        state.step += 1
+        state.opt_state.count += 1
+        return state, metrics
+
+    return step_fn
+
+
+def make_graphed_train_step(model: torch.nn.Module, optimizer: Optimizer, **kw) -> Callable:
+    """:func:`make_train_step` (same arguments and call) whose steps, on a
+    model on ``cuda``, replay one CUDA graph of the step
+    (:class:`_GraphedStep`): one copy of the batch into static buffers and
+    one replay a step, with the eager step's bits under deterministic cuDNN.
+    For a model on the CPU it returns :func:`make_train_step`'s step.  The
+    graph reads the draw source's key as a device tensor, so a draw source
+    that works on the host (a test's replayed JAX draws) needs the eager
+    step."""
+    if next(model.parameters()).device.type != "cuda":
+        return make_train_step(model, optimizer, **kw)
+    graphed = _GraphedStep(make_train_step_body(model, optimizer, **kw))
+
+    def step_fn(state: TrainState, images, labels, policy, key):
+        metrics = graphed(state, images, labels, policy, key)
         state.step += 1
         state.opt_state.count += 1
         return state, metrics
@@ -336,34 +364,104 @@ class _GraphedDispatch:
         self.row.add_(1)
 
     def _capture(self, state, *reads) -> None:
-        dev = reads[0].device
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        live = _state_tensors(state) + [reads[-1]]
+        self.graph, self.tally, _ = _capture_step(state, lambda: self._step(state, *reads),
+                                                  [reads[-1]])
+
+
+def _capture_step(state: TrainState, step: Callable, extra: list[torch.Tensor]) -> tuple:
+    """Capture ``step()`` (one train step over static tensors) as a CUDA
+    graph: a warm-up call on a side stream (cuDNN's and cuBLAS's plans,
+    autograd, the kernels' one-time set-up), every state tensor and `extra`
+    put back as they were, then the capture, under deterministic cuDNN
+    without autotuning whatever the caller's flags, ``thread_local`` (other
+    threads, the prefetch worker or the search pipeline's actors, may launch
+    and synchronize meanwhile) and under ``capture_guard``.  Returns
+    ``(graph, tally, out)``: the graph, the launches it recorded
+    (:func:`_kernels.counting_capture`) and the captured call's outputs,
+    which every replay rewrites."""
+    live = _state_tensors(state) + list(extra)
+    dev = live[0].device
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    with torch.no_grad():
+        saved = [t.detach().clone() for t in live]
+    side.wait_stream(main)
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        with torch.cuda.stream(side):
+            step()
+        main.wait_stream(side)
         with torch.no_grad():
-            saved = [t.detach().clone() for t in live]
+            for t, v in zip(live, saved):
+                t.copy_(v)
+        del saved
         side.wait_stream(main)
-        cudnn = torch.backends.cudnn
-        flags = cudnn.benchmark, cudnn.deterministic
-        cudnn.benchmark, cudnn.deterministic = False, True
-        try:
-            with torch.cuda.stream(side):
-                self._step(state, *reads)
-            main.wait_stream(side)
-            with torch.no_grad():
-                for t, v in zip(live, saved):
-                    t.copy_(v)
-            del saved
-            side.wait_stream(main)
-            graph = torch.cuda.CUDAGraph()
-            # thread_local: other threads (the search pipeline's actors) may
-            # launch and synchronize while this thread captures
-            with _kernels.counting_capture() as tally, \
-                    torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                self._step(state, *reads)
-        finally:
-            cudnn.benchmark, cudnn.deterministic = flags
-        self.graph, self.tally = graph, tally
+        graph = torch.cuda.CUDAGraph()
+        with _kernels.counting_capture() as tally, \
+                torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            out = step()
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+    main.wait_stream(side)
+    return graph, tally, out
+
+
+class _GraphedStep:
+    """The host-fed train step captured once as a CUDA graph, replayed once
+    a step.
+
+    Static device buffers hold the batch (``x``, ``y``) and the step's
+    scalars (:meth:`StepBody.scalars`: the step counter the key is folded
+    with, the learning rate, the EMA's coefficients); a step is one copy of
+    the batch into them (from pinned host memory the copy is asynchronous),
+    one of the scalars, and one replay.  The graph is captured at the first
+    call (:func:`_capture_step`); the tensors it reads besides its buffers
+    (the state, the policy, the key) must be the same objects at every call,
+    and every batch must have the first one's shape and dtype.  Each call
+    returns the step's metric sums as tensors of their own.  Capture or
+    replay failures raise."""
+
+    def __init__(self, body: StepBody):
+        self.body = body
+        self.graph = None
+
+    def __call__(self, state, images, labels, policy, key) -> dict:
+        dev = policy.device
+        scalars = torch.from_numpy(self.body.scalars(state.step, state.opt_state.count)[0])
+        if self.graph is None:
+            self.x = torch.empty(images.shape, dtype=images.dtype, device=dev)
+            self.y = torch.empty(labels.shape, dtype=labels.dtype, device=dev)
+            self.scalars = torch.empty(4, dtype=torch.float64, device=dev)
+            self._stage(images, labels, scalars)
+            with compilecache.timed_first("train_step"), capture_guard():
+                self.graph, self.tally, self.out = _capture_step(
+                    state, lambda: self.body(state, self.x, self.y, policy, key, self.scalars),
+                    [])
+            self.refs = self._refs(state, policy, key)
+        elif self._refs(state, policy, key) != self.refs:
+            raise ValueError("a graphed train step was called with other tensors than it "
+                             "captured")
+        elif (images.shape, images.dtype, labels.shape, labels.dtype) != \
+                (self.x.shape, self.x.dtype, self.y.shape, self.y.dtype):
+            raise ValueError(f"a graphed train step captured batches of {tuple(self.x.shape)} "
+                             f"{self.x.dtype}, got {tuple(images.shape)} {images.dtype}")
+        self._stage(images, labels, scalars)
+        self.graph.replay()
+        _kernels.count_replays(self.tally)
+        with torch.no_grad():
+            return {k: v.clone() for k, v in self.out.items()}
+
+    @staticmethod
+    def _refs(state, policy, key) -> tuple:
+        reads = [policy] + ([key] if torch.is_tensor(key) else [])
+        return tuple(t.data_ptr() for t in reads + _state_tensors(state))
+
+    def _stage(self, images, labels, scalars) -> None:
+        self.x.copy_(images, non_blocking=True)
+        self.y.copy_(labels, non_blocking=True)
+        self.scalars.copy_(scalars, non_blocking=True)
 
 
 def make_multistep_train_step(body: StepBody, *, steps_per_dispatch: int) -> Callable:

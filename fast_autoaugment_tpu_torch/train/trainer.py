@@ -22,21 +22,34 @@ Two data paths, as in the JAX package (``:367-375``, ``:601-760``):
   of a single step per run), on the CPU a loop of N steps, which is how
   the tests run it.  The train metrics add up on the device in one
   float32 chain over the epoch and are read once at its end;
-- the host feed (``device_cache="off"``): each batch is uploaded and goes
-  through one :func:`~fast_autoaugment_tpu_torch.train.steps.make_train_step`
-  call; the metric sums stay on the device until the epoch ends.
+- the host feed (``device_cache="off"``, and every lazy dataset): the
+  epoch's batches are made (for a lazy dataset, decoded) in a prefetch
+  worker thread that stages each into pinned host memory
+  (``data/pipeline.py prefetch``, ``stage_batch``; JAX ``:733-745``), and each
+  is one :func:`~fast_autoaugment_tpu_torch.train.steps.make_graphed_train_step`
+  call: on the card one copy into the captured graph's static buffers and
+  one replay, on the CPU the eager step; the metric sums stay on the device
+  until the epoch ends.  ``host_step="eager"`` runs the eager step on the
+  card too: the reference that the graph is held to.
 
 The state, the metrics and the result are those of the host feed at every
 N, bit for bit on the CPU, and on the card under deterministic cuDNN
 (``torch.backends.cudnn.deterministic``; the graph is captured under it
-whatever the caller's flags).  Either way the valid and test splits are put
-on the device at their first evaluation and summed there
-(``make_replay_eval_step``, ``:135-175``).
+whatever the caller's flags).  An in-memory split is put on the device at
+its first evaluation and summed there (``make_replay_eval_step``,
+``:135-175``); a lazy split is evaluated as a stream, batch by batch through
+the prefetch worker (JAX ``_run_eval``, ``:118-131``), so ImageNet's val set
+is never held on the card.
 
-The ImageNet wiring (``:342-410``: the ImageNet train stack as the step's
-augment function, normalization for eval) is here, but ImageNet data is
-not: ``load_dataset`` raises for it until the lazy loader is ported
-(ROADMAP Queue 1 item 11).
+The ImageNet wiring (``:342-410``): the image side is ``conf["imgsize"]`` or
+the model's input size; a lazy split is decoded with
+``random_crop_box`` boxes for training and ``center_crop_box`` boxes for
+evaluation (``ops/preprocess_imagenet.py``), by the native loader on the
+card (``decoder="native"``: it raises where it cannot be built, nothing
+drops to PIL) and as ``"auto"`` picks on the CPU; the ImageNet train stack
+is the step's augment function and normalization the eval's.  The result of
+a lazy run has ``loader``: the decoder, the images decoded, those that
+failed (zero-filled) and the seconds spent decoding.
 
 Checkpoints (``:447-522``, ``:836-850``): with ``save_path`` the state is
 saved at each new best metric in the JAX package's format
@@ -80,6 +93,7 @@ The entry point runs on ``cuda`` unless the caller passes ``device="cpu"``
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Any, Callable
@@ -106,14 +120,21 @@ from fast_autoaugment_tpu_torch.core.watchdog import dispatch_enqueue_guard, res
 from fast_autoaugment_tpu_torch.data.datasets import cv_split, load_dataset
 from fast_autoaugment_tpu_torch.data.pipeline import (
     BatchIterator,
+    DecodeStats,
     DeviceCache,
+    prefetch,
     resolve_device_cache,
     split_dispatch_chunks,
+    stage_batch,
     train_index_matrix,
 )
-from fast_autoaugment_tpu_torch.models import get_model, num_class
+from fast_autoaugment_tpu_torch.models import get_model, input_image_size, num_class
 from fast_autoaugment_tpu_torch.ops.optim import build_optimizer
-from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import imagenet_eval_batch
+from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import (
+    center_crop_box,
+    imagenet_eval_batch,
+    random_crop_box,
+)
 from fast_autoaugment_tpu_torch.ops.schedules import build_schedule
 from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
 from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws, prng_key
@@ -121,6 +142,8 @@ from fast_autoaugment_tpu_torch.train.steps import (
     METRIC_KEYS,
     create_train_state,
     imagenet_augment_fn,
+    make_eval_step,
+    make_graphed_train_step,
     make_multistep_train_step,
     make_replay_eval_step,
     make_train_step,
@@ -131,9 +154,12 @@ from fast_autoaugment_tpu_torch.utils import faultinject
 from fast_autoaugment_tpu_torch.utils.interop import load_flax_train_state, train_state_to_flax
 from fast_autoaugment_tpu_torch.utils.logging import get_logger, make_writers
 
-__all__ = ["AUG_ALIASES", "resolve_policy_tensor", "train_and_eval"]
+__all__ = ["AUG_ALIASES", "HOST_STEPS", "resolve_policy_tensor", "train_and_eval"]
 
 logger = get_logger("faa_torch.train")
+
+#: the host feed's train step: a CUDA-graph replay on the card, or eager
+HOST_STEPS = ("graph", "eager")
 
 # conf-name -> archive-name mapping (reference data.py:91-106)
 AUG_ALIASES = {
@@ -157,11 +183,6 @@ def resolve_policy_tensor(aug: Any) -> np.ndarray | None:
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
-def _upload(x: np.ndarray, y: np.ndarray, dev: torch.device):
-    return (torch.from_numpy(np.ascontiguousarray(x)).to(dev, non_blocking=True),
-            torch.from_numpy(np.asarray(y, np.int64)).to(dev, non_blocking=True))
 
 
 def _stacked_eval_splits(it: BatchIterator, batch: int, dev: torch.device) -> list:
@@ -212,6 +233,21 @@ def _run_eval(eval_step, groups: list, wd, step: int) -> dict:
     for g in groups:
         acc.add_dict(_monitored_dispatch(wd, "replay_eval", None, step, eval_step,
                                          g["x"], g["y"], g["m"]))
+    return acc.normalize()
+
+
+def _stream_eval(eval_step, it: BatchIterator, batch: int, dev: torch.device, wd,
+                 step: int) -> dict:
+    """A lazy split evaluated batch by batch: each decoded and staged in the
+    prefetch worker, copied to the device and summed there by one watched
+    dispatch (label ``eval``); the sums are read once."""
+    acc = Accumulator()
+    for x, y, m in prefetch(it.eval_epoch(batch),
+                            transform=functools.partial(stage_batch, device=dev)):
+        acc.add_dict(_monitored_dispatch(wd, "eval", None, step, eval_step,
+                                         x.to(dev, non_blocking=True),
+                                         y.to(dev, non_blocking=True),
+                                         m.to(dev, non_blocking=True)))
     return acc.normalize()
 
 
@@ -275,7 +311,8 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                    divergence_retries: int = 0, ckpt_keep: int = 2,
                    checkpoint_every_dispatch: int = 0, watchdog="off",
                    heartbeat: Callable | None = None,
-                   compile_cache: str = "off", device="cuda", draw_source=None) -> dict:
+                   compile_cache: str = "off", device="cuda", draw_source=None,
+                   host_step: str = "graph") -> dict:
     """Train one model under `conf` and evaluate it.
 
     Returns the reference-shaped result dict.  `metric` in {'last', 'train',
@@ -288,10 +325,14 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     (the port's Philox draws by default).  ``device_cache`` ("auto", "on",
     "off"), ``steps_per_dispatch`` (N, needs the cache) and
     ``checkpoint_every_dispatch`` (M, cache path only) pick the data path of
-    the module docstring; `save_path`, `only_eval` and `ckpt_keep` are its
+    the module docstring, and ``host_step`` (:data:`HOST_STEPS`) the host
+    feed's step: ``"graph"`` (a CUDA-graph replay on the card) or
+    ``"eager"``; `save_path`, `only_eval` and `ckpt_keep` are its
     checkpoint options; ``watchdog`` (``"off"``, ``"auto"``, seconds, or a
     shared ``DispatchWatchdog``), ``divergence_retries`` and
     ``compile_cache`` are the runtime seams of the module docstring."""
+    if host_step not in HOST_STEPS:
+        raise ValueError(f"host_step must be one of {HOST_STEPS}, got {host_step!r}")
     configure_compile_cache(compile_cache)
     wd = resolve_watchdog(watchdog)
     divergence_retries = max(0, int(divergence_retries))
@@ -318,10 +359,20 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
             f"gather); it is {'off' if device_cache == 'off' else 'unavailable (lazy dataset)'} "
             "here - use --device-cache auto/on with an in-memory dataset")
     checkpoint_every_dispatch = max(0, int(checkpoint_every_dispatch))
-    train_it = BatchIterator(total_train, train_idx)
-    valid_it = BatchIterator(total_train, valid_idx)
-    test_it = BatchIterator(testset)
     is_imagenet = dataset_name.endswith("imagenet")
+    # conf['imgsize'] overrides the model's input size (the reference
+    # evaluates ResNet-200 at 320 px, README.md:44-46)
+    image = int(conf.get("imgsize", 0) or 0) or input_image_size(dataset_name,
+                                                                 conf["model"]["type"])
+    it_kw = {}
+    if is_imagenet:
+        it_kw = dict(train_box_fn=lambda rng, w, h: random_crop_box(rng, w, h, image),
+                     eval_box_fn=lambda rng, w, h: center_crop_box(w, h, image))
+    it_kw.update(imgsize=image, decoder="native" if dev.type == "cuda" else "auto",
+                 stats=DecodeStats())
+    train_it = BatchIterator(total_train, train_idx, **it_kw)
+    valid_it = BatchIterator(total_train, valid_idx, **it_kw)
+    test_it = BatchIterator(testset, **it_kw)
     global_batch = int(conf["batch"])
     if not only_eval and len(train_idx) < global_batch:
         raise ValueError(
@@ -358,8 +409,10 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
         multi_step = make_multistep_train_step(make_train_step_body(model, optimizer, **step_kw),
                                                steps_per_dispatch=steps_per_dispatch)
     else:
-        train_step = make_train_step(model, optimizer, **step_kw)
+        make_step = make_train_step if host_step == "eager" else make_graphed_train_step
+        train_step = make_step(model, optimizer, **step_kw)
     eval_step = make_replay_eval_step(model, **eval_kw)
+    stream_eval_step = make_eval_step(model, **eval_kw)
     eval_splits: dict[str, list] = {}  # each split put on the device at its first evaluation
     pol = torch.as_tensor(policy if use_policy else np.zeros((1, 1, 3), np.float32),
                           device=dev)
@@ -368,6 +421,13 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     if draw_source is None:
         key = torch.as_tensor(key.astype(np.int64), device=dev)
 
+    def eval_split(split: str, it: BatchIterator) -> dict:
+        if it.dataset.lazy:
+            return _stream_eval(stream_eval_step, it, global_batch, dev, wd, int(state.step))
+        if split not in eval_splits:
+            eval_splits[split] = _stacked_eval_splits(it, global_batch, dev)
+        return _run_eval(eval_step, eval_splits[split], wd, int(state.step))
+
     def evaluate() -> dict:
         # empty splits are skipped, not reported as zeros (the reference
         # only evaluates real splits, train.py:272-280)
@@ -375,13 +435,11 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
         for split, it in (("valid", valid_it), ("test", test_it)):
             if len(it) == 0:
                 continue
-            if split not in eval_splits:
-                eval_splits[split] = _stacked_eval_splits(it, global_batch, dev)
-            norm = _run_eval(eval_step, eval_splits[split], wd, int(state.step))
+            norm = eval_split(split, it)
             out[split] = norm
             if state.ema is not None:
                 with swapped_weights(model, state.ema):
-                    norm_ema = _run_eval(eval_step, eval_splits[split], wd, int(state.step))
+                    norm_ema = eval_split(split, it)
                 # with EMA on, the reported numbers are the EMA model's
                 # (reference train.py:277-280); the raw ones stay under _raw
                 out[split + "_raw"], out[split + "_ema"], out[split] = norm, norm_ema, norm_ema
@@ -480,9 +538,9 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                 retries_done)
         else:
             acc = Accumulator()
-            for bi, (x, y) in enumerate(train_it.train_epoch(global_batch, epoch,
-                                                             seed=seed_epoch)):
-                xs, ys = _upload(x, y, dev)
+            batches = prefetch(train_it.train_epoch(global_batch, epoch, seed=seed_epoch),
+                               transform=functools.partial(stage_batch, device=dev))
+            for bi, (xs, ys) in enumerate(batches):
                 step_no = (epoch - 1) * steps_per_epoch + bi + 1
                 state, metrics = _monitored_dispatch(wd, "train_step", fi, step_no, train_step,
                                                      state, xs, ys, pol, key_live)
@@ -575,6 +633,8 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
         epoch += 1
     if retries_done:
         result["divergence_retries_used"] = retries_done
+    if total_train.lazy:
+        result["loader"] = train_it.stats.snapshot()
     result["elapsed_sec"] = time.time() - t_start
     for w in writers:
         w.close()

@@ -533,7 +533,31 @@ def test_train_and_eval_matches_jax(refs, monkeypatch):
         assert abs(float(calls[0][k]) - v) <= max(1e-4 * abs(v), 1.0 / 205 + 1e-7), k
 
 
-def test_train_and_eval_refuses_what_is_not_ported():
+def test_host_step_is_picked_once_and_explicitly():
+    """The host feed's step is picked by ``host_step`` (and the CLIs'
+    ``--host-step``), not by the tensors a call gets: a model on the CPU
+    gets ``make_train_step``'s eager step from ``make_graphed_train_step``,
+    and an unknown choice is refused."""
+    from fast_autoaugment_tpu_torch.launch import search_cli as SC
+    from fast_autoaugment_tpu_torch.launch import train_cli as TC
+
+    model = WideResNet(10, 1, 10)
+    opt = O.build_optimizer({"type": "sgd", "decay": 1e-4, "clip": 0}, lambda c: 0.05)
+    step = ST.make_graphed_train_step(model, opt, num_classes=10)
+    assert step.__qualname__ == ST.make_train_step(model, opt, num_classes=10).__qualname__
+    assert TR.HOST_STEPS == ("graph", "eager")
+    with pytest.raises(ValueError, match="host_step must be one of"):
+        TR.train_and_eval(TRAIN_CONF, "", device="cpu", host_step="fast")
+    conf = os.path.join(REPO, "confs", "wresnet40x2_cifar.yaml")
+    for cli in (SC, TC):
+        assert cli.parse_args(cli.build_parser(), ["-c", conf]).host_step == "graph"
+        assert cli.parse_args(cli.build_parser(), ["-c", conf, "--host-step", "eager"]
+                              ).host_step == "eager"
+        with pytest.raises(SystemExit):
+            cli.parse_args(cli.build_parser(), ["-c", conf, "--host-step", "fast"])
+
+
+def test_train_and_eval_refuses_what_is_not_ported(tmp_path):
     # the watchdog, the compile cache and divergence retries are ported
     # (tests/test_torch_resilience.py, tests/test_torch_runtime.py); multistep dispatch gathers from the device cache: the host feed refuses it
     with pytest.raises(ValueError, match="needs the device cache"):
@@ -541,8 +565,12 @@ def test_train_and_eval_refuses_what_is_not_ported():
                           steps_per_dispatch=4)
     with pytest.raises(ValueError, match="unknown device-cache mode"):
         TR.train_and_eval(TRAIN_CONF, "", device="cpu", device_cache="maybe")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TR.train_and_eval(dict(TRAIN_CONF, dataset="imagenet"), "", device="cpu")
+    # ImageNet is ported: a one-image listing loads (lazily, nothing decoded)
+    # and the run stops at the batch check
+    for split in ("train", "val"):
+        (tmp_path / f"{split}_cls.txt").write_text("n00000001/a.JPEG 1 1\n")
+    with pytest.raises(ValueError, match="1 examples < batch 128"):
+        TR.train_and_eval(dict(TRAIN_CONF, dataset="imagenet"), str(tmp_path), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TR.train_and_eval(TRAIN_CONF, "")  # CUDA is the default
@@ -628,8 +656,11 @@ def test_stratified_split_and_cifar_reader_match_jax(tmp_path):
     for name in ("synthetic", "synthetic100", "synthetic_shapes_n50"):
         for a, b in zip(D.load_dataset(name, ""), JD.load_dataset(name, "")):
             assert np.array_equal(a.images, b.images) and np.array_equal(a.labels, b.labels)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        D.load_dataset("imagenet", "")
+    # ImageNet is ported (tests/test_torch_imagenet_data.py holds it against JAX)
+    for split in ("train", "val"):
+        (tmp_path / f"{split}_cls.txt").write_text("n00000001/a.JPEG 1 1\n")
+    for ds in D.load_dataset("imagenet", str(tmp_path)):
+        assert ds.lazy and list(ds.labels) == [1] and ds.num_classes == 1000
 
 
 def test_train_batches_match_jax():
@@ -673,7 +704,8 @@ def test_chip_smoke_resnet50_constants_match_the_config():
 
 
 def test_training_modules_import_nothing_the_card_lacks():
-    """The training, search and model-zoo slices' modules and ``chip_smoke.py`` import in a fresh
+    """The training, search, model-zoo, runtime, serving and ImageNet data
+    slices' modules and ``chip_smoke.py`` import in a fresh
     interpreter without JAX, flax, the JAX package, sklearn, PyYAML,
     msgpack or PIL."""
     mods = ["fast_autoaugment_tpu_torch.train.trainer", "fast_autoaugment_tpu_torch.train.steps",
@@ -681,6 +713,9 @@ def test_training_modules_import_nothing_the_card_lacks():
             "fast_autoaugment_tpu_torch.ops.preprocess_imagenet",
             "fast_autoaugment_tpu_torch.models.resnet", "fast_autoaugment_tpu_torch.data.datasets",
             "fast_autoaugment_tpu_torch.data.pipeline"]
+    # the ImageNet data path's modules
+    mods += ["fast_autoaugment_tpu_torch.data." + m
+             for m in ("native_loader", "imagenet_tools", "jpeg_golden")]
     # the search slice's modules
     mods += ["fast_autoaugment_tpu_torch." + m for m in (
         "core.resilience", "core.msgpack", "core.checkpoint", "core.config", "utils.interop",
