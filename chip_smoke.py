@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --imagenet-only
+    python3 chip_smoke.py --sampler-only
     python3 chip_smoke.py --pair-with OTHER_CHECKOUT
 
 Run from the root of a checkout; it needs one CUDA card and ``nvcc``.  With
@@ -12,8 +13,8 @@ each printing one JSON line:
 
 1. environment: the card (``nvidia-smi``), torch and CUDA versions, and the
    seconds it took to build the kernels (``fast_autoaugment_tpu_torch/csrc/
-   augment.cu``, ``preprocess.cu`` and ``imagenet.cu``, one ``nvcc`` each,
-   in parallel);
+   augment.cu``, ``preprocess.cu``, ``imagenet.cu`` and ``sampler.cu``,
+   one ``nvcc`` each, in parallel);
 2. kernel vs plain version on the card, bitwise with the count of
    differing elements: the augmentation kernel (all 19 ops forced on with
    both mirror signs over a sweep of levels, then random draws under all
@@ -33,7 +34,17 @@ each printing one JSON line:
    uint8), launches per call against ``ops/_kernels.py imagenet_plan``);
    and every sampler's draws on the card against the CPU from the same keys,
    the ImageNet draws (lighting normals included) over 2^20 keys
-   (``lighting_cpu_vs_card``);
+   (``lighting_cpu_vs_card``); the draw sampler (K7) and the train noise
+   (K8) of ``csrc/sampler.cu`` against their plain versions on the card and
+   against the CPU, bitwise, at the main path's shapes (``sampler_vs_plain``:
+   exact draws at 1, 8, 32 and 128 lanes of 32x32 and 1 and 8 of 224x224,
+   the grouped serving call at 128 with 8 groups, the TTA step's 5 draw keys
+   x 128 lanes with 1-3 slots exact and grouped, the ImageNet train step's
+   128 lanes at 224x224 exact and grouped, each zoo model's noise at its
+   preset's batch, 4096 Beta(0.2) draws, permutations of 1, 64, 128 and
+   4096, the key entry), one launch a call, with their times by CUDA-graph
+   replay beside the plain versions' and their bounds
+   (``--sampler-only`` runs these three checks alone);
 3. the serving path: two ``serve_cli`` processes on the card (the shipped
    ``fa_reduced_cifar10`` archive at 32x32, grouped dispatch; one ImageNet
    sub-policy at 224x224, shapes 1,8, exact dispatch) answer npz, raw and
@@ -179,6 +190,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import signal
 import subprocess
@@ -286,6 +298,20 @@ def device_us(prof, name_part) -> float:
     return sum(device_us_of(e) for e in prof.key_averages() if any(p in e.key for p in parts))
 
 
+#: the draw kernels of csrc/sampler.cu: K7's three, K8's one
+SAMPLER_KERNELS = ("keys_kernel", "lanes_kernel", "grouped_kernel")
+NOISE_KERNELS = ("noise_kernel",)
+
+
+def device_kernel_counts(prof) -> dict[str, int]:
+    """Executions of each kernel in a profile (copies and memsets left out)."""
+    from torch.autograd import DeviceType
+
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))}
+
+
 def kernel_counts(prof, parts) -> dict[str, int]:
     """Kernel executions in a profile for each name part."""
     from torch.autograd import DeviceType
@@ -307,6 +333,32 @@ def records_vs_counters(prof, counts: dict, k1_name: str, tag: str) -> tuple[dic
                 for k, n in seen.items()
                 if n > counts.get(k, 0) or counts.get(k, 0) - n > LOST_RECORDS]
     return seen, problems
+
+
+#: the kernels whose launches each path's prediction holds exactly: K1, K5
+#: and K6 by the launch plans, the sampler (K7, ``sampler``) and the train
+#: noise (K8, ``train_noise``) by the path's draw calls
+#: (:data:`TTA_CALL_SAMPLER`, :func:`_step_draw_launches`)
+ALL_KERNELS = ("augment", "cifar_stack", "imagenet_stack", "sampler", "train_noise")
+#: K7 launches of a TTA or audit step call in a fold pass (``search/tta.py``):
+#: the batch key's fold_in, the split into the draw keys, the draws' record;
+#: a call given its key directly makes the last two
+TTA_CALL_SAMPLER = 3
+
+
+def _step_draw_launches(steps: int, noisy: bool = False) -> dict:
+    """K7 and K8 launches of `steps` train steps (``train/steps.py``): the
+    step counter's fold_in, the split into the augment and model keys and
+    the augment stack's record (K7); a model with noise sites or mixup
+    (`noisy`) adds the split of the model key (K7) and its noise and mixup
+    draws (one K8 launch)."""
+    return {"sampler": (4 if noisy else 3) * steps, "train_noise": steps if noisy else 0}
+
+
+def launches_differ(counts: dict, want: dict) -> bool:
+    """True where the launches in `counts` are not `want`'s, kernel by kernel."""
+    return {k: counts.get(k, 0) for k in ALL_KERNELS} != {k: want.get(k, 0)
+                                                           for k in ALL_KERNELS}
 
 
 def counts_since(before: dict) -> dict:
@@ -712,6 +764,16 @@ def _plain_on_card(aug, images, policy, sub, draws):
     return torch.clamp(out, 0, 255).to(torch.uint8).cpu().numpy()
 
 
+def _replica_sampler(stats: dict, tag: str) -> int:
+    """A replica's sampler launches (``/stats``), held to one a graph replay
+    after each shape's warm-up call: every dispatch draws in one launch."""
+    got = stats["kernel_launches"]["sampler"]
+    if got - stats["kernel_launches_warmup"]["sampler"] != stats["dispatches"]:
+        fail(f"replica {tag}: {got} sampler launches less the warm-ups are not its "
+             f"{stats['dispatches']} dispatches x 1")
+    return got
+
+
 def phase_main_path(dev, workdir: str) -> dict:
     import torch
 
@@ -859,11 +921,12 @@ def phase_main_path(dev, workdir: str) -> dict:
         if final["kernel_launches"]["augment"] - final["kernel_launches_warmup"]["augment"] \
                 != final["dispatches"] * per_call[id(grouped)]:
             fail("launch count drifted from dispatches x launches per call during the burst")
+        sampler = _replica_sampler(final, "grouped") + _replica_sampler(after[id(exact)], "exact")
         rcs = [r.stop() for r in replicas]
         if rcs != [0, 0]:
             fail(f"SIGTERM drain exit codes {rcs} (want 0): {grouped.tail()} {exact.tail()}")
-        emit({"phase": "drain", "exit_codes": rcs})
-        return {"launches": launches, "serve": serve}
+        emit({"phase": "drain", "exit_codes": rcs, "sampler_launches": sampler})
+        return {"launches": launches, "sampler_launches": sampler, "serve": serve}
     finally:
         for r in replicas:
             r.kill()
@@ -992,7 +1055,11 @@ def _arm_times(apply, imgs, key, calls: int = 50, traced: int = 20) -> dict:
         wall_s = time.perf_counter() - t0
     busy = device_busy(prof)
     host = _host_launches(prof)
+    kernels = device_kernel_counts(prof)
     return {"ms_per_call": ms, "traced_calls": traced,
+            "device_kernels_per_call": sum(kernels.values()) / traced,
+            "sampler_kernels_per_call": sum(v for k, v in kernels.items()
+                                            if any(n in k for n in SAMPLER_KERNELS)) / traced,
             "traced_ms_per_call": wall_s * 1e3 / traced,
             "host_runtime_calls_per_call": sum(host.values()) / traced,
             "host_runtime_calls": {k: v / traced for k, v in host.items()},
@@ -1031,6 +1098,12 @@ def _serve_graphs_bitwise(dev, card: str) -> dict:
                     if not np.array_equal(ap.apply(imgs, key), ap.apply_eager(imgs, key)):
                         problems.append(f"{ap.dispatch} {size}px shape {s} n {n}: "
                                         "graph != eager")
+    # each graph draws with one sampler launch (K7), then K1
+    tallies = {f"{ap.dispatch}_{size}_b{s}": dict(ap._graphs[s].tally)
+               for ap, size in ((cifar, 32), (single, 224)) for s in ap.shapes}
+    for name, tally in tallies.items():
+        if tally["sampler"] != 1 or tally["augment"] != 1:
+            problems.append(f"graph {name} holds {tally}, not 1 sampler and 1 K1 launch")
     imgs = g.integers(0, 256, (128, 32, 32, 3)).astype(np.uint8)
     key = np.uint32([0, 77])
     arms = {"graph": _arm_times(cifar.apply, imgs, key),
@@ -1054,7 +1127,7 @@ def _serve_graphs_bitwise(dev, card: str) -> dict:
            "capture_s": {"cifar_grouped_32": {s: r["sec"] for s, r in cifar.compile_log.items()},
                          "imagenet_exact_224": {s: r["sec"]
                                                 for s, r in single.compile_log.items()}},
-           "at_128x32x32": arms, "records_vs_counters": records,
+           "at_128x32x32": arms, "graph_launches": tallies, "records_vs_counters": records,
            "launches": counts_since(before),
            "timing": "host clock around 50 apply calls (each waits for its result), after 3 "
                      "warm-up calls; traced: 20 calls under torch.profiler, host runtime calls "
@@ -1420,12 +1493,15 @@ def phase_serve_plane(dev, workdir: str, card: str) -> dict:
                 fail(f"replica {k}: {replays} replayed launches != {st['dispatches']} "
                      f"dispatches x {per_call}")
             launches[k] = {"total": total, "warmup": st["kernel_launches_warmup"]["augment"],
-                           "dispatches": st["dispatches"]}
+                           "dispatches": st["dispatches"],
+                           "sampler": _replica_sampler(st, k)}
         out.update({"records_before_drain": records, "beats": beats,
                     "journal_segments": len(journal), "replica_launches": launches,
                     "in_process_launches": graphs["launches"],
                     "launches": graphs["launches"]["augment"]
                     + sum(v["total"] for v in launches.values()),
+                    "sampler_launches": graphs["launches"]["sampler"]
+                    + sum(v["sampler"] for v in launches.values()),
                     "stats_b": {k: stats_b.get(k) for k in ("dispatches", "requests",
                                                              "images_served", "reloads",
                                                              "traffic", "data_plane")},
@@ -1661,11 +1737,12 @@ def phase_tta_main_path(dev, st: dict) -> dict:
 
     # each of the four fold passes replays one CUDA graph a batch after one
     # warm-up call (the capture's launches count at each replay); the audit
-    # step is called once, eagerly
+    # step is called once, eagerly, with its key (no fold_in)
     calls = 4 * (n_batches + 1) + 1
     per_call = _kernels.augment_plan(32, 32, c["num_op"]).launches
-    want = {"augment": per_call * calls, "cifar_stack": calls, "imagenet_stack": 0}
-    if counts != want:
+    want = {"augment": per_call * calls, "cifar_stack": calls, "imagenet_stack": 0,
+            "sampler": TTA_CALL_SAMPLER * calls - 1, "train_noise": 0}
+    if launches_differ(counts, want):
         fail(f"TTA launch counts {counts} != {want} ({calls} step calls)")
     for tag, r in [("exact", exact), ("baseline", baseline), ("grouped", grouped)] + \
             [(f"batched[{k}]", r) for k, r in enumerate(batched)]:
@@ -1840,8 +1917,9 @@ def phase_tta_graphs(dev, st: dict, card: str) -> dict:
     n = len(batches)
     calls = 2 * (1 + ARM_TRIALS * n + TRACE_BATCHES) + 1 + 2 * n + 1 + TRACE_BATCHES
     want = {"augment": _kernels.augment_plan(32, 32, c["num_op"]).launches * calls,
-            "cifar_stack": calls, "imagenet_stack": 0}
-    if counts != want:
+            "cifar_stack": calls, "imagenet_stack": 0, "sampler": TTA_CALL_SAMPLER * calls,
+            "train_noise": 0}
+    if launches_differ(counts, want):
         problems.append(f"launch counts {counts} != {want} ({calls} step calls)")
     if fields["graph"] != fields["eager"]:
         problems.append(f"K = 1 fields graph {fields['graph']} != eager {fields['eager']}")
@@ -1850,6 +1928,13 @@ def phase_tta_graphs(dev, st: dict, card: str) -> dict:
     graphs = {"tta": census.executable_census(step_g),
               "tta_batched": census.executable_census(step_kg)}
     want_graphs = {"tta": 1, "tta_batched": 1}
+    # the launches each graph recorded: the batch key's fold_in, the draw
+    # keys' split and the record are K7's three, then K1 and K5
+    held = {name: {k: v for k, v in tally.items() if v}
+            for name, s in (("tta", step_g), ("tta_batched", step_kg))
+            for sums in s._graphs.values() for _, _, tally in sums.graphs.values()}
+    if any(h.get("sampler") != 3 for h in held.values()):
+        problems.append(f"TTA graphs hold {held}, not 3 sampler launches each")
     if graphs != want_graphs:
         problems.append(f"graph census {graphs} != {want_graphs}")
     if problems:
@@ -1862,7 +1947,7 @@ def phase_tta_graphs(dev, st: dict, card: str) -> dict:
            "k4_graph_trace": {"batches": TRACE_BATCHES, "kernel_records": k4_records,
                               "launches_counted": k4_counted},
            "graph_census": graphs, "graph_census_expected": want_graphs,
-           "launches": counts, "expected_launches": want,
+           "graph_launches": held, "launches": counts, "expected_launches": want,
            "timing": "host clock around eval_tta over the fold, synchronized, deterministic "
                      f"cuDNN, median of {ARM_TRIALS}; traced stretch: torch.profiler, device busy = the "
                      "union of the device's activities, idle = 1 - busy / the same stretch's "
@@ -1992,9 +2077,15 @@ def phase_tta_times(dev, st: dict, card: str, graphs: dict) -> dict:
     stages = _stage_device_us(prof)
     k1_us, k5_us = device_us(prof, K1_KERNELS), device_us(prof, "cifar_stack_kernel")
     n = TRACE_BATCHES
-    split_ms = {"sampler": stages["tta.sampler"], "augment_kernel_K1": k1_us,
+    # K1, K5 and K7 are launched through ctypes, outside the ranges' torch
+    # operators, so no range holds them (the tta.sampler range read 0 with
+    # K7 inside it): the sampler stage is its range's work and K7's kernels
+    # by name, augment_other the tta.augment range's work
+    k7_us = device_us(prof, SAMPLER_KERNELS)
+    split_ms = {"sampler": stages["tta.sampler"] + k7_us,
+                "sampler_kernels_K7": k7_us, "augment_kernel_K1": k1_us,
                 "cifar_stack_kernel_K5": k5_us,
-                "augment_other": stages["tta.augment"] - k1_us - k5_us,
+                "augment_other": stages["tta.augment"],
                 "model": stages["tta.model"], "reductions": stages["tta.reductions"]}
     split_ms = {k: v / 1e3 / n for k, v in split_ms.items()}
     top = sorted(((k, v) for k, v in by_name.items() if not k.startswith("tta.")),
@@ -2032,6 +2123,320 @@ def phase_tta_times(dev, st: dict, card: str, graphs: dict) -> dict:
 
 # ------------------------------------------------- lighting normals
 
+# ------------------------------------------------ K7 and K8 against plain
+
+#: the H100 SXM's int32 rate: 64 INT32 lanes an SM x 132 SMs x the 1,980 MHz
+#: boost clock (the Hopper architecture white paper)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+#: int32 operations of one Philox4x32-10 block: 10 rounds of 2 products
+#: (hi and lo each), 4 xors and 2 key increments; and of one compare of a
+#: stable sort of words (two compares, the word's and the index's, and a select)
+PHILOX_OPS, COMPARE_OPS = 100, 3
+#: the sampler's shapes on the main path: exact lanes of serving (32x32 and
+#: 224x224), the grouped serving call, the TTA step's 5 draw keys x 128
+#: lanes, the ImageNet train step's 128 lanes at 224x224
+SAMPLER_EXACT = ((1, 32), (8, 32), (32, 32), (128, 32), (1, 224), (8, 224))
+SAMPLER_PERMS = (1, 64, 128, 4096)
+BETA_DRAWS = 4096
+
+
+def _bits_differ(a, b) -> tuple[int, float]:
+    """Differing elements (float bits, ints, bools) and the largest absolute
+    difference of two results (tensors, or tuples and lists of them)."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        pairs = [_bits_differ(x, y) for x, y in zip(a, b)]
+        return sum(p[0] for p in pairs), max((p[1] for p in pairs), default=0.0)
+    if a is None or b is None:
+        return (0 if a is None and b is None else 1), 0.0
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.numel(), b.numel(), 1), float("inf")
+    if a.dtype in (torch.float32, torch.float64):
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+        n = int((a.view(bits) != b.view(bits)).sum())
+        err = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+        return n, err
+    return int((a != b).sum()), float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+
+
+def _draw_fields(d) -> tuple:
+    """The tensors of a LaneDraws, ImageNetDraws or ModelNoise, in order."""
+    import dataclasses
+
+    if hasattr(d, "tensors"):
+        return tuple(t for ts in d.tensors for t in ts)
+    return tuple(getattr(d, f.name) for f in dataclasses.fields(d))
+
+
+def _sort_compares(n: int) -> int:
+    """Compares of a sort of n words: n ceil(log2 n)."""
+    return n * math.ceil(math.log2(n)) if n > 1 else 0
+
+
+def _sampler_bound(blocks: float, compares: float, nbytes: float) -> dict:
+    """The least time of a draw call: its bytes in and out at the memory
+    rate, or its Philox and sort work at the int32 rate, the larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (blocks * PHILOX_OPS + compares * COMPARE_OPS) / INT32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "philox_blocks": blocks, "sort_compares": compares,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _mixup_plain(keys, alpha: float, num: int) -> tuple:
+    """The plain mixup draws of each key of ``keys [N, 2]``
+    (``search/tta.py mixup_draws_plain``): float32 Betas from ``split(key,
+    2)[0]`` and, with `num`, the first key's permutation of `num` from its
+    ``split(key, 2)[1]``."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import rng
+
+    pair = rng.split_plain(keys, 2)
+    lam = rng.beta_symmetric(pair[:, 0], alpha).to(torch.float32)
+    return (lam, rng.permutation(pair[0, 1], num)) if num else (lam,)
+
+
+def _mixup_draws(keys, alpha: float, num: int) -> tuple:
+    """:func:`_mixup_plain`'s draws by one K8 launch on the card (the
+    train-noise kernel's mixup keys), by the plain version on the CPU."""
+    from fast_autoaugment_tpu_torch.ops import _kernels, rng
+
+    if keys.device.type == "cpu":
+        return _mixup_plain(keys, alpha, num)
+    out = _kernels.train_noise(mix_keys=keys, perm_n=num, gamma=rng.gamma_constants(alpha))
+    return (out["lam"], out["perm"]) if num else (out["lam"],)
+
+
+def _noise_fns(src, sites, batch: int, alpha: float) -> tuple:
+    """One train step's noise and mixup draws (``PhiloxDraws.train_draws``:
+    one K8 launch on the card) and their plain version, as flat tuples."""
+    from fast_autoaugment_tpu_torch.ops.shake import ModelNoise
+    from fast_autoaugment_tpu_torch.search import tta
+
+    def kernel(k, d):
+        noise, lam, perm = src.train_draws(sites, batch, k[0], k[1], k[2], alpha, d)
+        return _draw_fields(noise) + ((lam, perm) if alpha else ())
+
+    def plain(k, d):
+        noise = ModelNoise.draw_plain(sites, batch, k[0], k[1])
+        return _draw_fields(noise) + (tta.mixup_draws_plain(k[2], batch, alpha) if alpha else ())
+
+    return kernel, plain
+
+
+def _step_draws_fns(src, sites, batch: int, alpha: float, imagenet: bool, num_sub: int):
+    """Every draw of one train step (``train/steps.py make_train_step_body``
+    and its augment function, exact dispatch, 2 slots) from a key ``[1, 2]``
+    and step 5: the kernels' path (K7 and K8 launches) and the plain
+    versions'."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import rng
+    from fast_autoaugment_tpu_torch.ops.shake import ModelNoise
+    from fast_autoaugment_tpu_torch.search import tta
+
+    hw = 224 if imagenet else 32
+
+    def kernel(k, d):
+        key_aug, key_model = rng.split(rng.fold_in(k[0], torch.full((), 5, device=d)), 2)
+        out = []
+        if sites or alpha:
+            km, ks, kd = rng.split(key_model, 3)
+            noise, lam, perm = src.train_draws(sites, batch, ks, kd, km, alpha, d)
+            out += [noise, lam, perm]
+        if imagenet:
+            return out + [src.imagenet_draws(key_aug, batch=batch, policy_shape=(num_sub, 2),
+                                             height=hw, width=hw, dispatch="exact", groups=8,
+                                             device=d)]
+        return out + [src.draws(key_aug, batch=batch, num_sub=num_sub, num_op=2, height=hw,
+                                width=hw, dispatch="exact", groups=8, device=d)]
+
+    def plain(k, d):
+        key_aug, key_model = rng.split_plain(
+            rng.fold_in_plain(k[0], torch.full((), 5, device=d)), 2)
+        out = []
+        if sites or alpha:
+            km, ks, kd = rng.split_plain(key_model, 3)
+            out += [ModelNoise.draw_plain(sites, batch, ks, kd) if sites else None]
+            out += list(tta.mixup_draws_plain(km, batch, alpha)) if alpha else [None, None]
+        lanes = key_aug.reshape(1, 2)
+        if imagenet:
+            return out + [tta.imagenet_draws_plain(lanes, batch, (num_sub, 2), hw, hw, False, 8)]
+        return out + [tta.lane_draws_plain(lanes, batch, num_sub, 2, hw, hw, False, 8)]
+
+    return kernel, plain
+
+
+def phase_sampler_vs_plain(dev) -> dict:
+    """K7 (``sampler``) and K8 (``train_noise``) against their plain versions
+    on the card and against the CPU, bitwise, at the main path's shapes; one
+    launch a call; their times by CUDA-graph replay beside the plain
+    versions' (CUDA events) and their bounds."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.core.config import load_config
+    from fast_autoaugment_tpu_torch.models import get_model, num_class
+    from fast_autoaugment_tpu_torch.ops import _kernels, rng
+    from fast_autoaugment_tpu_torch.ops import augment as aug
+    from fast_autoaugment_tpu_torch.ops.shake import noise_layout, noise_sites
+    from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
+    from fast_autoaugment_tpu_torch.search import tta
+
+    g = np.random.default_rng(12)
+    cpu = torch.device("cpu")
+    src = tta.PhiloxDraws()
+    cifar_sub = policy_to_tensor(load_policy("fa_reduced_cifar10")).shape[0]
+    inet_sub = policy_to_tensor(load_policy("fa_resnet50_rimagenet")).shape[0]
+
+    def keys(n):
+        return torch.from_numpy(g.integers(0, 2**32, (n, 2), dtype=np.int64))
+
+    cases = {}  # name: (kernel, fn(keys, dev) on the public path, plain fn(keys, dev), keys)
+    for lanes, hw in SAMPLER_EXACT:
+        ns = cifar_sub if hw == 32 else inet_sub
+        cases[f"exact_{lanes}x{hw}"] = (
+            "sampler", lambda k, d, hw=hw, ns=ns: aug.sample_exact(k, ns, 2, hw, hw),
+            lambda k, d, hw=hw, ns=ns: aug.sample_exact_plain(k, ns, 2, hw, hw), keys(lanes))
+    cases["grouped_128x32_g8"] = (
+        "sampler", lambda k, d: aug.sample_grouped(k[0], 128, 8, cifar_sub, 2, 32, 32),
+        lambda k, d: aug.sample_grouped_plain(k[0], 128, 8, cifar_sub, 2, 32, 32), keys(1))
+    for num_op in (1, 2, 3):
+        for dispatch in ("exact", "grouped"):
+            kw = dict(batch=128, num_sub=cifar_sub, num_op=num_op, height=32, width=32,
+                      groups=8)
+            cases[f"tta_5x128_op{num_op}_{dispatch}"] = (
+                "sampler", lambda k, d, kw=kw, dispatch=dispatch: _draw_fields(
+                    src.draws(k, dispatch=dispatch, device=d, **kw)),
+                lambda k, d, kw=kw, dispatch=dispatch: _draw_fields(tta.lane_draws_plain(
+                    k, kw["batch"], kw["num_sub"], kw["num_op"], 32, 32, dispatch == "grouped",
+                    8)), keys(5))
+    for dispatch in ("exact", "grouped"):
+        cases[f"imagenet_128x224_{dispatch}"] = (
+            "sampler", lambda k, d, dispatch=dispatch: _draw_fields(src.imagenet_draws(
+                k[0], batch=128, policy_shape=(inet_sub, 2), height=224, width=224,
+                dispatch=dispatch, groups=8, device=d)),
+            lambda k, d, dispatch=dispatch: _draw_fields(tta.imagenet_draws_plain(
+                k[:1], 128, (inet_sub, 2), 224, 224, dispatch == "grouped", 8)), keys(1))
+    zoo = {}
+    for name, path, overrides in ZOO:
+        conf = load_config(os.path.join(REPO, path), overrides=overrides)
+        model = get_model(dict(conf["model"], dataset=conf["dataset"]),
+                          num_class(conf["dataset"]), device="meta")
+        sites, b = noise_sites(model), int(conf["batch"])
+        alpha = float(conf.get("mixup", 0) or 0)
+        zoo[name] = (sites, b, alpha, conf["dataset"].endswith("imagenet"))
+        cases[f"noise_{name}"] = ("train_noise", *_noise_fns(src, sites, b, alpha), keys(3))
+    # mixup's draws of N keys in one launch: N Betas, the first key's
+    # permutation of n
+    cases[f"beta_{BETA_DRAWS}_0.2"] = (
+        "train_noise", lambda k, d: _mixup_draws(k, 0.2, 0),
+        lambda k, d: _mixup_plain(k, 0.2, 0), keys(BETA_DRAWS))
+    for n in SAMPLER_PERMS:
+        cases[f"permutation_{n}"] = ("train_noise", lambda k, d, n=n: _mixup_draws(k, 0.2, n),
+                                     lambda k, d, n=n: _mixup_plain(k, 0.2, n), keys(1))
+    cases["key_entry"] = (
+        "sampler", lambda k, d: (rng.fold_in(k[0], torch.tensor(2**33 + 5, device=d)),
+                                 rng.split(k, 5), rng.fold_in_range(k[1], 90),
+                                 *rng.blocks(k[:3], 128, 9)),
+        lambda k, d: (rng.fold_in_plain(k[0], torch.tensor(2**33 + 5, device=d)),
+                      rng.split_plain(k, 5), rng.fold_in_range_plain(k[1], 90),
+                      *rng.blocks_plain(k[:3], 128, 9)), keys(5))
+
+    rows, problems = {}, []
+    totals = {"sampler": [0, 0, 0.0], "train_noise": [0, 0, 0.0]}  # vs plain, vs CPU, err
+    for name, (kernel, fn, plain, k) in cases.items():
+        kd = k.to(dev)
+        before = _kernels.launch_counts()[kernel]
+        card = fn(kd, dev)
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()[kernel] - before
+        on_card = plain(kd, dev)
+        host = fn(k, cpu)
+        n_plain, err_plain = _bits_differ(card, on_card)
+        n_cpu, err_cpu = _bits_differ(card, host)
+        # keys_kernel runs once for each of the four key helpers of the case
+        want = 4 if name == "key_entry" else 1
+        rows[name] = {"kernel": kernel, "launches": launches, "differing_vs_plain": n_plain,
+                      "differing_vs_cpu": n_cpu, "max_abs_err": max(err_plain, err_cpu)}
+        totals[kernel][0] += n_plain
+        totals[kernel][1] += n_cpu
+        totals[kernel][2] = max(totals[kernel][2], err_plain, err_cpu)
+        if n_plain or n_cpu or launches != want:
+            problems.append(f"{name}: {rows[name]}")
+
+    # times: the kernel by graph replay, the plain version on the card by
+    # CUDA events, at the serving, TTA and train shapes
+    def timed(kernel, fn, plain, k, bound):
+        kd = k.to(dev)
+        before = _kernels.launch_counts()
+        fn(kd, dev)
+        launches = {n: v for n, v in counts_since(before).items() if v}
+        return {"kernel": kernel, "ms": graph_ms(lambda: fn(kd, dev), iters=20, replays=5),
+                "ms_source": "graph", "plain_ms": cuda_ms(lambda: plain(kd, dev), iters=5,
+                                                          warmup=1),
+                "launches_per_call": launches, **bound}
+
+    # the bounds count the work each function needs, not the kernels': a
+    # Philox block for each block of words it uses (the grouped sampler's
+    # min(groups, B) chunk picks, not the kernel's one a lane), one
+    # candidate a Gamma (the least a Beta needs), and n ceil(log2 n)
+    # compares for a stable sort of n words (the kernel counts n^2 ranks)
+    rec = lambda lanes, num_op, extra: lanes * (4 + 16 * num_op) + extra  # noqa: E731
+    b, d, chunks = 128, 5, 8
+    times = {
+        "serve_grouped_128x32": timed(*cases["grouped_128x32_g8"][:3], keys(1), _sampler_bound(
+            b * (1 + 2) + chunks, _sort_compares(b), 16 + rec(b, 2, 0))),
+        "serve_exact_128x32": timed(*cases["exact_128x32"][:3], keys(128), _sampler_bound(
+            b * (1 + 2), 0, 16 * b + rec(b, 2, 0))),
+        "tta_5x128_exact": timed(*cases["tta_5x128_op2_exact"][:3], keys(d), _sampler_bound(
+            d * b * (1 + 1 + 2 + 2), 0, 16 * d + rec(d * b, 2, 20 * d * b))),
+        "tta_5x128_grouped": timed(*cases["tta_5x128_op2_grouped"][:3], keys(d), _sampler_bound(
+            d * (b * (1 + 1 + 2 + 2) + chunks), d * _sort_compares(b),
+            16 * d + rec(d * b, 2, 20 * d * b))),
+        "imagenet_128x224_exact": timed(*cases["imagenet_128x224_exact"][:3], keys(1),
+                                        _sampler_bound(b * (1 + 3 + 1 + 2), 0,
+                                                       16 + rec(b, 2, 40 * b))),
+    }
+    for name, (sites, nb, alpha, _) in zoo.items():
+        lay = noise_layout(sites, nb)
+        # a fold_in a site, a block an item; mixup: split(mix key, 2), split(key_lam, 2),
+        # a candidate of each Gamma, the permutation's words
+        blocks = len(sites) + lay.items + (2 + 2 + 2 + nb if alpha else 0)
+        times[f"noise_{name}"] = timed(*cases[f"noise_{name}"][:3], keys(3), _sampler_bound(
+            blocks, _sort_compares(nb) if alpha else 0,
+            48 + lay.nbytes + (4 + 8 * nb if alpha else 0)))
+    # every draw of one train step (the step's key tree, the noise and mixup,
+    # the augment stack's records): the train.sampler stage of each zoo
+    # model's step and of ResNet-50's
+    steps_at = dict(zoo, resnet50=([], int(RESNET50["batch"]), 0.0, True))
+    for name, (sites, nb, alpha, imagenet) in steps_at.items():
+        kernel, plain = _step_draws_fns(src, sites, nb, alpha, imagenet,
+                                        inet_sub if imagenet else cifar_sub)
+        times[f"train_step_draws_{name}"] = timed("sampler", kernel, plain, keys(1), {})
+    out = {"phase": "sampler_vs_plain", "tolerance": "bitwise: 0 differing elements",
+           "cases": rows, "times": times,
+           "sampler": {"differing_vs_plain": totals["sampler"][0],
+                       "differing_vs_cpu": totals["sampler"][1],
+                       "max_abs_err": totals["sampler"][2]},
+           "train_noise": {"differing_vs_plain": totals["train_noise"][0],
+                           "differing_vs_cpu": totals["train_noise"][1],
+                           "max_abs_err": totals["train_noise"][2]},
+           "bound": "max(bytes in and out at 3.35 TB/s, (Philox blocks x 100 + sort compares "
+                    "x 3) int32 operations at 64 x 132 x 1.98 GHz), counting the function's "
+                    "work: the Philox blocks whose words it uses (min(groups, B) chunk picks, "
+                    "one candidate a Gamma) and n ceil(log2 n) compares a sort of n; the "
+                    "Box-Muller and Gamma float64 work is left out of the count",
+           "timing": "kernel: 20 calls captured in a CUDA graph, replayed 5 times between "
+                     "CUDA events; plain: 5 eager calls between CUDA events after 1 warm-up"}
+    emit(out)
+    if problems:
+        fail("sampler_vs_plain: " + "; ".join(problems))
+    return out
+
+
 #: keys of the lighting check: 2^20 and an odd remainder
 LIGHTING_KEYS = (1 << 20) + 37
 
@@ -2039,10 +2444,12 @@ LIGHTING_KEYS = (1 << 20) + 37
 def phase_lighting_cpu_vs_card(dev) -> dict:
     """The ImageNet stack's draws (``ops/augment.py sample_imagenet``: flip,
     jitter order, cutout centre, jitter factors and the Box-Muller lighting
-    normals) from the same keys on the CPU and on the card: ``ints`` and
-    ``floats`` must be the same bits."""
+    normals) from the same keys by the sampler kernel on the card (K7, one
+    launch) and by the plain version on the CPU: ``ints`` and ``floats``
+    must be the same bits."""
     import torch
 
+    from fast_autoaugment_tpu_torch.ops import _kernels
     from fast_autoaugment_tpu_torch.ops.augment import sample_imagenet
 
     n = LIGHTING_KEYS
@@ -2051,20 +2458,26 @@ def phase_lighting_cpu_vs_card(dev) -> dict:
     t0 = time.perf_counter()
     ints_cpu, floats_cpu = sample_imagenet(keys, 224, 224)
     cpu_s = time.perf_counter() - t0
+    keys_card = keys.to(dev)
+    before = _kernels.launch_counts()["sampler"]
     t0 = time.perf_counter()
-    ints_gpu, floats_gpu = sample_imagenet(keys.to(dev), 224, 224)
+    ints_gpu, floats_gpu = sample_imagenet(keys_card, 224, 224)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
+    launches = _kernels.launch_counts()["sampler"] - before
     ints_diff = int((ints_gpu.cpu() != ints_cpu).sum())
     bits_diff = int((floats_gpu.cpu().view(torch.int32) != floats_cpu.view(torch.int32)).sum())
     normals_diff = int((floats_gpu.cpu()[:, 3:].view(torch.int32)
                         != floats_cpu[:, 3:].view(torch.int32)).sum())
-    out = {"phase": "lighting_cpu_vs_card", "keys": n, "ints_differing": ints_diff,
+    out = {"phase": "lighting_cpu_vs_card", "compares": "the sampler kernel (csrc/sampler.cu "
+           "lanes_kernel) on the card with the plain version on the CPU",
+           "kernel_launches": launches, "keys": n, "ints_differing": ints_diff,
            "float_bits_differing": bits_diff, "normal_bits_differing": normals_diff,
            "normals_std": float(floats_cpu[:, 3:].std()), "cpu_s": cpu_s, "card_s": card_s}
     emit(out)
-    if ints_diff or bits_diff:
-        fail(f"ImageNet draws differ between the CPU and the card: {out}")
+    if ints_diff or bits_diff or launches != 1:
+        fail(f"ImageNet draws differ between the CPU and the card, or took other than one "
+             f"kernel launch: {out}")
     return out
 
 
@@ -2130,7 +2543,10 @@ def _search_expected_launches(epochs: int, audited: int, audit_folds: int,
     augmented arm through K1 too) with the test evaluations; each training
     run whose step is a CUDA graph (`graphed`: the device cache's, or the
     host feed's unless ``--host-step eager``) adds the graph's warm-up step,
-    and each CUDA graph of phase 2 and the audit one warm-up call."""
+    and each CUDA graph of phase 2 and the audit one warm-up call.  K7: every
+    train step's and TTA or audit call's draws, each trial's key
+    (``fold_in(key_fold, trial)``) and, past 4 audited sub-policies, the
+    two fold_ins of each audit chunk's key; the flagship draws no K8."""
     from fast_autoaugment_tpu_torch.ops import _kernels
 
     evals = len([e for e in range(1, epochs + 1) if e % 5 == 0 or e == epochs])
@@ -2150,9 +2566,14 @@ def _search_expected_launches(epochs: int, audited: int, audit_folds: int,
     # baselines, and up to 4 audited sub-policies) and, past 4 audited
     # sub-policies, the audit step's
     tta_warm = 2 + (1 if audited > 4 else 0)
+    train_steps = folds * (2 * epochs + warm) + 2 * (phase3_steps + warm)
+    key_folds = folds * 4 + (2 * audit_folds * -(-audited // 8) if audited > 4 else 0)
     return {"augment": per_call * (trials + audit_calls + phase3_steps + warm + tta_warm),
             "cifar_stack": phase1 + trials + audit_calls + 2 * (phase3_steps + phase3_evals)
-            + 4 * warm + tta_warm, "imagenet_stack": 0}
+            + 4 * warm + tta_warm, "imagenet_stack": 0,
+            "sampler": _step_draw_launches(train_steps)["sampler"]
+            + TTA_CALL_SAMPLER * (trials + audit_calls + tta_warm) + key_folds,
+            "train_noise": 0}
 
 
 def _read_json(path):
@@ -2237,11 +2658,11 @@ def phase_search_main_path(dev, workdir: str, card: str, epochs: int = SEARCH_EP
             problems.append(f"phase-3 {arm} arm has no top1_test: {p3}")
     want = _search_expected_launches(epochs, len(audit.get("scores", [])),
                                      len(audit.get("audit_folds", [])))
-    if counts != want:
+    if launches_differ(counts, want):
         problems.append(f"search launch counts {counts} != {want}")
     want_off = _search_expected_launches(epochs, len(audit.get("scores", [])),
                                          len(audit.get("audit_folds", [])), graphed=False)
-    if off_counts != want_off:
+    if launches_differ(off_counts, want_off):
         problems.append(f"host-fed search launch counts {off_counts} != {want_off}")
     arms_equal = {}
     for name in ("search_trials.json", "final_policy.json", "audit.json"):
@@ -2504,6 +2925,7 @@ def phase_search_runtime(dev, workdir: str, card: str, serial: dict) -> dict:
     import torch
 
     from fast_autoaugment_tpu_torch.core.watchdog import DispatchWatchdog
+    from fast_autoaugment_tpu_torch.ops import _kernels
 
     problems = []
     # ---- (c)'s drills through train_cli, started first: they run beside (b)
@@ -2597,10 +3019,11 @@ def phase_search_runtime(dev, workdir: str, card: str, serial: dict) -> dict:
     if scrape is None:
         problems.append(f"GET /metrics never showed the tta dispatch histogram ({scrapes} "
                         "scrapes)")
-    if not (first_cc.get("misses") == 3 and first_cc.get("hits") == 0):
-        problems.append(f"first process compile cache {first_cc} (want 3 misses, 0 hits)")
+    libs = len(_kernels.SOURCES)  # one build, then one load, of each kernel library
+    if not (first_cc.get("misses") == libs and first_cc.get("hits") == 0):
+        problems.append(f"first process compile cache {first_cc} (want {libs} misses, 0 hits)")
     again_cc = again["compile_cache"]
-    if again["rc"] != 0 or not (again_cc.get("hits") == 3 and again_cc.get("misses") == 0):
+    if again["rc"] != 0 or not (again_cc.get("hits") == libs and again_cc.get("misses") == 0):
         problems.append(f"second process on the cache: rc {again['rc']}, {again_cc}")
     fold0_test = (again["result"] or {}).get("top1_test")
     if fold0_test != _read_json(os.path.join(save, fold0 + ".meta.json"))["metrics"]["top1_test"]:
@@ -2974,8 +3397,9 @@ def phase_train_main_path(dev, st: dict) -> dict:
     k6_f32 = _kernels.imagenet_plan(st["image"], st["image"], torch.float32).launches
     k6_u8 = _kernels.imagenet_plan(st["image"], st["image"], torch.uint8).launches
     want = {"augment": per_call * calls, "cifar_stack": 0,
-            "imagenet_stack": k6_f32 * calls + k6_u8}
-    if counts != want:
+            "imagenet_stack": k6_f32 * calls + k6_u8,
+            **_step_draw_launches(calls + 1, _noisy(st["model"], 0.0))}
+    if launches_differ(counts, want):
         fail(f"train launch counts {counts} != {want} ({calls} steps with a policy, 1 without)")
     grouped_loss = float(mg["loss"] / mg["num"])
     u8_loss = float(mu["loss"] / mu["num"])
@@ -3056,7 +3480,7 @@ def phase_train_flagship(dev) -> dict:
     emit(out)
     if set(result) != TRAIN_RESULT_KEYS or not all(np.isfinite(list(result.values()))):
         fail(f"train_and_eval result is malformed: {sorted(result)}")
-    if counts != want or result["epoch"] != 2 or result["num_test"] != 256:
+    if launches_differ(counts, want) or result["epoch"] != 2 or result["num_test"] != 256:
         fail(f"train_and_eval launch counts {counts} != {want}, or epochs/counts wrong")
     return out
 
@@ -3381,7 +3805,9 @@ def _imagenet_arm(dev, conf: dict, root: str, save: str, graphed: bool) -> dict:
                       "host_runtime_calls_per_step": sum(calls.values()) / n,
                       "host_runtime_calls_per_step_by_name": {k: v / n
                                                               for k, v in calls.items()},
-                      "kernel_records": seen}}
+                      "kernel_records": seen,
+                      "sampler_kernels_ms_per_step": device_us(
+                          prof, SAMPLER_KERNELS + NOISE_KERNELS) / 1e3 / n}}
 
 
 def phase_imagenet_main_path(dev, workdir: str, card: str) -> dict:
@@ -3429,9 +3855,10 @@ def phase_imagenet_main_path(dev, workdir: str, card: str) -> dict:
     problems = []
     for name, arm in arms.items():
         n = steps_n + (1 if name == "graphed" else 0)  # the graph's warm-up step
-        want = {"augment": per_call * n, "cifar_stack": evals, "imagenet_stack": n}
+        want = {"augment": per_call * n, "cifar_stack": evals, "imagenet_stack": n,
+                **_step_draw_launches(n)}  # ResNet-50: no noise sites, no mixup
         arm["expected_launches"] = want
-        if arm["launches"] != want:
+        if launches_differ(arm["launches"], want):
             problems.append(f"{name}: launches {arm['launches']} != {want}")
         loader = arm["result"]["loader"]
         if loader["decoder"] != backend or loader["failures"] or \
@@ -3539,7 +3966,7 @@ ZOO_EQUAL_STEPS = 3
 #: ImageNet phase joined the script)
 ZOO_WARMUP_STEPS = 2
 ZOO_TIMED_STEPS = 6
-ZOO_TRACE_STEPS = 1
+ZOO_TRACE_STEPS = 3
 #: the train_cli run of the zoo: the paper's Shake-Shake preset, one epoch
 ZOO_CLI_CONF = "confs/shake26_2x96d_cifar.yaml"
 
@@ -3605,20 +4032,24 @@ def _plain_cifar_augment(cutout):
 
 def phase_zoo_noise_cpu_vs_card(dev) -> dict:
     """One step's model noise of each zoo model (every site at the preset's
-    batch) and mixup's draws (also 4096 Beta(0.2) draws and a permutation of
-    the batch per key), drawn on the CPU and on the card from the same keys:
-    bitwise."""
+    batch) and mixup's draws (also the Beta(0.2) draws of 4096 mixup keys in
+    one launch, and 64 keys' mixup draws at a batch of 128), drawn by the
+    train-noise kernel on the card (K8) and by the plain versions on the CPU
+    from the same keys: bitwise."""
     import torch
 
     from fast_autoaugment_tpu_torch.core.config import load_config
     from fast_autoaugment_tpu_torch.models import get_model, num_class
-    from fast_autoaugment_tpu_torch.ops import rng
+    from fast_autoaugment_tpu_torch.ops import _kernels, rng
     from fast_autoaugment_tpu_torch.ops.shake import noise_sites
     from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws
 
     src, cpu = PhiloxDraws(), torch.device("cpu")
     out = {"phase": "zoo_noise_cpu_vs_card", "tolerance": "bitwise: 0 differing bits",
+           "compares": "the train-noise kernel (csrc/sampler.cu noise_kernel) on the card with "
+                       "the plain versions on the CPU",
            "models": {}, "bits_differing": 0}
+    before = _kernels.launch_counts()["train_noise"]
 
     def differ(a, b) -> int:
         a, b = a.cpu(), b
@@ -3652,14 +4083,15 @@ def phase_zoo_noise_cpu_vs_card(dev) -> dict:
         out["models"][name] = row
         out["bits_differing"] += row["bits_differing"]
     keys = rng.fold_in_range(torch.tensor([4, 4]), 4096)
-    lam_card, lam_cpu = rng.beta_symmetric(keys.to(dev), 0.2), rng.beta_symmetric(keys, 0.2)
-    perm_card = torch.stack([rng.permutation(k, 128) for k in keys[:64].to(dev)])
-    perm_cpu = torch.stack([rng.permutation(k, 128) for k in keys[:64]])
+    lam_card, lam_cpu = _mixup_draws(keys.to(dev), 0.2, 0)[0], _mixup_draws(keys, 0.2, 0)[0]
+    perm_card = torch.stack([src.mixup_draws(k, 128, 0.2, dev)[1] for k in keys[:64].to(dev)])
+    perm_cpu = torch.stack([src.mixup_draws(k, 128, 0.2, cpu)[1] for k in keys[:64]])
     out["beta_draws"] = {"draws": 4096, "bits_differing": differ(lam_card, lam_cpu),
                          "min": float(lam_cpu.min()), "max": float(lam_cpu.max())}
     out["permutations"] = {"draws": 64, "elements_differing": differ(perm_card, perm_cpu)}
     out["bits_differing"] += out["beta_draws"]["bits_differing"] \
         + out["permutations"]["elements_differing"]
+    out["kernel_launches"] = _kernels.launch_counts()["train_noise"] - before
     emit(out)
     if out["bits_differing"]:
         fail("the model noise or mixup draws differ between the CPU and the card")
@@ -3667,17 +4099,27 @@ def phase_zoo_noise_cpu_vs_card(dev) -> dict:
 
 
 def _zoo_expected_launches(st: dict, steps: int) -> dict:
-    """K1, K5 and K6 launches of `steps` train steps, from the plans."""
+    """K1, K5 and K6 launches of `steps` train steps, from the plans, and
+    their draws' K7 and K8 launches."""
     import torch
 
     from fast_autoaugment_tpu_torch.ops import _kernels
 
     img, num_op = st["image"], int(st["policy"].shape[1])
     k1 = _kernels.augment_plan(img, img, num_op).launches * steps
+    draws = _step_draw_launches(steps, _noisy(st["model"], st["conf"].get("mixup", 0)))
     if st["imagenet"]:  # K6 reads K1's float32 output
         return {"augment": k1, "cifar_stack": 0,
-                "imagenet_stack": _kernels.imagenet_plan(img, img, torch.float32).launches * steps}
-    return {"augment": k1, "cifar_stack": steps, "imagenet_stack": 0}
+                "imagenet_stack": _kernels.imagenet_plan(img, img, torch.float32).launches * steps,
+                **draws}
+    return {"augment": k1, "cifar_stack": steps, "imagenet_stack": 0, **draws}
+
+
+def _noisy(model, mixup) -> bool:
+    """Whether a train step of `model` draws K8: noise sites, or mixup."""
+    from fast_autoaugment_tpu_torch.ops.shake import noise_sites
+
+    return bool(noise_sites(model)) or float(mixup or 0) > 0.0
 
 
 def _is_condconv(name: str, shapes) -> bool:
@@ -3773,11 +4215,19 @@ def phase_zoo_train_main_path(dev, st: dict, card: str) -> dict:
     stages = _stage_device_us(prof, TRAIN_STAGES)
     k1_us, k5_us, k6_us = (device_us(prof, K1_KERNELS), device_us(prof, "cifar_stack_kernel"),
                            device_us(prof, K6_KERNELS))
-    split = {"sampler": stages["train.sampler"], "augment_kernels_K1_K5_K6": k1_us + k5_us + k6_us,
+    # the sampler's kernels are launched through ctypes, outside any torch
+    # operator, so the train.sampler range does not hold them: the stage is
+    # the range's torch work and the K7 and K8 kernels by name
+    k7k8_us = device_us(prof, SAMPLER_KERNELS + NOISE_KERNELS)
+    split = {"sampler": stages["train.sampler"] + k7k8_us,
+             "augment_kernels_K1_K5_K6": k1_us + k5_us + k6_us,
              "augment_other": stages["train.augment"],
              "optimizer_and_metrics": stages["train.optimizer"]}
     split["model_forward_backward"] = busy_us - sum(split.values())
+    split["sampler_kernels_K7_K8"] = k7k8_us
     split = {k: v / 1e3 / n for k, v in split.items()}
+    draw_records = sum(kernel_counts(prof, SAMPLER_KERNELS + NOISE_KERNELS).values())
+    draw_launches = sum(_zoo_expected_launches(st, n)[k] for k in ("sampler", "train_noise"))
     condconv = device_busy(prof, _is_condconv) if st["imagenet"] else None
     # the traced device work against the unprofiled step: None where the
     # profiler made that work outlast the step it was not on
@@ -3808,6 +4258,12 @@ def phase_zoo_train_main_path(dev, st: dict, card: str) -> dict:
                      if union["union_us"] else None,
                      "device_idle_share_at_step_event_ms": idle_unprofiled,
                      "device_ms_per_step_by_stage": split,
+                     "sampler_kernel_records": draw_records,
+                     "sampler_launches": draw_launches,
+                     # the profiler drops the first records of a window: the
+                     # draws' ms a step over the steps whose records it kept
+                     "sampler_kernels_ms_per_kept_step": k7k8_us / 1e3 * draw_launches
+                     / n / draw_records if draw_records else None,
                      "condconv_ms_per_step": condconv["sum_us"] / 1e3 / n if condconv else None,
                      "condconv_union_ms_per_step": condconv["union_us"] / 1e3 / n
                      if condconv else None,
@@ -3824,7 +4280,7 @@ def phase_zoo_train_main_path(dev, st: dict, card: str) -> dict:
                      "their union on the device's clock (streams overlap); idle shares: 1 - "
                      "busy_union over the traced steps' wall, and over step_event_ms"}
     emit(out)
-    if counts != want:
+    if launches_differ(counts, want):
         fail(f"{st['name']}: launch counts {counts} != {want} over {ZOO_EQUAL_STEPS} steps")
     if not all(np.isfinite(losses)):
         fail(f"{st['name']}: a train step's loss is not finite: {losses}")
@@ -3863,7 +4319,8 @@ def phase_zoo_train_cli(dev, workdir: str) -> dict:
     steps, evals = 512 // int(conf["batch"]), -(-256 // int(conf["batch"]))
     # the default device cache: one CUDA graph (N = 1), one warm-up step
     want = {"augment": _kernels.augment_plan(32, 32, num_op).launches * (steps + 1),
-            "cifar_stack": steps + 1 + evals, "imagenet_stack": 0}
+            "cifar_stack": steps + 1 + evals, "imagenet_stack": 0,
+            **_step_draw_launches(steps + 1, noisy=True)}  # ShakeShake's sites
     out = {"phase": "zoo_train_cli", "argv": argv, "result": first, "only_eval": again,
            "wall_s": wall, "checkpoint_step": int(tree["step"]), "digest": meta.get("digest"),
            "launches": counts, "expected_launches": want}
@@ -3874,7 +4331,7 @@ def phase_zoo_train_cli(dev, workdir: str) -> dict:
         fail(f"train_cli --only-eval result is malformed: {sorted(again)}")
     if any(again[k] != first[k] for k in test_keys) or int(tree["step"]) != steps:
         fail("train_cli --only-eval does not reproduce the first run's test metrics")
-    if counts != want:
+    if launches_differ(counts, want):
         fail(f"train_cli launch counts {counts} != {want}")
     return out
 
@@ -3920,11 +4377,11 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"
 
 def _dispatch_expected_launches(steps_per_epoch: int, epochs: int, n: int, evals: int,
                                 graphed: bool, start: int = 0) -> dict:
-    """K1 and K5 launches of a ``train_and_eval`` run of the flagship on
-    32x32 (2 ops): one K1 and one K5 a step and a K5 per eval batch; a
-    graphed run adds the warm-up step before its one capture (the graph's
-    launches count at each replay).  `start`: the dispatch position the
-    first epoch resumes from."""
+    """K1, K5 and K7 launches of a ``train_and_eval`` run of the flagship on
+    32x32 (2 ops): one K1 and one K5 a step and a K5 per eval batch, the
+    step's draws (no noise sites, no mixup: no K8); a graphed run adds the
+    warm-up step before its one capture (the graph's launches count at each
+    replay).  `start`: the dispatch position the first epoch resumes from."""
     from fast_autoaugment_tpu_torch.data.pipeline import split_dispatch_chunks
     from fast_autoaugment_tpu_torch.ops import _kernels
 
@@ -3933,7 +4390,7 @@ def _dispatch_expected_launches(steps_per_epoch: int, epochs: int, n: int, evals
         chunks += split_dispatch_chunks(steps_per_epoch, n)
     steps = sum(chunks) + (1 if graphed else 0)
     return {"augment": _kernels.augment_plan(32, 32, 2).launches * steps,
-            "cifar_stack": steps + evals, "imagenet_stack": 0}
+            "cifar_stack": steps + evals, "imagenet_stack": 0, **_step_draw_launches(steps)}
 
 
 def _host_launches(prof) -> dict:
@@ -4024,7 +4481,7 @@ def _dispatch_flagship_arms(dev, workdir: str) -> dict:
                                                start)
             out[name] = {"result": result, "wall_s": wall, "launches": counts,
                          "expected_launches": want, "payload": payload}
-            if counts != want:
+            if launches_differ(counts, want):
                 problems.append(f"{name}: launches {counts} != {want}")
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
@@ -4269,8 +4726,7 @@ def phase_dispatch_main_path(dev, card: str) -> dict:
     pyramid = _pyramid_dispatch(dev)
     torch.cuda.empty_cache()
     seconds["pyramid272"] = time.perf_counter() - t0 - sum(seconds.values())
-    launches = {k: sum(a["launches"][k] for a in arms["arms"].values())
-                for k in ("augment", "cifar_stack", "imagenet_stack")}
+    launches = {k: sum(a["launches"][k] for a in arms["arms"].values()) for k in ALL_KERNELS}
     out = {"phase": "dispatch_main_path", "card": card, "launches": launches,
            "flagship": {k: v for k, v in arms.items() if k != "problems"},
            "times": times, "pyramid272": pyramid, "seconds": seconds}
@@ -4391,6 +4847,39 @@ def paired_kernel_times(other: str) -> dict:
     return summary
 
 
+def _draw_row(name: str, draws: dict, at: str, paths: dict, shape) -> dict:
+    """The ``kernels`` line's row of K7 (``sampler``) or K8 (``train_noise``)."""
+    t = draws["times"][at]
+    return {"name": name, "route": "cuda", "source": "fast_autoaugment_tpu_torch/csrc/sampler.cu",
+            "replaces": DRAWS_REPLACE[name],
+            "launches": sum(paths.values()),
+            "launches_by_path": {k: v for k, v in paths.items() if v},
+            "launches_per_call": 1,
+            "max_abs_err": draws[name]["max_abs_err"],
+            "differing_elements": draws[name]["differing_vs_plain"],
+            "differing_elements_vs_cpu": draws[name]["differing_vs_cpu"],
+            "ms": t["ms"], "ms_source": t["ms_source"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "shape": shape,
+            "at_other_shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                                for k, v in draws["times"].items()
+                                if v["kernel"] == name and k != at and "bound_ms" in v},
+            **({"train_step_draws": {k[len("train_step_draws_"):]: {
+                f: v[f] for f in ("ms", "plain_ms", "launches_per_call")}
+                for k, v in draws["times"].items() if k.startswith("train_step_draws_")}}
+               if name == "sampler" else {})}
+
+
+#: the JAX lines each draw kernel stands for (XLA fuses these jax.random
+#: draws into the compiled programs)
+DRAWS_REPLACE = {
+    "sampler": "fast_autoaugment_tpu/ops/augment.py:416, :444, :462-463, :476, :515, "
+               ":554-567; ops/preprocess.py:93; ops/preprocess_imagenet.py:139-171; "
+               "search/tta.py:120, :225",
+    "train_noise": "fast_autoaugment_tpu/core/metrics.py:66-68; ops/shake.py:59-62, "
+                   ":105-109; models/efficientnet.py:160, :354; train/steps.py:137, :155"}
+
+
 def main() -> int:
     try:
         import torch
@@ -4433,6 +4922,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as workdir:
             phase_imagenet_main_path(dev, workdir, card)
         return 0
+    if sys.argv[1:2] == ["--sampler-only"]:  # K7 and K8 against their plain versions
+        _kernels.load_libraries()
+        print(card, flush=True)
+        phase_lighting_cpu_vs_card(dev)
+        phase_sampler_vs_plain(dev)
+        phase_zoo_noise_cpu_vs_card(dev)
+        return 0
     if sys.argv[1:2] == ["--runtime-only"]:  # the search runtime's phases alone
         _kernels.load_libraries()
         print(card, flush=True)
@@ -4456,6 +4952,7 @@ def main() -> int:
     check5 = phase_k5_vs_plain(dev)
     check6 = phase_k6_vs_plain(dev)
     lighting = phase_lighting_cpu_vs_card(dev)
+    draws = phase_sampler_vs_plain(dev)
     with tempfile.TemporaryDirectory() as workdir:
         main_path = phase_main_path(dev, workdir)
         plane = phase_serve_plane(dev, workdir, card)
@@ -4481,8 +4978,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         imagenet = phase_imagenet_main_path(dev, workdir, card)
     imagenet_launches = {k: sum(imagenet["arms"][a]["launches"][k] for a in imagenet["arms"])
-                         + imagenet["search"]["launches"][k]
-                         for k in ("augment", "cifar_stack", "imagenet_stack")}
+                         + imagenet["search"]["launches"][k] for k in ALL_KERNELS}
     zoo, zoo_cli = zoo_phases(dev, card)
     dispatch = phase_dispatch_main_path(dev, card)
     at = next(r for r in rows if r["batch"] == 128)  # the largest serving shape
@@ -4506,9 +5002,26 @@ def main() -> int:
         paths["train_cli_shakeshake26_2x96d"] = zoo_cli["launches"][kernel]
         return {k: v for k, v in paths.items() if v}
 
-    zoo_launches = {k: sum(zoo_by_path(k).values())
-                    for k in ("augment", "cifar_stack", "imagenet_stack")}
+    zoo_launches = {k: sum(zoo_by_path(k).values()) for k in ALL_KERNELS}
     cached = dispatch["launches"]  # the seven train_and_eval arms of the cache path
+
+    def by_path(kernel):
+        return {"serve": main_path["sampler_launches"] if kernel == "sampler" else 0,
+                "serve_plane": plane["sampler_launches"] if kernel == "sampler" else 0,
+                "tta": tta_path["launches"][kernel],
+                "tta_graphed_vs_eager": graph_launches[kernel],
+                "train_resnet50": train_path["launches"][kernel],
+                "train_and_eval_wrn40_2": flagship["launches"][kernel],
+                "search_wrn40_2": search["launches"][kernel], **zoo_by_path(kernel),
+                "device_cache_wrn40_2_arms": cached[kernel],
+                "imagenet_resnet50_jpeg": imagenet_launches[kernel]}
+
+    sampler_paths, noise_paths = by_path("sampler"), by_path("train_noise")
+    silent = [p for p in ("serve", "serve_plane", "tta", "train_resnet50", "search_wrn40_2",
+                          "imagenet_resnet50_jpeg") if not sampler_paths[p]]
+    silent += [p for p in zoo_by_path("augment") if not noise_paths.get(p)]
+    if silent:
+        fail(f"paths that never launched the sampler or the train noise: {silent}")
     print(card, flush=True)
     emit({"kernels": [{
         "name": "augment", "route": "cuda",
@@ -4580,7 +5093,10 @@ def main() -> int:
         **ms(k6),
         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
         "library_ms": None, "shape": k6["shape"], "input": k6["input"],
-        "at_uint8_input": {k: train_t["k6"]["uint8"].get(k) for k in timing_keys}}]})
+        "at_uint8_input": {k: train_t["k6"]["uint8"].get(k) for k in timing_keys}},
+        _draw_row("sampler", draws, "serve_grouped_128x32", sampler_paths, [128, 32, 32, 3]),
+        _draw_row("train_noise", draws, "noise_shakeshake26_2x96d", noise_paths,
+                  "one train step of shakeshake26_2x96d, batch 128")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

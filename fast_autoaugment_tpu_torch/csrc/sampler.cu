@@ -1,0 +1,635 @@
+/*
+ * The draw sampler (K7) and the train noise (K8) for NVIDIA Hopper (sm_90a).
+ *
+ * Replaces the jax.random draws that XLA fuses into the JAX package's
+ * augment programs (fast_autoaugment_tpu/ops/augment.py:416, :444,
+ * :462-463, :476, :515, :554-567; ops/preprocess.py:93;
+ * ops/preprocess_imagenet.py:139-171; search/tta.py:120, :225) and into its
+ * train step (core/metrics.py:66-68; ops/shake.py:59-62, :105-109;
+ * models/efficientnet.py:160, :354; train/steps.py:137, :155).  The port
+ * does not reproduce threefry: its draws are Philox4x32-10 blocks of 64-bit
+ * keys (ops/rng.py), and each kernel here gives the bits of the plain
+ * int64 torch version beside it (ops/rng.py, ops/augment.py sample_*,
+ * ops/shake.py ModelNoise.draw_plain), on every input.
+ *
+ * Four kernels:
+ *
+ *   keys_kernel     fold_in, split, fold_in_range and Philox blocks of a
+ *                   set of keys: one thread a block.  fold_in's counter may
+ *                   be read from device memory, so a captured CUDA graph
+ *                   reads the step counter of each replay.
+ *   lanes_kernel    the exact records, one thread a lane: the lane key
+ *                   (split(draw key, B)[b], or the key itself), the
+ *                   sub-policy and each slot's (gate, mirror, cutout x,
+ *                   cutout y), the CIFAR crop (oy, ox, flip, cy, cx) and the
+ *                   ImageNet ints (flip, jitter order, cy, cx) and floats
+ *                   (3 jitter factors, 3 lighting offsets by Box-Muller).
+ *   grouped_kernel  the grouped records, one block a draw key: the stable
+ *                   rank of the B permutation words (rank_i = #{w_j < w_i}
+ *                   + #{w_j = w_i, j < i}, the position torch.sort(stable=
+ *                   True) gives image i), the chunk's sub-policy, the
+ *                   per-image slots and, per lane, the crop or ImageNet
+ *                   draws.  The words live in a 16 KB shared tile; a batch
+ *                   beyond the tile regenerates it tile by tile.
+ *   noise_kernel    K8, one launch a train step: every noise site's
+ *                   (u0, u1, gate) of ShakeShake, ShakeDrop and
+ *                   drop-connect, a uniform per dropout element, mixup's
+ *                   Beta(alpha, alpha) (Marsaglia-Tsang Gammas, 16
+ *                   candidates each, in float64) and the permutation of the
+ *                   batch (the rank code above); one packed buffer holds the
+ *                   sites' tensors.
+ *
+ * Rounding.  Every float64 +, -, x, / goes through __dadd_rn, __dsub_rn,
+ * __dmul_rn, __ddiv_rn and the root through __dsqrt_rn (correctly rounded,
+ * as ops/rng.py sqrt_f64 is), so no operation is contracted into a fused
+ * multiply-add whatever the flags; the float32 products and sums use
+ * __fmul_rn, __fadd_rn, __fsub_rn the same way, and the library is built
+ * with --fmad=false besides.  exp's k is rint (half to even, torch.round).
+ * The polynomial coefficients are the plain version's float64 values, as
+ * hexadecimal literals.
+ *
+ * Bound: integer operations.  A Philox block is 10 rounds of two 32x32-bit
+ * products (hi and lo) and six 32-bit adds or xors, and the records move a
+ * few bytes a lane: the serving and TTA shapes are a few hundred
+ * microseconds of work for the whole card at its int32 rate below, so one
+ * launch in place of ~900 small torch kernels is the design; the threads
+ * of a lane keep all their state in registers.
+ */
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <stdio.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 4096;  // permutation words held in shared memory at once
+constexpr int kMaxSites = 224;
+constexpr int kErrBadArgs = 100001;
+constexpr int kErrTooManySites = 100002;
+
+constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;  // Philox multipliers
+constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;  // Weyl key increments
+constexpr uint32_t kFold = 0x466F6C64u, kSplit = 0x53706C74u;
+// the samplers' streams (ops/augment.py), ops/rng.py's, ops/shake.py's
+constexpr uint32_t kSlot = 0, kSub = 1, kPerm = 2, kGroup = 3, kCrop = 4, kImageNet = 5;
+constexpr uint32_t kGamma = 7, kRngPerm = 8, kSite = 9, kDropout = 10;
+constexpr int kCandidates = 16;  // ops/rng.py BETA_CANDIDATES
+
+struct Key {
+  uint32_t w0, w1;  // the two words in tensor order, key[..., 0] and key[..., 1]
+};
+
+struct Block {
+  uint32_t x0, x1, x2, x3;
+};
+
+__device__ __forceinline__ Block philox(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
+                                        uint32_t c2, uint32_t c3) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += kW0;
+      k1 += kW1;
+    }
+    const uint32_t hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
+    const uint32_t hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+  }
+  return {c0, c1, c2, c3};
+}
+
+// ops/rng.py's key helpers take (k0, k1) = (key[..., 0], key[..., 1])
+__device__ __forceinline__ Block rng_block(Key k, uint32_t c0, uint32_t c1) {
+  return philox(k.w0, k.w1, c0, c1, 0u, 0u);
+}
+
+// the samplers of ops/augment.py take k1, k0 = key[:, 0], key[:, 1]
+__device__ __forceinline__ Block sampler_block(Key k, uint32_t c0, uint32_t c1, uint32_t c2) {
+  return philox(k.w1, k.w0, c0, c1, c2, 0u);
+}
+
+__device__ __forceinline__ Key split_key(Key k, uint32_t j) {
+  const Block b = rng_block(k, j, kSplit);
+  return {b.x0, b.x1};
+}
+
+__device__ __forceinline__ Key fold_key(Key k, uint32_t data) {
+  const Block b = rng_block(k, data, kFold);
+  return {b.x0, b.x1};
+}
+
+__device__ __forceinline__ Key load_key(const int64_t* p) {
+  return {(uint32_t)p[0], (uint32_t)p[1]};
+}
+
+// (w >> 8) * 2^-24: 24 bits, exact in float32
+__device__ __forceinline__ float uniform24(uint32_t w) {
+  return __fmul_rn((float)(w >> 8), 0x1p-24f);
+}
+
+// ((w >> 8) * n) >> 24 in 64 bits: an integer in [0, n)
+__device__ __forceinline__ int pick(uint32_t w, int n) {
+  return (int)(((uint64_t)(w >> 8) * (uint64_t)n) >> 24);
+}
+
+// ------------------------------------------------ float64, op by op
+
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double dvd(double a, double b) { return __ddiv_rn(a, b); }
+
+__constant__ double kAtanh[12] = {
+    0x1.0000000000000p+0, 0x1.5555555555555p-2, 0x1.999999999999ap-3, 0x1.2492492492492p-3,
+    0x1.c71c71c71c71cp-4, 0x1.745d1745d1746p-4, 0x1.3b13b13b13b14p-4, 0x1.1111111111111p-4,
+    0x1.e1e1e1e1e1e1ep-5, 0x1.af286bca1af28p-5, 0x1.8618618618618p-5, 0x1.642c8590b2164p-5};
+__constant__ double kSin[10] = {
+    0x1.0000000000000p+0,  -0x1.5555555555555p-3, 0x1.1111111111111p-7,
+    -0x1.a01a01a01a01ap-13, 0x1.71de3a556c734p-19, -0x1.ae64567f544e4p-26,
+    0x1.6124613a86d09p-33, -0x1.ae7f3e733b81fp-41, 0x1.952c77030ad4ap-49,
+    -0x1.2f49b46814157p-57};
+__constant__ double kCos[10] = {
+    0x1.0000000000000p+0,  -0x1.0000000000000p-1, 0x1.5555555555555p-5,
+    -0x1.6c16c16c16c17p-10, 0x1.a01a01a01a01ap-16, -0x1.27e4fb7789f5cp-22,
+    0x1.1eed8eff8d898p-29, -0x1.93974a8c07c9dp-37, 0x1.ae7f3e733b81fp-45,
+    -0x1.6827863b97d97p-53};
+__constant__ double kExp[19] = {
+    0x1.0000000000000p+0,  0x1.0000000000000p+0,  0x1.0000000000000p-1,  0x1.5555555555555p-3,
+    0x1.5555555555555p-5,  0x1.1111111111111p-7,  0x1.6c16c16c16c17p-10, 0x1.a01a01a01a01ap-13,
+    0x1.a01a01a01a01ap-16, 0x1.71de3a556c734p-19, 0x1.27e4fb7789f5cp-22, 0x1.ae64567f544e4p-26,
+    0x1.1eed8eff8d898p-29, 0x1.6124613a86d09p-33, 0x1.93974a8c07c9dp-37, 0x1.ae7f3e733b81fp-41,
+    0x1.ae7f3e733b81fp-45, 0x1.952c77030ad4ap-49, 0x1.6827863b97d97p-53};
+constexpr double kLn2 = 0x1.62e42fefa39efp-1;
+constexpr double kSqrt2 = 0x1.6a09e667f3bcdp+0;
+constexpr double kHalfPi = 0x1.921fb54442d18p+0;
+constexpr double kInvLn2 = 0x1.71547652b82fep+0;
+constexpr double kLn2Hi = 0x1.62e42fee00000p-1;
+constexpr double kLn2Lo = 0x1.a39ef35793c76p-33;
+constexpr double kExpRange = 700.0;
+
+// sum_i c[i] z^i, one product and one sum a step (ops/rng.py _horner)
+template <int N>
+__device__ __forceinline__ double horner(double z, const double (&c)[N]) {
+  double p = c[N - 1];
+#pragma unroll
+  for (int i = N - 2; i >= 0; --i) p = add(mul(p, z), c[i]);
+  return p;
+}
+
+// ops/rng.py log_f64: v = m 2^e, m in [sqrt(1/2), sqrt(2)), ln v = e ln 2 + 2 atanh(s)
+__device__ double log_f64(double v) {
+  const long long bits = __double_as_longlong(v);
+  long long e = (bits >> 52) - 1023;
+  double m = __longlong_as_double((bits & ((1ll << 52) - 1)) | (1023ll << 52));
+  if (m > kSqrt2) {
+    m = mul(m, 0.5);
+    e += 1;
+  }
+  const double s = dvd(sub(m, 1.0), add(m, 1.0));
+  double log_m = mul(horner(mul(s, s), kAtanh), s);
+  log_m = mul(log_m, 2.0);
+  return add(mul((double)e, kLn2), log_m);
+}
+
+// ln(k 2^-24) for k in [1, 2^24] (ops/rng.py log_unit)
+__device__ __forceinline__ double log_unit(uint32_t k) {
+  return log_f64(mul((double)k, 0x1p-24));
+}
+
+// (cos, sin) of 2 pi j 2^-24 for j in [0, 2^24) (ops/rng.py cos_sin_turn)
+__device__ void cos_sin_turn(uint32_t j, double& cos_out, double& sin_out) {
+  const uint32_t q = j >> 22;
+  const double x = mul((double)(j & ((1u << 22) - 1)), 0x1p-22);
+  const bool refl = x > 0.5;
+  const double a = mul(refl ? sub(1.0, x) : x, kHalfPi);
+  const double z = mul(a, a);
+  double s = mul(horner(z, kSin), a);
+  double c = horner(z, kCos);
+  if (refl) {
+    const double t = s;
+    s = c;
+    c = t;
+  }
+  cos_out = q == 0 ? c : q == 1 ? -s : q == 2 ? -c : s;
+  sin_out = q == 0 ? s : q == 1 ? c : q == 2 ? -s : -c;
+}
+
+// ops/rng.py exp_f64: 2^k exp r, k = rint(z / ln 2), r in two parts
+__device__ double exp_f64(double z) {
+  z = fmin(fmax(z, -kExpRange), kExpRange);
+  const double k = rint(mul(z, kInvLn2));
+  double r = sub(z, mul(k, kLn2Hi));
+  r = sub(r, mul(k, kLn2Lo));
+  const double scale = __longlong_as_double(((long long)k + 1023) << 52);
+  return mul(horner(r, kExp), scale);
+}
+
+// the Box-Muller radius of a word: sqrt(-2 ln u), u = 1 - j 2^-24 in (0, 1]
+__device__ __forceinline__ double radius(uint32_t w) {
+  return __dsqrt_rn(mul(log_unit((1u << 24) - (w >> 8)), -2.0));
+}
+
+// ------------------------------------------------ the records
+
+struct Records {
+  int num_sub, num_op, height, width, span;  // span: the crop offsets' 2 pad + 1
+  float jit_span, jit_lo;                     // the jitter factors' U(lo, lo + span)
+  double alphastd;
+  int32_t* sub;  // [L]
+  float* pol;    // [L, num_op, 4]
+  int32_t* crop; // [L, 5]
+  int32_t *flip, *order, *centre;  // ImageNet ints, each with its row stride
+  float *factors, *alpha;          // ImageNet floats, each with its row stride
+  int flip_stride, order_stride, centre_stride, factors_stride, alpha_stride;
+};
+
+// slot s's (gate, mirror, cutout x in [0, W), cutout y in [0, H)) of a lane
+// (ops/augment.py _slot_draws: counter (s, kSlot, lane, 0))
+__device__ __forceinline__ void slot_draws(Key k, uint32_t lane, long long l, const Records& r) {
+  float* out = r.pol + (size_t)l * r.num_op * 4;
+  for (int s = 0; s < r.num_op; ++s) {
+    const Block b = sampler_block(k, (uint32_t)s, kSlot, lane);
+    out[4 * s + 0] = uniform24(b.x0);
+    out[4 * s + 1] = uniform24(b.x1);
+    out[4 * s + 2] = __fmul_rn(uniform24(b.x2), (float)r.width);
+    out[4 * s + 3] = __fmul_rn(uniform24(b.x3), (float)r.height);
+  }
+}
+
+// the CIFAR crop (ops/augment.py sample_crop) and the ImageNet stack draws
+// (sample_imagenet) of lane l from its key
+__device__ void stack_draws(Key k, long long l, const Records& r) {
+  if (r.crop) {
+    const Block b0 = sampler_block(k, 0u, kCrop, 0u), b1 = sampler_block(k, 1u, kCrop, 0u);
+    int32_t* c = r.crop + 5 * l;
+    c[0] = pick(b0.x0, r.span);
+    c[1] = pick(b0.x1, r.span);
+    c[2] = pick(b0.x2, 2);
+    c[3] = pick(b0.x3, r.height);
+    c[4] = pick(b1.x0, r.width);
+  }
+  if (r.flip) {
+    const Block b0 = sampler_block(k, 0u, kImageNet, 0u);
+    const Block b1 = sampler_block(k, 1u, kImageNet, 0u);
+    const Block b2 = sampler_block(k, 2u, kImageNet, 0u);
+    r.flip[l * r.flip_stride] = pick(b0.x0, 2);
+    r.order[l * r.order_stride] = pick(b0.x1, 6);
+    r.centre[l * r.centre_stride] = pick(b0.x2, r.height);
+    r.centre[l * r.centre_stride + 1] = pick(b0.x3, r.width);
+    float* f = r.factors + l * r.factors_stride;
+    f[0] = __fadd_rn(__fmul_rn(uniform24(b1.x0), r.jit_span), r.jit_lo);
+    f[1] = __fadd_rn(__fmul_rn(uniform24(b1.x1), r.jit_span), r.jit_lo);
+    f[2] = __fadd_rn(__fmul_rn(uniform24(b1.x2), r.jit_span), r.jit_lo);
+    // the third block's words: radii from words 0 and 2, angles from 1 and 3
+    const double r0 = radius(b2.x0), r1 = radius(b2.x2);
+    double c0, s0, c1, s1;
+    cos_sin_turn(b2.x1 >> 8, c0, s0);
+    cos_sin_turn(b2.x3 >> 8, c1, s1);
+    float* a = r.alpha + l * r.alpha_stride;
+    a[0] = __double2float_rn(mul(mul(r0, c0), r.alphastd));
+    a[1] = __double2float_rn(mul(mul(r0, s0), r.alphastd));
+    a[2] = __double2float_rn(mul(mul(r1, c1), r.alphastd));
+  }
+}
+
+__device__ __forceinline__ uint32_t perm_word(Key k, bool sampler, uint32_t stream, int i) {
+  return sampler ? sampler_block(k, (uint32_t)i, stream, 0u).x0
+                 : rng_block(k, (uint32_t)i, stream).x0;
+}
+
+// Calls fn(i, rank_i) for every i in [0, n): rank_i is image i's place in
+// the stable sort of the n words.  Every thread of the block calls it.
+template <class F>
+__device__ void stable_ranks(Key k, bool sampler, uint32_t stream, int n, uint32_t* tile,
+                             F&& fn) {
+  const bool resident = n <= kTile;
+  if (resident) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) tile[j] = perm_word(k, sampler, stream, j);
+    __syncthreads();
+  }
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const bool live = i < n;
+    const uint32_t wi = !live ? 0u : resident ? tile[i] : perm_word(k, sampler, stream, i);
+    int rank = 0;
+    for (int t0 = 0; t0 < n; t0 += kTile) {
+      const int m = min(kTile, n - t0);
+      if (!resident) {
+        __syncthreads();
+        for (int j = threadIdx.x; j < m; j += blockDim.x)
+          tile[j] = perm_word(k, sampler, stream, t0 + j);
+        __syncthreads();
+      }
+      if (live)
+        for (int j = 0; j < m; ++j) {
+          const uint32_t wj = tile[j];
+          rank += (wj < wi) | ((wj == wi) & (t0 + j < i));
+        }
+    }
+    if (live) fn(i, rank);
+  }
+}
+
+// ------------------------------------------------ K7
+
+__global__ void __launch_bounds__(kThreads) keys_kernel(const int64_t* __restrict__ keys, int n,
+                                                        int num, long long base,
+                                                        const int64_t* __restrict__ data,
+                                                        uint32_t stream, int words,
+                                                        int64_t* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)n * num;
+  if (t >= total) return;
+  const int i = (int)(t / num), j = (int)(t - (long long)i * num);
+  const uint32_t c0 = (uint32_t)(data ? data[0] : base) + (uint32_t)j;
+  const Block b = rng_block(load_key(keys + 2 * i), c0, stream);
+  if (words == 2) {
+    out[2 * t] = b.x0;
+    out[2 * t + 1] = b.x1;
+  } else {
+    out[t] = b.x0;
+    out[total + t] = b.x1;
+    out[2 * total + t] = b.x2;
+    out[3 * total + t] = b.x3;
+  }
+}
+
+struct Lanes {
+  const int64_t* keys;
+  int num_keys;
+  int batch;  // lanes per key (split(key, batch)); 0: the keys are the lanes
+  int exact;  // draw the exact sub-policy and slots
+};
+
+__global__ void __launch_bounds__(kThreads) lanes_kernel(const Lanes a, const Records r) {
+  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = a.batch ? (long long)a.num_keys * a.batch : a.num_keys;
+  if (l >= total) return;
+  Key lane;
+  if (a.batch) {
+    const int d = (int)(l / a.batch), b = (int)(l - (long long)d * a.batch);
+    lane = split_key(load_key(a.keys + 2 * d), (uint32_t)b);
+  } else {
+    lane = load_key(a.keys + 2 * l);
+  }
+  if (a.exact) {
+    r.sub[l] = pick(sampler_block(lane, 0u, kSub, 0u).x0, r.num_sub);
+    slot_draws(lane, 0u, l, r);
+  }
+  stack_draws(lane, l, r);
+}
+
+struct Grouped {
+  const int64_t* keys;
+  int num_keys, batch, chunk;
+  int presplit;  // lanes from split(key, 2)[0], the policy from split(key, 2)[1]
+};
+
+__global__ void __launch_bounds__(kThreads) grouped_kernel(const Grouped a, const Records r) {
+  __shared__ uint32_t tile[kTile];
+  const int d = blockIdx.x;
+  Key lanes_key = load_key(a.keys + 2 * d), key = lanes_key;
+  if (a.presplit) {
+    lanes_key = split_key(key, 0u);
+    key = split_key(key, 1u);
+  }
+  const int batch = a.batch, chunk = a.chunk;
+  stable_ranks(key, true, kPerm, batch, tile, [&](int i, int rank) {
+    const long long l = (long long)d * batch + i;
+    r.sub[l] = pick(sampler_block(key, (uint32_t)(rank / chunk), kGroup, 0u).x0, r.num_sub);
+    slot_draws(key, (uint32_t)(i + 1), l, r);
+    if (r.crop || r.flip) stack_draws(split_key(lanes_key, (uint32_t)i), l, r);
+  });
+}
+
+// ------------------------------------------------ K8
+
+// the kinds of ops/shake.py SITE_KINDS
+constexpr int kShakeShake = 0, kShakeDrop = 1, kDropConnect = 2, kDropoutSite = 3;
+
+struct Sites {
+  int count, items;        // sites; their work items (B each, B x width a dropout)
+  int begin[kMaxSites];    // a site's first item
+  int out[kMaxSites];      // its first float (shake sites) or byte (dropout) of the buffer
+  int meta[kMaxSites];     // its model site number | kind << 16
+  float thr[kMaxSites];    // float32(1 - p)
+};
+
+struct Mix {
+  const int64_t* keys;  // [num_lam, 2] mixup keys: (key_lam, key_perm) = split(key, 2)
+  int num_lam;          // a float32 Beta draw from each key's key_lam
+  int perm_n;           // a permutation of perm_n from the first key's key_perm
+  double d, c, inv_shape;  // Marsaglia-Tsang's d and c of shape a, and 1 / alpha
+  int boost;               // alpha < 1: X = Y U^(1/alpha)
+  float* lam;              // [num_lam]
+  int64_t* perm;           // [perm_n]
+};
+
+// ln X for X ~ Gamma(alpha) from key k (ops/rng.py gamma_log): the first of
+// 16 candidates that Marsaglia and Tsang's test accepts
+__device__ double gamma_log(Key k, const Mix& m) {
+  for (int j = 0; j < kCandidates; ++j) {
+    const Block b = rng_block(k, (uint32_t)j, kGamma);
+    double cs, sn;
+    cos_sin_turn(b.x1 >> 8, cs, sn);
+    const double x = mul(radius(b.x0), cs);
+    double v = mul(x, m.c);
+    v = add(v, 1.0);
+    double v3 = mul(v, v);
+    v3 = mul(v3, v);
+    const bool ok = v3 > 0.0;
+    if (!ok) v3 = 1.0;
+    double rhs = mul(x, x);
+    rhs = mul(rhs, 0.5);
+    rhs = add(rhs, m.d);
+    rhs = sub(rhs, mul(v3, m.d));
+    rhs = add(rhs, mul(log_f64(v3), m.d));
+    if (ok && log_unit((1u << 24) - (b.x2 >> 8)) < rhs) {
+      double log_x = log_f64(mul(v3, m.d));
+      if (m.boost) log_x = add(log_x, mul(log_unit((1u << 24) - (b.x3 >> 8)), m.inv_shape));
+      return log_x;
+    }
+  }
+  printf("the Beta sampler's Gamma accepted none of its %d candidates (key %u %u)\n",
+         kCandidates, k.w0, k.w1);
+  __trap();
+  return 0.0;
+}
+
+// Beta(alpha, alpha) from key k (ops/rng.py beta_symmetric)
+__device__ double beta_symmetric(Key k, const Mix& m) {
+  const double lx = gamma_log(split_key(k, 0u), m), ly = gamma_log(split_key(k, 1u), m);
+  const double top = fmax(lx, ly);
+  const double ex = exp_f64(sub(lx, top)), ey = exp_f64(sub(ly, top));
+  return dvd(ex, add(ex, ey));
+}
+
+__device__ __forceinline__ int find_site(const Sites& s, int item) {
+  int lo = 0, hi = s.count - 1;  // the last site whose begin <= item
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (s.begin[mid] <= item) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads) noise_kernel(
+    const __grid_constant__ Sites s, const int64_t* __restrict__ key_shake,
+    const int64_t* __restrict__ key_drop, int batch, float* fbuf, uint8_t* bbuf,
+    const __grid_constant__ Mix m, int item_blocks) {
+  __shared__ uint32_t tile[kTile];
+  if ((int)blockIdx.x == item_blocks) {  // the permutation's block
+    const Key k = split_key(load_key(m.keys), 1u);
+    int64_t* perm = m.perm;
+    stable_ranks(k, false, kRngPerm, m.perm_n, tile, [&](int i, int rank) { perm[rank] = i; });
+    return;
+  }
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item < s.items) {
+    const int k = find_site(s, item), local = item - s.begin[k];
+    const int site = s.meta[k] & 0xFFFF, kind = s.meta[k] >> 16;
+    const float thr = s.thr[k];
+    if (kind == kDropoutSite) {
+      const Key key = fold_key(load_key(key_drop), (uint32_t)site);
+      bbuf[s.out[k] + local] = uniform24(rng_block(key, (uint32_t)local, kDropout).x0) < thr;
+      return;
+    }
+    const Key key = fold_key(load_key(key_shake), (uint32_t)site);
+    const Block b = rng_block(key, (uint32_t)local, kSite);
+    const float u0 = uniform24(b.x0), u1 = uniform24(b.x1);
+    float* o = fbuf + s.out[k];
+    if (kind == kShakeShake) {
+      o[local] = u0;
+      o[batch + local] = u1;
+    } else if (kind == kShakeDrop) {
+      if (local == 0) o[0] = uniform24(b.x3) < thr ? 1.0f : 0.0f;
+      o[1 + local] = __fsub_rn(__fmul_rn(u0, 2.0f), 1.0f);
+      o[1 + batch + local] = u1;
+    } else if (kind == kDropConnect) {
+      o[local] = u0 < thr ? 1.0f : 0.0f;
+    }
+    return;
+  }
+  const int j = item - s.items;  // a Beta draw
+  if (j >= m.num_lam) return;
+  m.lam[j] = __double2float_rn(beta_symmetric(split_key(load_key(m.keys + 2 * j), 0u), m));
+}
+
+inline unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+// fold_in (num = 1, counter base + 0 or the int64 at `data`), split and
+// fold_in_range (2 words a key: out [n, num, 2]) and Philox blocks (4
+// words: out [4, n, num]) of n keys [n, 2], counter (base + j, stream, 0, 0)
+extern "C" int faa_sampler_keys(const int64_t* keys, int n, int num, long long base,
+                                const int64_t* data, unsigned stream, int words, int64_t* out,
+                                int device, void* cuda_stream) {
+  if (n < 0 || num < 0 || (words != 2 && words != 4) || device < 0) return kErrBadArgs;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)n * num;
+  if (total == 0) return 0;
+  keys_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)cuda_stream>>>(
+      keys, n, num, base, data, stream, words, out);
+  return (int)cudaGetLastError();
+}
+
+// the exact records of num_keys x batch lanes (batch 0: the keys are the
+// lanes); a null output is not drawn.  ImageNet outputs take row strides.
+extern "C" int faa_sampler_lanes(const int64_t* keys, int num_keys, int batch, int num_sub,
+                                 int num_op, int height, int width, int span, float jit_span,
+                                 float jit_lo, double alphastd, int32_t* sub, float* pol,
+                                 int32_t* crop, int32_t* flip, int flip_stride,
+                                 int32_t* order, int order_stride, int32_t* centre,
+                                 int centre_stride, float* factors, int factors_stride,
+                                 float* alpha, int alpha_stride, int device, void* stream) {
+  const bool exact = sub != nullptr;
+  if (num_keys < 0 || batch < 0 || (exact && (pol == nullptr || num_sub < 1 || num_op < 1)) ||
+      height < 1 || width < 1 || device < 0 ||
+      (flip && !(order && centre && factors && alpha)))
+    return kErrBadArgs;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long total = batch ? (long long)num_keys * batch : num_keys;
+  if (total == 0) return 0;
+  const Lanes a = {keys, num_keys, batch, exact ? 1 : 0};
+  const Records r = {num_sub, num_op, height, width, span, jit_span, jit_lo, alphastd,
+                     sub, pol, crop, flip, order, centre, factors, alpha,
+                     flip_stride, order_stride, centre_stride, factors_stride, alpha_stride};
+  lanes_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(a, r);
+  return (int)cudaGetLastError();
+}
+
+// the grouped records of num_keys draw keys of `batch` images each, in
+// groups of `chunk` positions, with the lanes' crop or ImageNet draws
+extern "C" int faa_sampler_grouped(const int64_t* keys, int num_keys, int batch, int chunk,
+                                   int presplit, int num_sub, int num_op, int height, int width,
+                                   int span, float jit_span, float jit_lo, double alphastd,
+                                   int32_t* sub, float* pol, int32_t* crop, int32_t* flip,
+                                   int flip_stride, int32_t* order, int order_stride,
+                                   int32_t* centre, int centre_stride, float* factors,
+                                   int factors_stride, float* alpha, int alpha_stride,
+                                   int device, void* stream) {
+  if (num_keys < 0 || batch < 0 || chunk < 1 || num_sub < 1 || num_op < 1 || height < 1 ||
+      width < 1 || !sub || !pol || device < 0 ||
+      (flip && !(order && centre && factors && alpha)))
+    return kErrBadArgs;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (num_keys == 0 || batch == 0) return 0;
+  const Grouped a = {keys, num_keys, batch, chunk, presplit};
+  const Records r = {num_sub, num_op, height, width, span, jit_span, jit_lo, alphastd,
+                     sub, pol, crop, flip, order, centre, factors, alpha,
+                     flip_stride, order_stride, centre_stride, factors_stride, alpha_stride};
+  const int threads = batch >= kThreads ? kThreads : ((batch + 31) / 32) * 32;
+  grouped_kernel<<<num_keys, threads, 0, (cudaStream_t)stream>>>(a, r);
+  return (int)cudaGetLastError();
+}
+
+// K8: `count` noise sites (begin/out/meta/thr as the Sites struct holds
+// them) over `batch` samples into fbuf/bbuf, and mixup's draws from
+// num_lam keys (a float32 Beta each; the permutation of perm_n from the
+// first key), in one launch
+extern "C" int faa_train_noise(int count, int items, const int* begin, const int* out,
+                               const int* meta, const float* thr, const int64_t* key_shake,
+                               const int64_t* key_drop, int batch, float* fbuf, uint8_t* bbuf,
+                               const int64_t* mix_keys, int num_lam, int perm_n, double d,
+                               double c, double inv_shape, int boost, float* lam,
+                               int64_t* perm, int device, void* stream) {
+  if (count > kMaxSites) return kErrTooManySites;
+  if (count < 0 || items < 0 || num_lam < 0 || perm_n < 0 || batch < 0 || device < 0 ||
+      (count > 0 && (!begin || !out || !meta || !thr)) ||
+      (num_lam > 0 && !(mix_keys && lam)) || (perm_n > 0 && (num_lam < 1 || !perm)))
+    return kErrBadArgs;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Sites s = {};
+  s.count = count;
+  s.items = items;
+  for (int i = 0; i < count; ++i) {
+    s.begin[i] = begin[i];
+    s.out[i] = out[i];
+    s.meta[i] = meta[i];
+    s.thr[i] = thr[i];
+  }
+  const Mix m = {mix_keys, num_lam, perm_n, d, c, inv_shape, boost, lam, perm};
+  const int item_blocks = (int)blocks_for((long long)items + num_lam);
+  const int grid = item_blocks + (perm_n > 0 ? 1 : 0);
+  if (grid == 0) return 0;
+  noise_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(s, key_shake, key_drop, batch,
+                                                            fbuf, bbuf, m, item_blocks);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* faa_error_string(int code) {
+  if (code == kErrBadArgs) return "the sampler's arguments do not match its kernels' layout";
+  if (code == kErrTooManySites)
+    return "the model has more noise sites than the train-noise kernel takes (224)";
+  return cudaGetErrorString((cudaError_t)code);
+}

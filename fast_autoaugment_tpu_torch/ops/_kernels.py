@@ -15,7 +15,10 @@ shared library of its own with a plain C interface and bound with
   memory by one block or by a thread-block cluster that reduces the
   contrast mean through distributed shared memory, or a grey-sum pass and
   a per-pixel pass for images too large for a cluster
-  (:func:`imagenet_plan` chooses by shape and dtype).
+  (:func:`imagenet_plan` chooses by shape and dtype);
+- ``sampler.cu``: the draw sampler (K7: the key entry ``sampler_keys``, the
+  exact records ``sampler_lanes``, the grouped records ``sampler_grouped``)
+  and the train noise (K8, ``train_noise``), each one launch a call.
 
 Each wrapper counts its launches (:func:`launch_counts`).  A launch that
 a CUDA graph capture records is not a launch yet: it goes to the tally of
@@ -47,13 +50,15 @@ import torch
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "AugmentPlan", "CifarPlan", "ImageNetPlan",
            "augment_plan", "cifar_plan", "imagenet_plan", "load_libraries", "augment",
            "augment_max_active_clusters", "cifar_stack", "imagenet_stack",
-           "imagenet_max_active_clusters", "launch_counts", "reset_launch_counts",
-           "counting_capture", "count_replays"]
+           "imagenet_max_active_clusters", "on_card", "sampler_keys", "sampler_lanes",
+           "sampler_grouped", "train_noise", "launch_counts", "reset_launch_counts", "counting_capture",
+           "count_replays"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"augment": _PKG / "csrc" / "augment.cu",
            "preprocess": _PKG / "csrc" / "preprocess.cu",
-           "imagenet": _PKG / "csrc" / "imagenet.cu"}
+           "imagenet": _PKG / "csrc" / "imagenet.cu",
+           "sampler": _PKG / "csrc" / "sampler.cu"}
 #: where the libraries are built and loaded from: the package's own
 #: ``_build``, or the compile cache's directory (``core/compilecache.py``)
 DEFAULT_BUILD_DIR = BUILD_DIR = _PKG / "_build"
@@ -63,7 +68,12 @@ DEFAULT_BUILD_DIR = BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+_L, _U = ctypes.c_longlong, ctypes.c_uint
+#: the record outputs of faa_sampler_lanes and faa_sampler_grouped: sub,
+#: pol, crop, then the ImageNet fields (flip, order, centre, factors, alpha),
+#: each with its row stride
+_RECORD_ARGS = [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I]
 #: {C function: argument types} of each library; each returns an int
 _SIGNATURES = {
     "augment": {"faa_augment": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -77,11 +87,19 @@ _SIGNATURES = {
                  "faa_imagenet_tiles": [_I, _I],
                  "faa_imagenet_max_active_clusters": [_I, _I, _I, _I, _I, _I, _I,
                                                       ctypes.POINTER(_I)]},
+    "sampler": {"faa_sampler_keys": [_P, _I, _I, _L, _P, _U, _I, _P, _I, _P],
+                "faa_sampler_lanes": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _D,
+                                      *_RECORD_ARGS, _I, _P],
+                "faa_sampler_grouped": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _D,
+                                        *_RECORD_ARGS, _I, _P],
+                "faa_train_noise": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _D,
+                                    _D, _D, _I, _P, _P, _I, _P]},
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_launches = {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0}
+_launches = {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0, "sampler": 0,
+             "train_noise": 0}
 #: per thread: the launches recorded into the CUDA graph that thread is
 #: capturing under counting_capture (None outside it); threads may capture
 #: side by side (the search pipeline)
@@ -585,3 +603,220 @@ def imagenet_max_active_clusters(h: int, w: int, dtype: torch.dtype, cluster: in
                                               ctypes.byref(active))
     _check_rc(lib, rc, "ImageNet stack occupancy")
     return active.value
+
+
+# ---------------------------------------------------------------- the sampler
+#: Philox counter words of the key entry: fold_in's and split's second word
+FOLD, SPLIT = 0x466F6C64, 0x53706C74
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether the draws of keys `t` go through the sampler's kernels (a
+    CUDA tensor) or through the plain versions (a CPU tensor); any other
+    device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no sampler for device {t.device}")
+    return True
+
+
+def _check_keys(what: str, *tensors: torch.Tensor) -> torch.device:
+    """Key tensors of the sampler's kernels: int64, contiguous, ``[..., 2]``,
+    CUDA, on one device.  Returns the device."""
+    if any(t.device.type != "cuda" for t in tensors) or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"the {what} kernel takes CUDA tensors on one device")
+    if any(t.dtype != torch.int64 for t in tensors):
+        raise TypeError(f"the {what} kernel takes int64 keys")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"the {what} kernel takes contiguous tensors")
+    if any(t.dim() < 1 or t.shape[-1] != 2 for t in tensors):
+        raise ValueError(f"the {what} kernel takes keys [..., 2]")
+    return tensors[0].device
+
+
+def _launch(lib_fn, what: str, name: str, *args) -> None:
+    """Call one launcher on the current stream, raise if the card refused
+    the launch, count it under `name`."""
+    rc = lib_fn(*args)
+    _check_rc(load_libraries()["sampler"], rc, what)
+    _count(name)
+
+
+def sampler_keys(keys: torch.Tensor, num: int, stream: int, *, base: int = 0,
+                 data: torch.Tensor | None = None, words: int = 2) -> torch.Tensor:
+    """Philox blocks ``(base + j, stream, 0, 0)``, ``j < num``, of each key of
+    ``keys [N, 2]`` in one launch (``ops/rng.py`` ``fold_in``, ``split``,
+    ``fold_in_range``, ``blocks``).  `data`, a one-element int64 tensor on the
+    keys' device, takes the place of `base` and is read by the kernel, so a
+    captured graph reads it at each replay.  Returns ``[N, num, 2]`` (words
+    0 and 1) or, with ``words=4``, ``[4, N, num]``, int64 words."""
+    dev = _check_keys("sampler", keys)
+    if keys.dim() != 2:
+        raise ValueError(f"keys must be [N, 2], got {tuple(keys.shape)}")
+    if data is not None and (data.device != dev or data.dtype != torch.int64
+                             or data.numel() != 1):
+        raise ValueError("data must be one int64 on the keys' device")
+    if words not in (2, 4) or num < 0:
+        raise ValueError(f"no key entry with words={words}, num={num}")
+    n = keys.shape[0]
+    out = torch.empty((n, num, 2) if words == 2 else (4, n, num), dtype=torch.int64, device=dev)
+    if n * num:
+        lib = load_libraries()["sampler"]
+        _launch(lib.faa_sampler_keys, "sampler", "sampler", keys.data_ptr(), n, num,
+                int(base) & 0xFFFFFFFF, None if data is None else data.data_ptr(),
+                int(stream) & 0xFFFFFFFF, words, out.data_ptr(), dev.index or 0,
+                torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def _jitter_range(strength: float) -> tuple[float, float]:
+    """``(span, lo)`` of the ColorJitter factors as float32 values, the
+    plain version's ``np.float32(1 + s) - np.float32(1 - s)`` and
+    ``np.float32(1 - s)`` (``ops/augment.py sample_imagenet``)."""
+    import numpy as np
+
+    lo = np.float32(1.0 - strength)
+    return float(np.float32(1.0 + strength) - lo), float(lo)
+
+
+def _records(dev, lanes: int, *, num_op: int | None, crop: bool,
+             imagenet: bool) -> tuple[dict, list]:
+    """The output tensors of `lanes` lanes and the record arguments of a
+    launcher (``_RECORD_ARGS``); with `imagenet` the ImageNet stack's
+    ``flip``, ``order``, ``centre``, ``factors`` and ``alpha``, each
+    contiguous (``ImageNetDraws``')."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {}
+    if num_op is not None:
+        out["sub"] = torch.empty((lanes,), **i32)
+        out["pol"] = torch.empty((lanes, num_op, 4), **f32)
+    if crop:
+        out["crop"] = torch.empty((lanes, 5), **i32)
+    fields = [(None, 0)] * 5
+    if imagenet:
+        out.update(flip=torch.empty((lanes,), **i32), order=torch.empty((lanes,), **i32),
+                   centre=torch.empty((lanes, 2), **i32),
+                   factors=torch.empty((lanes, 3), **f32),
+                   alpha=torch.empty((lanes, 3), **f32))
+        fields = [(out[k].data_ptr(), out[k].shape[1] if out[k].dim() == 2 else 1)
+                  for k in ("flip", "order", "centre", "factors", "alpha")]
+    ptr = lambda k: out[k].data_ptr() if k in out else None  # noqa: E731
+    args = [ptr("sub"), ptr("pol"), ptr("crop")]
+    for p, stride in fields:
+        args += [p, stride]
+    return out, args
+
+
+def _record_scalars(num_sub: int, num_op: int | None, height: int, width: int, pad: int,
+                    strength: float, alphastd: float) -> list:
+    if height < 1 or width < 1:
+        raise ValueError(f"no draws for {height}x{width} images")
+    span, lo = _jitter_range(strength)
+    return [int(num_sub), int(num_op or 0), int(height), int(width), 2 * int(pad) + 1, span,
+            lo, float(alphastd)]
+
+
+def sampler_lanes(keys: torch.Tensor, *, batch: int, height: int, width: int,
+                  num_sub: int = 1, num_op: int | None = None, crop: bool = False,
+                  imagenet: bool = False, pad: int = 4, strength: float = 0.4,
+                  alphastd: float = 0.1) -> dict:
+    """The exact records of every lane in one launch: the lanes are
+    ``split(key, batch)`` of each key of ``keys [D, 2]``, draw-major, or the
+    keys themselves with ``batch=0``.  With `num_op` a lane draws its
+    sub-policy (``sub [L]``) and slots (``pol [L, num_op, 4]``, the exact
+    sampler); with `crop` the CIFAR stack's ``crop [L, 5]`` (offsets in
+    ``[0, 2 pad]``); with `imagenet` the ImageNet stack's draws
+    (:func:`_records`).  Returns the dict of outputs."""
+    dev = _check_keys("sampler", keys)
+    if keys.dim() != 2 or batch < 0:
+        raise ValueError(f"keys must be [D, 2] and batch >= 0, got {tuple(keys.shape)}, {batch}")
+    if num_op is not None and (num_op < 1 or num_sub < 1):
+        raise ValueError(f"no exact draws of {num_sub} sub-policies x {num_op} slots")
+    lanes = keys.shape[0] * batch if batch else keys.shape[0]
+    out, rec = _records(dev, lanes, num_op=num_op, crop=crop, imagenet=imagenet)
+    if lanes:
+        lib = load_libraries()["sampler"]
+        _launch(lib.faa_sampler_lanes, "sampler", "sampler", keys.data_ptr(), keys.shape[0],
+                int(batch), *_record_scalars(num_sub, num_op, height, width, pad, strength,
+                                             alphastd),
+                *rec, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def sampler_grouped(keys: torch.Tensor, *, batch: int, groups: int, num_sub: int, num_op: int,
+                    height: int, width: int, presplit: bool = False, crop: bool = False,
+                    imagenet: bool = False, pad: int = 4, strength: float = 0.4,
+                    alphastd: float = 0.1) -> dict:
+    """The grouped records of each draw key of ``keys [D, 2]`` over `batch`
+    images in one launch, one block a key (``ops/augment.py sample_grouped``:
+    ``min(groups, batch)`` chunks of a stable-sorted permutation, one
+    sub-policy a chunk, per-image slots), draw-major; with `crop` or
+    `imagenet` also each lane's stack draws from ``split(key, batch)``.
+    `presplit` takes the lanes from ``split(key, 2)[0]`` and the policy from
+    ``split(key, 2)[1]`` (the ImageNet tree).  Returns the dict of outputs."""
+    dev = _check_keys("sampler", keys)
+    if keys.dim() != 2 or batch < 0 or num_op < 1 or num_sub < 1:
+        raise ValueError(f"no grouped draws for keys {tuple(keys.shape)}, batch {batch}, "
+                         f"{num_sub} x {num_op}")
+    g = max(1, min(int(groups), batch))
+    lanes = keys.shape[0] * batch
+    out, rec = _records(dev, lanes, num_op=num_op, crop=crop, imagenet=imagenet)
+    if lanes:
+        lib = load_libraries()["sampler"]
+        _launch(lib.faa_sampler_grouped, "sampler", "sampler", keys.data_ptr(), keys.shape[0],
+                int(batch), -(-batch // g), int(bool(presplit)),
+                *_record_scalars(num_sub, num_op, height, width, pad, strength, alphastd),
+                *rec, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def train_noise(*, batch: int = 0, sites=None, key_shake: torch.Tensor | None = None,
+                key_drop: torch.Tensor | None = None, mix_keys: torch.Tensor | None = None,
+                perm_n: int = 0, gamma: tuple | None = None) -> dict:
+    """K8 in one launch: the noise sites of a train step and mixup's draws.
+
+    `sites` (``ops/shake.py NoiseLayout``) lays the sites' tensors out in one
+    byte buffer (``"packed"``), drawn from ``key_shake`` and ``key_drop``
+    (``[2]`` each).  Each key of ``mix_keys [N, 2]`` splits into ``(key_lam,
+    key_perm)`` (``core/metrics.py:66-68``): a ``Beta(alpha, alpha)`` from
+    each ``key_lam`` rounded to float32 (``"lam"``, ``[N]``), and the
+    permutation of `perm_n` (``"perm"``, int64) from the first key's
+    ``key_perm``.  `gamma` is ``(d, c, 1 / alpha, boost)`` of the Beta's
+    Gammas (``ops/rng.py gamma_constants``)."""
+    given = [t for t in (key_shake, key_drop, mix_keys) if t is not None]
+    if not given:
+        raise ValueError("the train-noise kernel needs at least one key")
+    dev = _check_keys("train-noise", *given)
+    out = {}
+    num_lam = 0
+    if mix_keys is not None:
+        if gamma is None or mix_keys.dim() != 2:
+            raise ValueError("mixup's draws need mix_keys [N, 2] and the Gamma constants")
+        num_lam = mix_keys.shape[0]
+        out["lam"] = torch.empty((num_lam,), dtype=torch.float32, device=dev)
+    if perm_n:
+        if not num_lam:
+            raise ValueError("a permutation needs a mixup key")
+        out["perm"] = torch.empty((perm_n,), dtype=torch.int64, device=dev)
+    count = items = 0
+    table = [None] * 4
+    fbuf = bbuf = None
+    if sites is not None:
+        if key_shake is None or key_drop is None:
+            raise ValueError("noise sites need key_shake and key_drop")
+        packed = out["packed"] = torch.empty((sites.nbytes,), dtype=torch.uint8, device=dev)
+        count, items = sites.count, sites.items
+        table = [a.ctypes.data for a in (sites.begin, sites.out, sites.meta, sites.thr)]
+        fbuf = bbuf = packed.data_ptr()  # sites.out: floats and bytes from its start
+    d, c, inv, boost = gamma or (0.0, 0.0, 0.0, False)
+    if count or num_lam:
+        lib = load_libraries()["sampler"]
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        _launch(lib.faa_train_noise, "train-noise", "train_noise", count, items, *table,
+                ptr(key_shake), ptr(key_drop), int(batch), fbuf, bbuf, ptr(mix_keys), num_lam,
+                int(perm_n), float(d), float(c), float(inv), int(bool(boost)),
+                ptr(out.get("lam")), ptr(out.get("perm")), dev.index or 0,
+                torch.cuda.current_stream(dev).cuda_stream)
+    return out

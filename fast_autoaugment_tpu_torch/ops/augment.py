@@ -11,9 +11,12 @@ a sub-policy index ``sub_idx [B]`` and ``draws [B, num_op, 4]`` holding
 (gate uniform, mirror uniform, cutout x centre in [0, W), cutout y centre
 in [0, H)) -- the same draws the JAX key tree consumes
 (``apply_policy`` -> ``apply_subpolicy`` -> ``apply_op`` -> ``_cutout_abs``).
-Given its draws, :func:`apply_subpolicy_draws` is deterministic.  The two
+Given its draws, :func:`apply_subpolicy_draws` is deterministic.  The
 samplers below make those draws from counter-based keys
-(:mod:`fast_autoaugment_tpu_torch.ops.rng`).
+(:mod:`fast_autoaugment_tpu_torch.ops.rng`): each public sampler takes its
+``*_plain`` int64 torch version for keys on the CPU and one launch of the
+hand-written sampler kernel (``csrc/sampler.cu``, K7) for keys on a CUDA
+device, with the same bits.
 
 The per-slot scalars (value after the range table and the mirror sign,
 the gate, the 2x3 affine matrix, the cutout box) are computed once per
@@ -50,6 +53,7 @@ __all__ = [
     "op_index", "augment_list", "run_op", "slot_records",
     "apply_subpolicy_draws", "apply_subpolicy_draws_plain",
     "sample_exact", "sample_grouped", "sample_draws", "sample_crop", "sample_imagenet",
+    "sample_exact_plain", "sample_grouped_plain", "sample_crop_plain", "sample_imagenet_plain",
     "check_policy",
     "shear_x", "shear_y", "translate_x", "translate_y", "rotate",
     "auto_contrast", "invert", "equalize", "solarize", "posterize",
@@ -518,7 +522,7 @@ def _slot_draws(k0, k1, lane, num_op: int, height: int, width: int) -> torch.Ten
                         uniform24(w[2]) * width, uniform24(w[3]) * height], dim=-1)
 
 
-def sample_exact(keys: torch.Tensor, num_sub: int, num_op: int, height: int,
+def sample_exact_plain(keys: torch.Tensor, num_sub: int, num_op: int, height: int,
                  width: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The exact sampler: an i.i.d. sub-policy and draws per lane, each a
     function of that lane's key alone.
@@ -534,7 +538,7 @@ def sample_exact(keys: torch.Tensor, num_sub: int, num_op: int, height: int,
     return _pick(sub, num_sub), _slot_draws(k0, k1, zero, num_op, height, width)
 
 
-def sample_grouped(key: torch.Tensor, batch: int, groups: int, num_sub: int,
+def sample_grouped_plain(key: torch.Tensor, batch: int, groups: int, num_sub: int,
                    num_op: int, height: int,
                    width: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The grouped sampler, one key ``[2]`` per dispatch: a random
@@ -562,7 +566,7 @@ def sample_grouped(key: torch.Tensor, batch: int, groups: int, num_sub: int,
     return sub_idx, draws
 
 
-def sample_crop(keys: torch.Tensor, height: int, width: int,
+def sample_crop_plain(keys: torch.Tensor, height: int, width: int,
                 pad: int = 4) -> torch.Tensor:
     """The draws of the CIFAR stack after the policy
     (``fast_autoaugment_tpu/ops/preprocess.py:91-106``), one row per lane:
@@ -581,7 +585,7 @@ def sample_crop(keys: torch.Tensor, height: int, width: int,
                         _pick(w[0][:, 1], width)], dim=-1)
 
 
-def sample_imagenet(keys: torch.Tensor, height: int, width: int, strength: float = 0.4,
+def sample_imagenet_plain(keys: torch.Tensor, height: int, width: int, strength: float = 0.4,
                     alphastd: float = 0.1) -> tuple[torch.Tensor, torch.Tensor]:
     """The draws of the ImageNet stack after the policy
     (``fast_autoaugment_tpu/ops/preprocess_imagenet.py:136-188``), one row
@@ -618,6 +622,55 @@ def sample_imagenet(keys: torch.Tensor, height: int, width: int, strength: float
     normals = torch.stack([r0 * c0, r0 * s0, r1 * c1], dim=-1)
     alpha = (normals * float(alphastd)).to(torch.float32)
     return ints, torch.cat([factors, alpha], dim=-1)
+
+
+def _lane_keys(keys: torch.Tensor) -> torch.Tensor:
+    return keys.to(torch.int64).reshape(-1, 2).contiguous()
+
+
+def sample_exact(keys: torch.Tensor, num_sub: int, num_op: int, height: int,
+                 width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sample_exact_plain` on a CPU key; on a CUDA key the sampler
+    kernel (``csrc/sampler.cu lanes_kernel``), one launch, the same bits."""
+    if not _kernels.on_card(keys):
+        return sample_exact_plain(keys, num_sub, num_op, height, width)
+    out = _kernels.sampler_lanes(_lane_keys(keys), batch=0, num_sub=num_sub, num_op=num_op,
+                                 height=height, width=width)
+    return out["sub"], out["pol"]
+
+
+def sample_grouped(key: torch.Tensor, batch: int, groups: int, num_sub: int,
+                   num_op: int, height: int,
+                   width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sample_grouped_plain` on a CPU key; on a CUDA key the sampler
+    kernel (``csrc/sampler.cu grouped_kernel``), one launch, the same bits."""
+    if not _kernels.on_card(key):
+        return sample_grouped_plain(key, batch, groups, num_sub, num_op, height, width)
+    out = _kernels.sampler_grouped(_lane_keys(key).reshape(1, 2), batch=batch, groups=groups,
+                                   num_sub=num_sub, num_op=num_op, height=height, width=width)
+    return out["sub"], out["pol"]
+
+
+def sample_crop(keys: torch.Tensor, height: int, width: int, pad: int = 4) -> torch.Tensor:
+    """:func:`sample_crop_plain` on a CPU key; on a CUDA key the sampler
+    kernel, one launch, the same bits."""
+    if not _kernels.on_card(keys):
+        return sample_crop_plain(keys, height, width, pad)
+    return _kernels.sampler_lanes(_lane_keys(keys), batch=0, height=height, width=width,
+                                  crop=True, pad=pad)["crop"]
+
+
+def sample_imagenet(keys: torch.Tensor, height: int, width: int, strength: float = 0.4,
+                    alphastd: float = 0.1) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sample_imagenet_plain` on a CPU key; on a CUDA key the sampler
+    kernel, one launch, the same bits (the float64 Box-Muller op for op),
+    its fields joined into the two rows."""
+    if not _kernels.on_card(keys):
+        return sample_imagenet_plain(keys, height, width, strength, alphastd)
+    out = _kernels.sampler_lanes(_lane_keys(keys), batch=0, height=height, width=width,
+                                 imagenet=True, strength=strength, alphastd=alphastd)
+    return (torch.cat([out["flip"][:, None], out["order"][:, None], out["centre"]], dim=1),
+            torch.cat([out["factors"], out["alpha"]], dim=1))
 
 
 def sample_draws(dispatch: str, keys, batch: int, *, num_sub: int, num_op: int,

@@ -15,6 +15,13 @@ on CUDA.
 Uniforms are ``(word >> 8) * 2**-24``: 24 random bits, exactly
 representable in float32, in ``[0, 1)``.
 
+The functions here are the plain versions, on any device.  The public key
+helpers (:func:`fold_in`, :func:`split`, :func:`fold_in_range`,
+:func:`blocks`) take them for keys on the CPU; for keys on a CUDA device
+they launch K7's key entry (``csrc/sampler.cu``), one launch a call, which
+gives the same bits.  Mixup's draws on the card (:func:`beta_symmetric`,
+:func:`permutation`) are K8's (``search/tta.py PhiloxDraws.mixup_draws``).
+
 The float draws that are not uniforms (the ImageNet lighting normals, the
 Beta of mixup) are built from correctly rounded float64 operations only:
 each +, -, x and / is its own torch op, and log, exp, cos and sin are
@@ -31,9 +38,12 @@ import math
 
 import torch
 
+from fast_autoaugment_tpu_torch.ops import _kernels
+
 __all__ = ["philox4x32", "uniform24", "fold_in", "fold_in_range", "split", "blocks",
+           "fold_in_plain", "fold_in_range_plain", "split_plain", "blocks_plain",
            "MASK32", "log_unit", "cos_sin_turn", "log_f64", "exp_f64", "sqrt_f64", "normal_f64",
-           "gamma_log", "beta_symmetric", "permutation", "BETA_CANDIDATES"]
+           "gamma_log", "gamma_constants", "beta_symmetric", "permutation", "BETA_CANDIDATES"]
 
 MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox multipliers
@@ -77,11 +87,53 @@ def uniform24(word: torch.Tensor) -> torch.Tensor:
     return (word >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def _keys2(key: torch.Tensor) -> torch.Tensor:
+    return key.to(torch.int64).reshape(-1, 2).contiguous()
+
+
 def fold_in(key: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
+    """:func:`fold_in_plain`; on a CUDA key one launch of the key entry, which
+    reads a tensor `data` from device memory."""
+    if not _kernels.on_card(key):
+        return fold_in_plain(key, data)
+    k = _keys2(key)
+    if torch.is_tensor(data):
+        d = data.to(device=k.device, dtype=torch.int64).reshape(1)
+        out = _kernels.sampler_keys(k, 1, _kernels.FOLD, data=d)
+    else:
+        out = _kernels.sampler_keys(k, 1, _kernels.FOLD, base=int(data))
+    return out.reshape(key.shape)
+
+
+def split(keys: torch.Tensor, num: int) -> torch.Tensor:
+    """:func:`split_plain`; on a CUDA key one launch of the key entry."""
+    if not _kernels.on_card(keys):
+        return split_plain(keys, num)
+    out = _kernels.sampler_keys(_keys2(keys), num, _kernels.SPLIT)
+    return out.reshape(tuple(keys.shape[:-1]) + (num, 2))
+
+
+def fold_in_range(key: torch.Tensor, num: int) -> torch.Tensor:
+    """:func:`fold_in_range_plain`; on a CUDA key one launch of the key entry."""
+    if not _kernels.on_card(key):
+        return fold_in_range_plain(key, num)
+    return _kernels.sampler_keys(_keys2(key).reshape(1, 2), num, _kernels.FOLD).reshape(num, 2)
+
+
+def blocks(keys: torch.Tensor, num: int, stream: int) -> list[torch.Tensor]:
+    """:func:`blocks_plain`; on a CUDA key one launch of the key entry (the
+    four words are views of one buffer)."""
+    if not _kernels.on_card(keys):
+        return blocks_plain(keys, num, stream)
+    out = _kernels.sampler_keys(_keys2(keys), num, stream, words=4)
+    lead = tuple(keys.shape[:-1]) + (num,)
+    return [out[i].reshape(lead) for i in range(4)]
+
+
+def fold_in_plain(key: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
     """A fresh key derived from ``key`` ``[..., 2]`` and an integer (one
     Philox block at counter ``(data, "Fold", 0, 0)``); same shape as `key`.
-    `data` may be a 0-dim integer tensor on the key's device, so that a
-    captured CUDA graph reads it at replay time."""
+    `data` may be a 0-dim integer tensor."""
     key = key.to(torch.int64)
     if torch.is_tensor(data):
         data_t = data.to(device=key.device, dtype=torch.int64) & MASK32
@@ -92,7 +144,7 @@ def fold_in(key: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
     return torch.stack([w[0], w[1]], dim=-1)
 
 
-def split(keys: torch.Tensor, num: int) -> torch.Tensor:
+def split_plain(keys: torch.Tensor, num: int) -> torch.Tensor:
     """``num`` fresh keys from each key: ``keys [..., 2]`` -> ``[..., num, 2]``.
 
     Key ``j`` of a key is one Philox block of that key at counter
@@ -105,7 +157,7 @@ def split(keys: torch.Tensor, num: int) -> torch.Tensor:
     return torch.stack([w[0], w[1]], dim=-1)
 
 
-def fold_in_range(key: torch.Tensor, num: int) -> torch.Tensor:
+def fold_in_range_plain(key: torch.Tensor, num: int) -> torch.Tensor:
     """``fold_in(key, i)`` for ``i`` in ``range(num)``: ``[2]`` -> ``[num, 2]``."""
     key = key.to(torch.int64).reshape(2)
     i = torch.arange(num, dtype=torch.int64, device=key.device)
@@ -114,7 +166,7 @@ def fold_in_range(key: torch.Tensor, num: int) -> torch.Tensor:
     return torch.stack([w[0], w[1]], dim=-1)
 
 
-def blocks(keys: torch.Tensor, num: int, stream: int) -> list[torch.Tensor]:
+def blocks_plain(keys: torch.Tensor, num: int, stream: int) -> list[torch.Tensor]:
     """Philox blocks ``j`` in ``range(num)`` of stream `stream` under each key
     of ``keys [..., 2]``: four int64 tensors of 32-bit words, ``[..., num]``
     (counter ``(j, stream, 0, 0)``)."""
@@ -260,6 +312,15 @@ _STREAM_GAMMA, _STREAM_PERM = 7, 8
 BETA_CANDIDATES = 16
 
 
+def gamma_constants(shape: float) -> tuple[float, float, float, bool]:
+    """``(d, c, 1 / shape, boost)`` of :func:`gamma_log`: Marsaglia and
+    Tsang's ``d = a - 1/3`` and ``c = 1 / sqrt(9 d)`` of ``a = shape + 1``
+    when ``shape < 1`` (boosted), else of ``a = shape``."""
+    a = shape + 1.0 if shape < 1.0 else shape
+    d = a - 1.0 / 3.0
+    return d, 1.0 / math.sqrt(9.0 * d), 1.0 / shape, shape < 1.0
+
+
 def gamma_log(keys: torch.Tensor, shape: float) -> tuple[torch.Tensor, torch.Tensor]:
     """``(ln X, accepted)`` for ``X ~ Gamma(shape, 1)``, one per key of
     ``keys [..., 2]``, in float64: Marsaglia and Tsang's method ("A simple
@@ -269,10 +330,8 @@ def gamma_log(keys: torch.Tensor, shape: float) -> tuple[torch.Tensor, torch.Ten
     uniform from word 2, the boost uniform from word 3; the first accepted
     candidate is taken.  ``accepted`` (bool, ``[...]``) is False where no
     candidate passed."""
-    a = shape + 1.0 if shape < 1.0 else shape
-    d = a - 1.0 / 3.0
-    c = 1.0 / math.sqrt(9.0 * d)
-    w = blocks(keys, BETA_CANDIDATES, _STREAM_GAMMA)  # 4 x [..., candidates]
+    d, c, _, _ = gamma_constants(shape)
+    w = blocks_plain(keys, BETA_CANDIDATES, _STREAM_GAMMA)  # 4 x [..., candidates]
     x = normal_f64(w[0], w[1])
     v = x * c
     v = v + 1.0
@@ -302,7 +361,7 @@ def beta_symmetric(keys: torch.Tensor, alpha: float) -> torch.Tensor:
     m))`` with ``m`` the larger log (:func:`exp_f64`).  Raises
     (asynchronously on the card: a device-side assertion) where a Gamma
     accepted no candidate."""
-    pair = split(keys, 2)
+    pair = split_plain(keys, 2)
     lx, ok_x = gamma_log(pair[..., 0, :], alpha)
     ly, ok_y = gamma_log(pair[..., 1, :], alpha)
     torch._assert_async((ok_x & ok_y).all(), "the Beta sampler's Gamma accepted none of "
@@ -315,5 +374,5 @@ def beta_symmetric(keys: torch.Tensor, alpha: float) -> torch.Tensor:
 def permutation(key: torch.Tensor, num: int) -> torch.Tensor:
     """A random permutation of ``range(num)`` from a key ``[2]``: the stable
     sort order of ``num`` Philox words (int64, on the key's device)."""
-    words = blocks(key.reshape(2), num, _STREAM_PERM)[0]
+    words = blocks_plain(key.reshape(2), num, _STREAM_PERM)[0]
     return torch.sort(words, stable=True).indices

@@ -26,21 +26,28 @@ raises; eval mode takes none and uses the expectations (``0.5 (x1 + x2)``,
 ``(1 - p) x``, ``x (1 - p)``, identity).
 
 The draws are Philox (``ops/rng.py``) and integer or exact float arithmetic
-only, so the same keys give the same bits on the CPU and on the card.
+only, so the same keys give the same bits on the CPU and on the card: on
+the CPU :meth:`ModelNoise.draw_plain`, on the card one launch of the
+train-noise kernel (``csrc/sampler.cu noise_kernel``, K8) that writes every
+site into one packed buffer (:class:`NoiseLayout`), whose views are the
+sites' tensors.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
-from fast_autoaugment_tpu_torch.ops import rng
+from fast_autoaugment_tpu_torch.ops import _kernels, rng
 
 __all__ = ["ShakeShake", "ShakeDrop", "shake_shake", "shake_shake_eval", "shake_drop",
-           "shake_drop_eval", "NoiseSite", "ModelNoise", "number_noise_sites", "noise_sites",
-           "SITE_KINDS"]
+           "shake_drop_eval", "NoiseSite", "ModelNoise", "NoiseLayout", "noise_layout",
+           "number_noise_sites", "noise_sites", "SITE_KINDS"]
 
 #: the kinds of noise site and the tensors each takes: shake_shake (alpha,
 #: beta) [B, 1, 1, 1]; shake_drop (gate [] , alpha, beta [B, 1, 1, 1]);
@@ -158,6 +165,83 @@ def number_noise_sites(model: nn.Module) -> list[NoiseSite]:
     return sites
 
 
+@dataclass(frozen=True)
+class NoiseLayout:
+    """Where one train step's noise lies in its packed byte buffer: the
+    float32 tensors of the ShakeShake, ShakeDrop and drop-connect sites
+    first (``float_bytes``), then the dropout sites' bool masks
+    (``nbytes`` in all).  Per site, in site order: ``begin`` its first work
+    item of the train-noise kernel (a sample, or a dropout element),
+    ``out`` its first float or byte, ``meta`` its model site number ``|
+    kind << 16`` and ``thr`` the float32 ``1 - p`` its uniforms are held
+    against.  ``shake`` lists the shake sites' indices in `sites` and
+    ``gather`` the packed floats' places in the plain version's source
+    (:meth:`ModelNoise.draw_plain`)."""
+
+    batch: int
+    kinds: tuple
+    widths: tuple
+    count: int
+    items: int
+    float_bytes: int
+    nbytes: int
+    begin: np.ndarray
+    out: np.ndarray
+    meta: np.ndarray
+    thr: np.ndarray
+    shake: tuple
+    gather: np.ndarray
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(batch: int, kinds: tuple, numbers: tuple, ps: tuple, widths: tuple) -> NoiseLayout:
+    b = batch
+    begin, out, meta, thr = [], [], [], []
+    items = floats = 0
+    shake = [i for i, k in enumerate(kinds) if k != "dropout"]
+    n_shake = len(shake)
+    # the plain version's source, concatenated: u0 [S, B], u1 [S, B],
+    # 2 u0 - 1 [S, B], keep [S, B], gate [S], over the S shake sites
+    u0, u1, two, keep, gate = (k * n_shake * b for k in range(5))
+    gather = []
+    for i, kind in enumerate(kinds):
+        begin.append(items)
+        meta.append(numbers[i] | SITE_KINDS.index(kind) << 16)
+        thr.append(np.float32(1.0 - ps[i]))
+        if kind == "dropout":
+            out.append(0)
+            items += b * widths[i]
+            continue
+        j = shake.index(i)
+        row = np.arange(b) + j * b
+        out.append(floats)
+        if kind == "shake_shake":
+            gather += [u0 + row, u1 + row]
+        elif kind == "shake_drop":
+            gather += [np.asarray([gate + j]), two + row, u1 + row]
+        else:
+            gather += [keep + row]
+        floats = sum(len(g) for g in gather)
+        items += b
+    bools = 4 * floats
+    for i, kind in enumerate(kinds):
+        if kind == "dropout":
+            out[i] = bools
+            bools += b * widths[i]
+    as32 = lambda v, t: np.ascontiguousarray(v, t)  # noqa: E731
+    return NoiseLayout(b, kinds, widths, len(kinds), items, 4 * floats, bools,
+                       as32(begin, np.int32), as32(out, np.int32), as32(meta, np.int32),
+                       as32(thr, np.float32), tuple(shake),
+                       np.concatenate(gather).astype(np.int64) if gather else
+                       np.zeros(0, np.int64))
+
+
+def noise_layout(sites: Sequence[NoiseSite], batch: int) -> NoiseLayout:
+    """The :class:`NoiseLayout` of `sites` over `batch` samples."""
+    return _layout(int(batch), tuple(s.kind for s in sites), tuple(s.site for s in sites),
+                   tuple(s.p for s in sites), tuple(s.width for s in sites))
+
+
 class ModelNoise:
     """One train step's noise: ``tensors[i]`` is the tuple of site ``i``
     (:data:`SITE_KINDS` says what each kind holds).  Build it from explicit
@@ -180,37 +264,70 @@ class ModelNoise:
     def draw(cls, sites: Sequence[NoiseSite], batch: int, key_shake,
              key_drop) -> "ModelNoise":
         """Every site's tensors from the step's ``key_shake`` and ``key_drop``
-        (``[2]`` int64 tensors on the device to draw on).  Site ``i`` (not a
-        dropout) uses Philox block ``b`` of ``fold_in(key_shake, i)`` for
+        (``[2]`` int64 tensors on the device to draw on): on the CPU
+        :meth:`draw_plain`, on CUDA one launch of the train-noise kernel
+        (``csrc/sampler.cu noise_kernel``) into the packed buffer, the same
+        bits."""
+        if not _kernels.on_card(key_shake):
+            return cls.draw_plain(sites, batch, key_shake, key_drop)
+        lay = noise_layout(sites, batch)
+        keys = [k.to(device=key_shake.device, dtype=torch.int64).reshape(2).contiguous()
+                for k in (key_shake, key_drop)]
+        packed = _kernels.train_noise(batch=batch, sites=lay, key_shake=keys[0],
+                                      key_drop=keys[1])["packed"]
+        return cls.from_packed(lay, packed)
+
+    @classmethod
+    def from_packed(cls, lay: NoiseLayout, packed: torch.Tensor) -> "ModelNoise":
+        """The per-site tuples as views of the packed buffer."""
+        b = lay.batch
+        f = packed[:lay.float_bytes].view(torch.float32)
+        out: list[tuple] = []
+        for i, kind in enumerate(lay.kinds):
+            o = int(lay.out[i])
+            col = lambda k: f[o + k * b:o + (k + 1) * b].view(b, 1, 1, 1)  # noqa: E731
+            if kind == "shake_shake":
+                out.append((col(0), col(1)))
+            elif kind == "shake_drop":
+                o += 1
+                out.append((f[o - 1:o].view(()), col(0), col(1)))
+            elif kind == "drop_connect":
+                out.append((col(0),))
+            else:
+                out.append((packed[o:o + b * lay.widths[i]].view(torch.bool)
+                            .view(b, lay.widths[i]),))
+        return cls(out, list(lay.kinds))
+
+    @classmethod
+    def draw_plain(cls, sites: Sequence[NoiseSite], batch: int, key_shake,
+                   key_drop) -> "ModelNoise":
+        """The plain version of :meth:`draw`, on any device.  Site ``i`` (not
+        a dropout) uses Philox block ``b`` of ``fold_in(key_shake, i)`` for
         sample ``b``: ``u0``, ``u1`` from its words 0 and 1 give ShakeShake's
         (alpha, beta), ShakeDrop's (2 u0 - 1, u1) and drop-connect's keep
         ``u0 < 1 - p``; ShakeDrop's gate is ``u < 1 - p`` from word 3 of
         block 0.  A dropout site ``i`` draws a uniform per element from
         ``fold_in(key_drop, i)``.  The shake sites are drawn in one pass of
-        the generator."""
+        the generator and gathered into the packed buffer at once."""
         dev = key_shake.device
-        out: list[tuple] = [()] * len(sites)
-        shake = [s for s in sites if s.kind != "dropout"]
-        if shake:
-            # stacked views, not a list index (which would copy the list from
-            # the host: no CUDA graph could capture that)
-            every = rng.fold_in_range(key_shake, len(sites))
-            keys = torch.stack([every[s.site] for s in shake])
-            w = rng.blocks(keys, batch, _STREAM_SITE)  # 4 x [S, B]
+        lay = noise_layout(sites, batch)
+        packed = torch.empty((lay.nbytes,), dtype=torch.uint8, device=dev)
+        if lay.shake:
+            every = rng.fold_in_range_plain(key_shake, len(sites))
+            keys = torch.stack([every[sites[i].site] for i in lay.shake])
+            w = rng.blocks_plain(keys, batch, _STREAM_SITE)  # 4 x [S, B]
             u0, u1 = rng.uniform24(w[0]), rng.uniform24(w[1])
             u3 = rng.uniform24(w[3][:, 0])
-            for j, s in enumerate(shake):
-                a, b = u0[j].reshape(batch, 1, 1, 1), u1[j].reshape(batch, 1, 1, 1)
-                if s.kind == "shake_shake":
-                    out[s.site] = (a, b)
-                elif s.kind == "shake_drop":
-                    gate = (u3[j] < 1.0 - s.p).to(torch.float32)
-                    out[s.site] = (gate, a * 2.0 - 1.0, b)
-                else:
-                    out[s.site] = ((a < 1.0 - s.p).to(torch.float32),)
-        for s in sites:
+            thr = torch.from_numpy(lay.thr[list(lay.shake)]).to(dev)
+            source = torch.cat([u0.flatten(), u1.flatten(), (u0 * 2.0 - 1.0).flatten(),
+                                (u0 < thr[:, None]).to(torch.float32).flatten(),
+                                (u3 < thr).to(torch.float32)])
+            packed[:lay.float_bytes].view(torch.float32).copy_(
+                source[torch.from_numpy(lay.gather).to(dev)])
+        for i, s in enumerate(sites):
             if s.kind == "dropout":
-                key = rng.fold_in(key_drop.to(dev), s.site)
-                u = rng.uniform24(rng.blocks(key, batch * s.width, _STREAM_DROPOUT)[0])
-                out[s.site] = ((u < 1.0 - s.p).reshape(batch, s.width),)
-        return cls(out, [s.kind for s in sites])
+                key = rng.fold_in_plain(key_drop.to(dev), s.site)
+                u = rng.uniform24(rng.blocks_plain(key, batch * s.width, _STREAM_DROPOUT)[0])
+                o = int(lay.out[i])
+                packed[o:o + u.numel()].view(torch.bool).copy_(u < 1.0 - s.p)
+        return cls.from_packed(lay, packed)

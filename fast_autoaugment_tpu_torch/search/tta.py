@@ -72,16 +72,17 @@ from fast_autoaugment_tpu_torch.core.telemetry import mono
 from fast_autoaugment_tpu_torch.core.watchdog import capture_guard, dispatch_enqueue_guard
 from fast_autoaugment_tpu_torch.ops import _kernels, rng
 from fast_autoaugment_tpu_torch.ops.augment import (
-    sample_crop,
-    sample_exact,
-    sample_grouped,
-    sample_imagenet,
+    sample_crop_plain,
+    sample_exact_plain,
+    sample_grouped_plain,
+    sample_imagenet_plain,
 )
 from fast_autoaugment_tpu_torch.ops.preprocess import cifar_train_batch
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import ImageNetDraws, imagenet_train_batch
-from fast_autoaugment_tpu_torch.ops.shake import ModelNoise
+from fast_autoaugment_tpu_torch.ops.shake import ModelNoise, noise_layout
 
-__all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "prng_key",
+__all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "prng_key", "lane_draws_plain",
+           "imagenet_draws_plain", "mixup_draws_plain", "train_draws",
            "cifar_augment_fn", "imagenet_augment_fn", "make_tta_step", "make_audit_step",
            "eval_tta", "eval_tta_batched", "eval_audit"]
 
@@ -131,16 +132,14 @@ class PhiloxDraws:
     def draws(self, draw_keys, *, batch: int, num_sub: int, num_op: int, height: int,
               width: int, dispatch: str, groups: int, device) -> LaneDraws:
         keys = self.key(draw_keys, device).reshape(-1, 2)
-        lanes = rng.split(keys, batch).reshape(-1, 2)  # [D * B, 2], draw-major
-        crop = sample_crop(lanes, height, width)
-        if dispatch == "grouped" and num_sub > 1:
-            per_draw = [sample_grouped(k, batch, groups, num_sub, num_op, height, width)
-                        for k in keys]
-            sub = torch.cat([s for s, _ in per_draw])
-            pol = torch.cat([d for _, d in per_draw])
-        else:
-            sub, pol = sample_exact(lanes, num_sub, num_op, height, width)
-        return LaneDraws(sub, pol, crop)
+        grouped = dispatch == "grouped" and num_sub > 1
+        if _kernels.on_card(keys):  # the whole record in one launch
+            kw = dict(batch=batch, num_sub=num_sub, num_op=num_op, height=height, width=width,
+                      crop=True)
+            rec = (_kernels.sampler_grouped(keys.contiguous(), groups=groups, **kw) if grouped
+                   else _kernels.sampler_lanes(keys.contiguous(), **kw))
+            return LaneDraws(rec["sub"], rec["pol"], rec["crop"])
+        return lane_draws_plain(keys, batch, num_sub, num_op, height, width, grouped, groups)
 
     def model_noise(self, sites, batch: int, key_shake, key_drop, device) -> ModelNoise:
         """The model's noise of one train step (``ops/shake.py ModelNoise.draw``)."""
@@ -151,10 +150,31 @@ class PhiloxDraws:
         """``(lam, perm)`` of one ``mixup_batch`` call (``core/metrics.py:66-68``)
         at ``alpha > 0``: the key splits into ``(key_lam, key_perm)``; ``lam``
         is a 0-dim ``Beta(alpha, alpha)`` draw rounded once to float32,
-        ``perm`` a permutation of the batch."""
-        key_lam, key_perm = rng.split(self.key(key, device).reshape(2), 2)
-        return (rng.beta_symmetric(key_lam, alpha).to(torch.float32),
-                rng.permutation(key_perm, batch))
+        ``perm`` a permutation of the batch.  On the card one launch of the
+        train-noise kernel."""
+        key = self.key(key, device).reshape(2)
+        if _kernels.on_card(key):
+            out = _kernels.train_noise(mix_keys=key.reshape(1, 2).contiguous(), perm_n=batch,
+                                       gamma=rng.gamma_constants(alpha))
+            return out["lam"].reshape(()), out["perm"]
+        return mixup_draws_plain(key, batch, alpha)
+
+    def train_draws(self, sites, batch: int, key_shake, key_drop, key_mix, alpha: float,
+                    device) -> tuple:
+        """``(noise, lam, perm)`` of one train step (:func:`train_draws`).  On
+        the card one launch of the train-noise kernel makes them all."""
+        keys = [self.key(k, device).reshape(2) for k in (key_shake, key_drop, key_mix)]
+        if not _kernels.on_card(keys[0]):
+            return train_draws(self, sites, batch, *keys, alpha, device)
+        lay = noise_layout(sites, batch) if sites else None
+        mix = alpha > 0.0
+        out = _kernels.train_noise(
+            batch=batch, sites=lay, key_shake=keys[0].contiguous(),
+            key_drop=keys[1].contiguous(),
+            mix_keys=keys[2].reshape(1, 2).contiguous() if mix else None,
+            perm_n=batch if mix else 0, gamma=rng.gamma_constants(alpha) if mix else None)
+        noise = ModelNoise.from_packed(lay, out["packed"]) if sites else None
+        return (noise, out["lam"].reshape(()), out["perm"]) if mix else (noise, None, None)
 
     def imagenet_draws(self, key, *, batch: int, policy_shape: tuple[int, int] | None,
                        height: int, width: int, dispatch: str, groups: int,
@@ -166,23 +186,12 @@ class PhiloxDraws:
         which gives its exact policy draws and its stack draws
         (:func:`~fast_autoaugment_tpu_torch.ops.augment.sample_imagenet`).
         ``policy_shape`` is ``(num_sub, num_op)``, or None without a
-        policy."""
-        key = self.key(key, device).reshape(2)
+        policy.  On the card the whole record is one launch."""
+        key = self.key(key, device).reshape(1, 2)
         grouped = dispatch == "grouped" and policy_shape is not None and policy_shape[0] > 1
-        if grouped:
-            key, key_pol = rng.split(key, 2)
-        lanes = rng.split(key, batch)
-        ints, floats = sample_imagenet(lanes, height, width)
-        sub = pol = None
-        if policy_shape is not None:
-            num_sub, num_op = policy_shape
-            if grouped:
-                sub, pol = sample_grouped(key_pol, batch, groups, num_sub, num_op, height, width)
-            else:
-                sub, pol = sample_exact(lanes, num_sub, num_op, height, width)
-        return ImageNetDraws(sub, pol, flip=ints[:, 0].contiguous(),
-                             order=ints[:, 1].contiguous(), factors=floats[:, :3].contiguous(),
-                             alpha=floats[:, 3:].contiguous(), centre=ints[:, 2:].contiguous())
+        if _kernels.on_card(key):
+            return _imagenet_records(key, batch, policy_shape, height, width, grouped, groups)
+        return imagenet_draws_plain(key, batch, policy_shape, height, width, grouped, groups)
 
     def imagenet_lane_draws(self, draw_keys, *, batch: int, num_sub: int, num_op: int,
                             height: int, width: int, dispatch: str, groups: int,
@@ -190,13 +199,98 @@ class PhiloxDraws:
         """The draws of D ``imagenet_train_batch`` calls, one per draw key
         (``[D, 2]``), on the same `batch` images: draw-major lanes, as the
         TTA step lays them out (the JAX step maps ``imagenet_train_batch``
-        over the split keys, ``search/tta.py:120-127``)."""
+        over the split keys, ``search/tta.py:120-127``).  On the card the
+        whole record of all D keys is one launch."""
         keys = self.key(draw_keys, device).reshape(-1, 2)
-        per_key = [self.imagenet_draws(k, batch=batch, policy_shape=(num_sub, num_op),
-                                       height=height, width=width, dispatch=dispatch,
-                                       groups=groups, device=device) for k in keys]
-        return ImageNetDraws(*(torch.cat([getattr(d, f.name) for d in per_key])
-                               for f in dataclasses.fields(ImageNetDraws)))
+        grouped = dispatch == "grouped" and num_sub > 1
+        if _kernels.on_card(keys):
+            return _imagenet_records(keys, batch, (num_sub, num_op), height, width, grouped,
+                                     groups)
+        return imagenet_draws_plain(keys, batch, (num_sub, num_op), height, width, grouped,
+                                    groups)
+
+
+def lane_draws_plain(keys: torch.Tensor, batch: int, num_sub: int, num_op: int, height: int,
+                     width: int, grouped: bool, groups: int) -> LaneDraws:
+    """The plain version of :meth:`PhiloxDraws.draws` on the draw keys
+    ``[D, 2]``, on any device: per draw key a Python loop of the plain
+    samplers under ``grouped``."""
+    lanes = rng.split_plain(keys, batch).reshape(-1, 2)  # [D * B, 2], draw-major
+    crop = sample_crop_plain(lanes, height, width)
+    if grouped:
+        per_draw = [sample_grouped_plain(k, batch, groups, num_sub, num_op, height, width)
+                    for k in keys]
+        sub = torch.cat([s for s, _ in per_draw])
+        pol = torch.cat([d for _, d in per_draw])
+    else:
+        sub, pol = sample_exact_plain(lanes, num_sub, num_op, height, width)
+    return LaneDraws(sub, pol, crop)
+
+
+def imagenet_draws_plain(keys: torch.Tensor, batch: int, policy_shape, height: int, width: int,
+                         grouped: bool, groups: int) -> ImageNetDraws:
+    """The plain version of :meth:`PhiloxDraws.imagenet_lane_draws` on the
+    draw keys ``[D, 2]`` (``policy_shape`` None: no policy), on any device:
+    a Python loop over the keys."""
+    per_key = []
+    for key in keys:
+        if grouped:
+            key, key_pol = rng.split_plain(key, 2)
+        lanes = rng.split_plain(key, batch)
+        ints, floats = sample_imagenet_plain(lanes, height, width)
+        sub = pol = None
+        if policy_shape is not None:
+            num_sub, num_op = policy_shape
+            if grouped:
+                sub, pol = sample_grouped_plain(key_pol, batch, groups, num_sub, num_op,
+                                                height, width)
+            else:
+                sub, pol = sample_exact_plain(lanes, num_sub, num_op, height, width)
+        per_key.append(ImageNetDraws(sub, pol, flip=ints[:, 0].contiguous(),
+                                     order=ints[:, 1].contiguous(),
+                                     factors=floats[:, :3].contiguous(),
+                                     alpha=floats[:, 3:].contiguous(),
+                                     centre=ints[:, 2:].contiguous()))
+    if len(per_key) == 1:
+        return per_key[0]
+    return ImageNetDraws(*(None if getattr(per_key[0], f.name) is None
+                           else torch.cat([getattr(d, f.name) for d in per_key])
+                           for f in dataclasses.fields(ImageNetDraws)))
+
+
+def train_draws(src, sites, batch: int, key_shake, key_drop, key_mix, alpha: float,
+                device) -> tuple:
+    """``(noise, lam, perm)`` of one train step from a draw source's
+    ``model_noise`` (None without sites) and ``mixup_draws`` (Nones at
+    ``alpha == 0``), in that order: a draw source's ``train_draws``, which
+    the train step calls."""
+    noise = src.model_noise(sites, batch, key_shake, key_drop, device) if sites else None
+    lam, perm = src.mixup_draws(key_mix, batch, alpha, device) if alpha > 0.0 else (None, None)
+    return noise, lam, perm
+
+
+def mixup_draws_plain(key: torch.Tensor, batch: int, alpha: float) -> tuple:
+    """The plain version of :meth:`PhiloxDraws.mixup_draws` from a key
+    ``[2]``, on any device."""
+    key_lam, key_perm = rng.split_plain(key, 2)
+    return (rng.beta_symmetric(key_lam, alpha).to(torch.float32),
+            rng.permutation(key_perm, batch))
+
+
+def _imagenet_records(keys: torch.Tensor, batch: int, policy_shape, height: int, width: int,
+                      grouped: bool, groups: int) -> ImageNetDraws:
+    """:meth:`PhiloxDraws.imagenet_lane_draws` of CUDA keys in one launch."""
+    kw = dict(batch=batch, height=height, width=width, imagenet=True)
+    if grouped:
+        rec = _kernels.sampler_grouped(keys.contiguous(), groups=groups, num_sub=policy_shape[0],
+                                       num_op=policy_shape[1], presplit=True, **kw)
+    elif policy_shape is not None:
+        rec = _kernels.sampler_lanes(keys.contiguous(), num_sub=policy_shape[0],
+                                     num_op=policy_shape[1], **kw)
+    else:
+        rec = _kernels.sampler_lanes(keys.contiguous(), **kw)
+    return ImageNetDraws(rec.get("sub"), rec.get("pol"), flip=rec["flip"], order=rec["order"],
+                         factors=rec["factors"], alpha=rec["alpha"], centre=rec["centre"])
 
 
 def prng_key(seed: int) -> np.ndarray:

@@ -115,7 +115,7 @@ _SERVER_SEQ_LOCK = threading.Lock()
 #: runs each shape's step once eagerly before it captures, and those
 #: launches count in ``ops/_kernels.py``'s counters like any other (the
 #: replays then count the captured launches once each)
-_WARMUP = {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0}
+_WARMUP = dict.fromkeys(_kernels.launch_counts(), 0)
 _WARMUP_LOCK = threading.Lock()
 
 #: the export blob's magic and format version

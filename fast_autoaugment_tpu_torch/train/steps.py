@@ -210,10 +210,8 @@ def make_train_step_body(model: torch.nn.Module, optimizer: Optimizer, *, num_cl
             key_aug, key_model = src.split(src.fold_in(key, step, dev), 2, dev)
             if sites or mixup_alpha > 0.0:
                 key_mix, key_shake, key_drop = src.split(key_model, 3, dev)
-            if sites:
-                noise = src.model_noise(sites, b, key_shake, key_drop, dev)
-            if mixup_alpha > 0.0:
-                lam, perm = src.mixup_draws(key_mix, b, mixup_alpha, dev)
+                noise, lam, perm = src.train_draws(sites, b, key_shake, key_drop, key_mix,
+                                                   mixup_alpha, dev)
         x = augment_fn(images, policy, key_aug, src)
         labels = labels.to(device=dev, dtype=torch.int64)
         with record_function("train.model"):
@@ -257,9 +255,9 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, *, num_classes
     (:func:`cifar_augment_fn` with ``aug_dispatch``/``aug_groups``); pass
     :func:`imagenet_augment_fn` for that family.  A custom `augment_fn`
     owns its own dispatch.  A model with noise sites gets its noise from
-    ``key_shake`` and ``key_drop`` of the draw source
-    (``draw_source.model_noise``), mixup its draws from ``key_mix``
-    (``draw_source.mixup_draws``)."""
+    ``key_shake`` and ``key_drop``, mixup its draws from ``key_mix``, both
+    from the draw source's ``train_draws`` (``search/tta.py train_draws``:
+    its ``model_noise`` and ``mixup_draws``)."""
     body = make_train_step_body(
         model, optimizer, num_classes=num_classes, mixup_alpha=mixup_alpha,
         lb_smooth=lb_smooth, ema_mu=ema_mu, cutout_length=cutout_length, use_policy=use_policy,

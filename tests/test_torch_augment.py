@@ -305,7 +305,8 @@ def test_cpu_path_never_reaches_the_kernel():
     pol = torch.from_numpy(policy_to_tensor(load_policy("autoaug_paper_cifar10")))
     sub, draws = T.sample_exact(torch.arange(8).reshape(4, 2), pol.shape[0], 2, 8, 8)
     T.apply_subpolicy_draws(imgs, pol, sub, draws)
-    assert _kernels.launch_counts() == {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0}
+    assert _kernels.launch_counts() == {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0,
+                                        "sampler": 0, "train_noise": 0}
     with pytest.raises(ValueError):  # the kernel wrapper takes CUDA tensors only
         _kernels.augment(imgs, torch.zeros((4, 2, 16)))
 

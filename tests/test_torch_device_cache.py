@@ -260,12 +260,14 @@ def test_launch_counters_count_graph_replays(monkeypatch):
     with _kernels.counting_capture() as tally:
         _kernels._count("augment")
         _kernels._count("cifar_stack", 2)
-    assert _kernels.launch_counts() == {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0}
+    assert _kernels.launch_counts() == {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0,
+                                        "sampler": 0, "train_noise": 0}
     _kernels._count("augment")  # captured outside counting_capture: counted nowhere
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     _kernels._count("imagenet_stack")
     _kernels.count_replays(tally, 3)
-    assert _kernels.launch_counts() == {"augment": 3, "cifar_stack": 6, "imagenet_stack": 1}
+    assert _kernels.launch_counts() == {"augment": 3, "cifar_stack": 6, "imagenet_stack": 1,
+                                        "sampler": 0, "train_noise": 0}
     _kernels.reset_launch_counts()
 
 

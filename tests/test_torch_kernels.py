@@ -419,3 +419,278 @@ def test_lighting_draws_bitwise_on_the_card(cuda_device):
     ints_g, floats_g = T.sample_imagenet(keys.to(cuda_device), 224, 224)
     assert torch.equal(ints_g.cpu(), ints)
     assert torch.equal(floats_g.cpu().view(torch.int32), floats.view(torch.int32))
+
+
+# ------------------------------------------- K7, the sampler; K8, the noise
+
+
+def _counted(name, fn):
+    """`fn()`'s result and the launches of kernel `name` it made."""
+    before = _kernels.launch_counts()[name]
+    out = fn()
+    return out, _kernels.launch_counts()[name] - before
+
+
+def _same(a, b):
+    """Bitwise equality of two tensors (or tuples of them) on any devices."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in (torch.float32, torch.float64):
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return torch.equal(a.view(bits), b.view(bits))
+    return torch.equal(a, b)
+
+
+def _rand_keys(seed, n):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 2**32, (n, 2), dtype=np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 37, 128])
+@pytest.mark.parametrize("num_op", [1, 2, 3])
+@pytest.mark.parametrize("hw", [32, 224])
+def test_sampler_exact_bitwise_vs_plain(cuda_device, b, num_op, hw):
+    keys = _rand_keys(b * 10 + num_op, b)
+    got, n = _counted("sampler", lambda: T.sample_exact(keys.to(cuda_device), 25, num_op, hw, hw))
+    assert n == 1
+    assert _same(got, T.sample_exact_plain(keys.to(cuda_device), 25, num_op, hw, hw))
+    assert _same(got, T.sample_exact(keys, 25, num_op, hw, hw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,groups,num_sub", [(1, 8, 25), (13, 4, 25), (128, 8, 25), (5, 8, 7),
+                                              (200, 3, 2), (37, 1, 493), (5000, 8, 25)])
+@pytest.mark.parametrize("num_op", [1, 3])
+def test_sampler_grouped_bitwise_vs_plain(cuda_device, b, groups, num_sub, num_op):
+    """Groups beyond the batch, a batch not a multiple of 32, one larger than
+    the kernel's shared tile of words (4096)."""
+    key = _rand_keys(b + groups, 1)[0]
+    got, n = _counted("sampler", lambda: T.sample_grouped(key.to(cuda_device), b, groups,
+                                                          num_sub, num_op, 32, 32))
+    assert n == 1
+    assert _same(got, T.sample_grouped_plain(key.to(cuda_device), b, groups, num_sub, num_op,
+                                             32, 32))
+    assert _same(got, T.sample_grouped(key, b, groups, num_sub, num_op, 32, 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(32, 32), (17, 23), (224, 224)])
+def test_sampler_crop_and_imagenet_bitwise_vs_plain(cuda_device, h, w):
+    keys = _rand_keys(h, 301)
+    got, n = _counted("sampler", lambda: T.sample_crop(keys.to(cuda_device), h, w))
+    assert n == 1 and _same(got, T.sample_crop_plain(keys.to(cuda_device), h, w))
+    assert _same(got, T.sample_crop(keys, h, w))
+    for kw in ({}, {"strength": 0.25, "alphastd": 0.3}):
+        got, n = _counted("sampler", lambda: T.sample_imagenet(keys.to(cuda_device), h, w, **kw))
+        assert n == 1 and _same(got, T.sample_imagenet_plain(keys.to(cuda_device), h, w, **kw))
+        assert _same(got, T.sample_imagenet(keys, h, w, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["exact", "grouped"])
+@pytest.mark.parametrize("num_sub,num_op", [(1, 2), (5, 1), (5, 2), (25, 3)])
+def test_philox_draws_records_in_one_launch(cuda_device, dispatch, num_sub, num_op):
+    """The TTA step's records of 5 draw keys x 128 lanes (CIFAR, and the
+    ImageNet stack at 224x224) in one launch each, equal to the CPU's."""
+    src = PhiloxDraws()
+    keys = _rand_keys(num_sub + num_op, 5)
+    kw = dict(batch=128, num_sub=num_sub, num_op=num_op, dispatch=dispatch, groups=8)
+    got, n = _counted("sampler", lambda: src.draws(keys.to(cuda_device), height=32, width=32,
+                                                   device=cuda_device, **kw))
+    want = src.draws(keys, height=32, width=32, device="cpu", **kw)
+    assert n == 1 and _same((got.sub_idx, got.policy, got.crop),
+                            (want.sub_idx, want.policy, want.crop))
+    fields = ("sub_idx", "policy", "flip", "order", "factors", "alpha", "centre")
+    got, n = _counted("sampler", lambda: src.imagenet_lane_draws(
+        keys.to(cuda_device), height=224, width=224, device=cuda_device, **kw))
+    want = src.imagenet_lane_draws(keys, height=224, width=224, device="cpu", **kw)
+    assert n == 1 and all(_same(getattr(got, f), getattr(want, f)) for f in fields)
+    assert all(getattr(got, f).is_contiguous() for f in fields)
+    shape = None if num_op == 1 else (num_sub, num_op)
+    got, n = _counted("sampler", lambda: src.imagenet_draws(
+        keys[0].to(cuda_device), batch=128, policy_shape=shape, height=224, width=224,
+        dispatch=dispatch, groups=8, device=cuda_device))
+    want = src.imagenet_draws(keys[0], batch=128, policy_shape=shape, height=224, width=224,
+                              dispatch=dispatch, groups=8, device="cpu")
+    assert n == 1 and all(_same(getattr(got, f), getattr(want, f)) for f in fields)
+
+
+@pytest.mark.cuda
+def test_key_entry_bitwise_vs_plain(cuda_device):
+    keys = _rand_keys(7, 33)
+    k = keys.to(cuda_device)
+    cases = [lambda t: rng.fold_in(t[0], 12345), lambda t: rng.fold_in(t[:5], 77),
+             lambda t: rng.fold_in(t[1], torch.tensor(2**40 + 3, device=t.device)),
+             lambda t: rng.fold_in(t[2], torch.tensor(-5, device=t.device)),
+             lambda t: rng.split(t, 6), lambda t: rng.split(t[3], 2),
+             lambda t: rng.split(t[:4].reshape(2, 2, 2), 3),
+             lambda t: rng.fold_in_range(t[4], 90), lambda t: rng.blocks(t[:3], 300, 9),
+             lambda t: rng.blocks(t[5], 1000, 10)]
+    plain = [lambda t: rng.fold_in_plain(t[0], 12345), lambda t: rng.fold_in_plain(t[:5], 77),
+             lambda t: rng.fold_in_plain(t[1], torch.tensor(2**40 + 3, device=t.device)),
+             lambda t: rng.fold_in_plain(t[2], torch.tensor(-5, device=t.device)),
+             lambda t: rng.split_plain(t, 6), lambda t: rng.split_plain(t[3], 2),
+             lambda t: rng.split_plain(t[:4].reshape(2, 2, 2), 3),
+             lambda t: rng.fold_in_range_plain(t[4], 90),
+             lambda t: rng.blocks_plain(t[:3], 300, 9), lambda t: rng.blocks_plain(t[5], 1000, 10)]
+    for fn, fp in zip(cases, plain):
+        got, n = _counted("sampler", lambda: fn(k))
+        assert n == 1 and _same(got, fp(k)) and _same(got, fn(keys))
+
+
+def _zoo_sites():
+    from fast_autoaugment_tpu_torch.ops.shake import NoiseSite
+
+    kinds = [("shake_shake", 0.0, 0), ("shake_drop", 0.3, 0), ("dropout", 0.2, 1280),
+             ("drop_connect", 0.2, 0), ("shake_drop", 0.5, 0)] * 18
+    sites = [NoiseSite(*k) for k in kinds]
+    for i, s in enumerate(sites):
+        s.site = i
+    return sites
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37, 128])
+@pytest.mark.parametrize("alpha", [0.0, 0.2, 1.0])
+def test_train_noise_bitwise_vs_plain(cuda_device, batch, alpha):
+    """90 sites of every kind and a dropout of 1280 features, and mixup's
+    draws, in one launch, equal to the plain version's on the card and the
+    CPU's."""
+    from fast_autoaugment_tpu_torch.ops.shake import ModelNoise
+
+    src = PhiloxDraws()
+    sites = _zoo_sites()
+    ks, kd, km = _rand_keys(batch, 3)
+    (noise, lam, perm), n = _counted("train_noise", lambda: src.train_draws(
+        sites, batch, ks.to(cuda_device), kd.to(cuda_device), km.to(cuda_device), alpha,
+        cuda_device))
+    assert n == 1
+    noise_cpu, lam_cpu, perm_cpu = src.train_draws(sites, batch, ks, kd, km, alpha, "cpu")
+    assert all(_same(a, b) for a, b in zip(noise.tensors, noise_cpu.tensors))
+    plain = ModelNoise.draw_plain(sites, batch, ks.to(cuda_device), kd.to(cuda_device))
+    assert all(_same(a, b) for a, b in zip(noise.tensors, plain.tensors))
+    assert _same(lam, lam_cpu) and _same(perm, perm_cpu)
+    if alpha:
+        (lam_m, perm_m), n = _counted("train_noise", lambda: src.mixup_draws(
+            km.to(cuda_device), batch, alpha, cuda_device))
+        assert n == 1 and _same(lam_m, lam_cpu) and _same(perm_m, perm_cpu)
+    got, n = _counted("train_noise", lambda: src.model_noise(sites, batch, ks.to(cuda_device),
+                                                            kd.to(cuda_device), cuda_device))
+    assert n == 1 and all(_same(a, b) for a, b in zip(got.tensors, noise_cpu.tensors))
+
+
+def _mixup_plain(keys, alpha, num):
+    """The plain mixup draws of each key ``[N, 2]``: float32 Betas from
+    ``split(key, 2)[0]``, the permutation of `num` from the first key's
+    ``split(key, 2)[1]``."""
+    pair = rng.split_plain(keys, 2)
+    return (rng.beta_symmetric(pair[:, 0], alpha).to(torch.float32),
+            rng.permutation(pair[0, 1], num) if num else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.2, 1.0, 2.0])
+def test_beta_bitwise_vs_plain(cuda_device, alpha):
+    """4096 mixup keys' Betas in one K8 launch, equal to the plain version's
+    on the card and the CPU's."""
+    keys = _rand_keys(int(alpha * 10), 4096)
+    gamma = rng.gamma_constants(alpha)
+    out, n = _counted("train_noise", lambda: _kernels.train_noise(
+        mix_keys=keys.to(cuda_device), gamma=gamma))
+    assert n == 1 and set(out) == {"lam"}
+    assert _same(out["lam"], _mixup_plain(keys.to(cuda_device), alpha, 0)[0])
+    assert _same(out["lam"], _mixup_plain(keys, alpha, 0)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 64, 128, 4096, 5000])
+def test_permutation_bitwise_vs_plain(cuda_device, num):
+    """A mixup key's permutation of `num` (the rank code, tile by tile past
+    4096) in one K8 launch, equal to the plain version's."""
+    key = _rand_keys(num, 1)
+    gamma = rng.gamma_constants(0.2)
+    out, n = _counted("train_noise", lambda: _kernels.train_noise(
+        mix_keys=key.to(cuda_device), perm_n=num, gamma=gamma))
+    assert n == 1
+    for want in (_mixup_plain(key.to(cuda_device), 0.2, num), _mixup_plain(key, 0.2, num)):
+        assert _same(out["lam"], want[0]) and _same(out["perm"], want[1])
+
+
+@pytest.mark.cuda
+def test_gamma_without_acceptance_traps(cuda_device):
+    """A Gamma that accepts none of its candidates stops the kernel with a
+    device fault and a message, never a quiet value (here forced by NaN
+    constants, in a process of its own: the fault ends its CUDA context)."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from fast_autoaugment_tpu_torch.ops import _kernels\n"
+            "k = torch.zeros((4, 2), dtype=torch.int64, device='cuda')\n"
+            "out = _kernels.train_noise(mix_keys=k, gamma=(float('nan'), 0.0, 1.0, False))\n"
+            "torch.cuda.synchronize()\n"
+            "print('QUIET', out['lam'].cpu())\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0 and "QUIET" not in proc.stdout
+    assert "accepted none of its 16 candidates" in proc.stdout + proc.stderr
+
+
+@pytest.mark.cuda
+def test_graph_replay_reads_the_step_counter(cuda_device):
+    """A captured train step's draws (the step's key entry, the records, the
+    noise and mixup) read the step counter at each replay."""
+    src = PhiloxDraws()
+    sites = _zoo_sites()[:10]
+    key = torch.tensor([3, 99], dtype=torch.int64, device=cuda_device)
+    step = torch.zeros((), dtype=torch.int64, device=cuda_device)
+
+    def draw(key, step, dev):
+        key_aug, key_model = src.split(src.fold_in(key, step, dev), 2, dev)
+        ks, kd, km = src.split(key_model, 3, dev)
+        d = src.draws(key_aug, batch=64, num_sub=5, num_op=2, height=32, width=32,
+                      dispatch="grouped", groups=8, device=dev)
+        noise, lam, perm = src.train_draws(sites, 64, ks, kd, km, 0.2, dev)
+        return [d.sub_idx, d.policy, d.crop, lam, perm, *[t for ts in noise.tensors for t in ts]]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draw(key, step, cuda_device)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _kernels.counting_capture() as tally, torch.cuda.graph(graph):
+        outs = draw(key, step, cuda_device)
+    assert tally["sampler"] == 4 and tally["train_noise"] == 1
+    for s in (7, 0, 123456):
+        step.fill_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = draw(key.cpu(), torch.tensor(s), "cpu")
+        assert all(_same(a, b) for a, b in zip(outs, want)), s
+
+
+@pytest.mark.cuda
+def test_sampler_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    keys = torch.zeros((4, 2), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        _kernels.sampler_keys(keys.cpu(), 2, _kernels.SPLIT)
+    with pytest.raises(TypeError):
+        _kernels.sampler_keys(keys.to(torch.int32), 2, _kernels.SPLIT)
+    with pytest.raises(ValueError):
+        _kernels.sampler_lanes(keys.t(), batch=0, height=8, width=8, crop=True)
+    with pytest.raises(ValueError):
+        _kernels.sampler_grouped(keys, batch=4, groups=2, num_sub=0, num_op=1, height=8,
+                                 width=8)
+    with pytest.raises(ValueError):
+        _kernels.train_noise(mix_keys=keys, gamma=(1.0, 1.0, 1.0, False),
+                             key_shake=keys[0].cpu())
+    with pytest.raises(ValueError):
+        _kernels.train_noise(mix_keys=keys[0], gamma=(1.0, 1.0, 1.0, False))
+    with pytest.raises(ValueError):
+        T.sample_exact(keys.to("meta"), 2, 1, 8, 8)

@@ -306,6 +306,13 @@ class JaxDraws:
                           for p in zip(*parts))
         return LaneDraws(sub, pol, crop)
 
+    def train_draws(self, *args):
+        """The train step's model noise and mixup draws: this source's
+        ``model_noise`` and ``mixup_draws`` (the port's ``tta.train_draws``)."""
+        from fast_autoaugment_tpu_torch.search.tta import train_draws
+
+        return train_draws(self, *args)
+
     def imagenet_draws(self, key, *, batch, policy_shape, height, width, dispatch, groups,
                        device):
         k = tuple(int(v) for v in np.asarray(key, np.uint32).reshape(2))

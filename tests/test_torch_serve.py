@@ -309,7 +309,8 @@ def test_serve_cli_http_round_trip(tmp_path):
         assert status == 413 and json.loads(body)["type"] == "body_too_large"
         stats = _get(port, "/stats")
         assert stats["images_served"] == 6 and stats["device"] == "cpu"
-        assert stats["kernel_launches"] == {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0}
+        assert stats["kernel_launches"] == {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0,
+                                            "sampler": 0, "train_noise": 0}
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
     finally:
