@@ -188,6 +188,7 @@ not hold the repository, it exits non-zero at once.
 
 from __future__ import annotations
 
+import inspect
 import io
 import json
 import math
@@ -214,6 +215,15 @@ SHAPES = ((128, 32, 32), (4, 17, 23), (128, 224, 224), (3, 225, 223), (2, 496, 3
           (2, 520, 300))
 #: K1's two kernels (csrc/augment.cu): the cluster path and the per-slot path
 K1_KERNELS = ("augment_kernel", "augment_slot_kernel")
+
+
+def k1_bytes(images, policy) -> int:
+    """The bytes K1's function must move: the images in and out once, each
+    image's int32 sub-policy index and its float32 draws [num_op, 4], the
+    policy once and the three range tables of 19 ops (float32, float32,
+    bool)."""
+    b, num_sub, num_op = int(images.shape[0]), int(policy.shape[0]), int(policy.shape[1])
+    return 2 * images.numel() * 4 + 4 * b + 16 * b * num_op + 12 * num_sub * num_op + 19 * 9
 #: the flagship search config: confs/wresnet40x2_cifar.yaml (model, dataset,
 #: batch, cutout; precision f32 by default) and the search CLI's defaults
 #: (fast_autoaugment_tpu/launch/search_cli.py: --num-policy 5, --num-op 2,
@@ -310,6 +320,56 @@ def device_kernel_counts(prof) -> dict[str, int]:
     return {e.key: e.count for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and not e.key.startswith(("Memcpy", "Memset"))}
+
+
+#: CUgraphNodeType values (cuda.h) of the nodes a capture may hold
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "wait_event", 7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def graph_census(fn) -> tuple[dict[str, int], dict[str, int]]:
+    """Every piece of device work one call of `fn` does, read from a CUDA
+    graph that captures the call (after a warm-up call, as the port's graphs
+    are made): its nodes by type (kernels, copies, memsets, ...) through
+    libcuda's graph calls, and the launches the port's wrappers recorded
+    into it.  A capture misses nothing that runs on the device, where a
+    profile may drop records."""
+    import ctypes
+
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with _kernels.counting_capture() as tally:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            fail(f"graph census: {what} returned CUresult {rc}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    types: dict[str, int] = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)), "cuGraphNodeGetType")
+        name = GRAPH_NODE_TYPES.get(t.value, f"type_{t.value}")
+        types[name] = types.get(name, 0) + 1
+    del graph
+    return types, {k: v for k, v in tally.items() if v}
 
 
 def kernel_counts(prof, parts) -> dict[str, int]:
@@ -497,10 +557,25 @@ def _rand_images(g, b, h, w, dev):
 FORCED_CLUSTERS = (8, 16)
 
 
+def _records_differing(aug, imgs, pol, sub, draws, cluster=None) -> int:
+    """Bits of the slot records K1 builds on chip that differ from
+    ``slot_records``' on the card (float32 words compared as integers)."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    h, w = int(imgs.shape[1]), int(imgs.shape[2])
+    want = aug.slot_records(pol, sub, draws, h, w)
+    got = torch.full_like(want, float("nan"))
+    _kernels.augment(imgs, pol, sub, draws, cluster=cluster, records=got)
+    return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
 def _compare(aug, imgs, pol, sub, draws, clusters=(None,)) -> tuple[int, float]:
     """(differing elements, max |diff|) of kernel vs plain version, summed
-    over the plan's cluster size (None) and any forced ones; each call must
-    launch the kernel as often as its plan says."""
+    over the plan's cluster size (None) and any forced ones, plus the words
+    of the slot records K1 built that differ from ``slot_records``; each call
+    must launch the kernel as often as its plan says."""
     import torch
 
     from fast_autoaugment_tpu_torch.ops import _kernels
@@ -509,11 +584,12 @@ def _compare(aug, imgs, pol, sub, draws, clusters=(None,)) -> tuple[int, float]:
     want = aug.apply_subpolicy_draws_plain(imgs, pol, sub, draws)
     n_diff, err = 0, 0.0
     for c in clusters:
+        n_diff += _records_differing(aug, imgs, pol, sub, draws, c)
         before = _kernels.launch_counts()["augment"]
         if c is None:
             got = aug.apply_subpolicy_draws(imgs, pol, sub, draws)
         else:
-            got = _kernels.augment(imgs, aug.slot_records(pol, sub, draws, h, w), cluster=c)
+            got = _kernels.augment(imgs, pol, sub, draws, cluster=c)
         launches = _kernels.launch_counts()["augment"] - before
         torch.cuda.synchronize()
         if launches != _kernels.augment_plan(h, w, int(pol.shape[1]), c).launches:
@@ -1545,17 +1621,16 @@ def phase_times(dev, card: str) -> list[dict]:
         else:
             sub, draws = aug.sample_exact(torch.arange(2 * b, device=dev).reshape(b, 2), 1,
                                           policy.shape[1], img, img)
-        rec = aug.slot_records(policy, sub, draws, img, img)
+        rec = aug.slot_records(policy, sub, draws, img, img)  # the work, for the bound
         plan = _kernels.augment_plan(img, img, int(policy.shape[1]))
-        kernel_event_ms = cuda_ms(lambda: _kernels.augment(x, rec))
-        kernel_graph_ms = graph_ms(lambda: _kernels.augment(x, rec))
-        kernel_ms = kernel_device_ms(lambda: _kernels.augment(x, rec), kernel=plan.kernel,
-                                     per_call=plan.launches)
+        k1 = lambda: _kernels.augment(x, policy, sub, draws)  # noqa: E731
+        kernel_event_ms = cuda_ms(k1)
+        kernel_graph_ms = graph_ms(k1)
+        kernel_ms = kernel_device_ms(k1, kernel=plan.kernel, per_call=plan.launches)
         wrapper_ms = cuda_ms(lambda: aug.apply_subpolicy_draws(x, policy, sub, draws))
         plain_ms = cuda_ms(lambda: aug.apply_subpolicy_draws_plain(x, policy, sub, draws),
                            iters=5, warmup=1)
-        elems = b * img * img * 3
-        nbytes = 2 * elems * 4 + rec.numel() * 4  # images in + out once, records in
+        nbytes = k1_bytes(x, policy)
         on = rec[..., 1] > 0
         ops = sum(_FLOPS[aug.OP_NAMES[int(k)]] * img * img * 3
                   for k in rec[..., 0][on].to(torch.int64).tolist())
@@ -1577,13 +1652,37 @@ def phase_times(dev, card: str) -> list[dict]:
     return rows
 
 
+#: apply_subpolicy_draws calls profiled alone by phase_trace
+APPLY_CALLS = 5
+#: empty kernels that open a profiled window: the profiler drops the first
+#: few kernel records of a window (4-5 seen, PERF.md §7), which are then
+#: theirs and not the work's
+PRIMING_LAUNCHES = 16
+
+
+def prime_profiler(dev) -> None:
+    """Launch :data:`PRIMING_LAUNCHES` empty kernels (uncounted, on no path)
+    and wait for them: call it first thing in a profiled window."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    for _ in range(PRIMING_LAUNCHES):
+        _kernels.empty_kernel(dev)
+    torch.cuda.synchronize(dev)
+
+
 def phase_trace(dev, card: str) -> dict:
     """``torch.profiler`` over 20 ``PolicyApplier.apply`` calls at the
     largest serving shape (128 x 32 x 32, grouped): device time by kernel
-    and the device's idle share of the wall (the HTTP layer excluded)."""
+    and the device's idle share of the wall (the HTTP layer excluded).
+    Fails unless the serving step's graph holds K7 and K1 and nothing else,
+    ``apply_subpolicy_draws``'s K1 and nothing else (:func:`graph_census`),
+    and unless the profiles show no other kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from fast_autoaugment_tpu_torch.ops import augment as aug
     from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
     from fast_autoaugment_tpu_torch.serve.policy_server import PolicyApplier
 
@@ -1594,22 +1693,76 @@ def phase_trace(dev, card: str) -> dict:
         applier.apply(imgs, np.uint32([9, i]))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prime_profiler(dev)
         t0 = time.perf_counter()
         for i in range(20):
             applier.apply(imgs, np.uint32([9, 100 + i]))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    by_name = kernel_device_us(prof)
+    by_name = {k: v for k, v in kernel_device_us(prof).items() if "empty_kernel" not in k}
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    kernels = {k: v for k, v in device_kernel_counts(prof).items() if "empty_kernel" not in k}
+    # apply_subpolicy_draws alone on the card: K1 and no other kernel (its
+    # captured graph below also shows no copy and no memset)
+    x = torch.from_numpy(imgs.astype(np.float32)).to(dev)
+    sub, draws = aug.sample_grouped(torch.tensor([0, 9], device=dev), 128, applier.groups,
+                                    applier.num_sub, applier.num_op, 32, 32)
+    aug.apply_subpolicy_draws(x, applier.policy, sub, draws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof1:
+        prime_profiler(dev)
+        for _ in range(APPLY_CALLS):
+            aug.apply_subpolicy_draws(x, applier.policy, sub, draws)
+        torch.cuda.synchronize()
+    alone = {k: v for k, v in device_kernel_counts(prof1).items() if "empty_kernel" not in k}
+    # the same two calls captured: every node of their graphs
+    keys = torch.tensor([0, 9], dtype=torch.int64, device=dev)
+    replay_nodes, replay_launches = graph_census(lambda: applier._step(x, keys, 128))
+    alone_nodes, alone_launches = graph_census(
+        lambda: aug.apply_subpolicy_draws(x, applier.policy, sub, draws))
     out = {"phase": "trace", "card": card, "calls": 20, "batch": 128, "image": 32,
            "wall_ms_per_call": wall_s * 1e3 / 20,
            "device_busy_ms_per_call": busy_us / 1e3 / 20 if busy_us else None,
            "device_idle_share": (1 - busy_us / 1e6 / wall_s) if busy_us else None,
            "device_kernels": len(by_name),
+           "device_kernels_per_call": sum(kernels.values()) / 20,
+           "kernels_per_call": {k[:80]: v / 20 for k, v in kernels.items()},
            "augment_kernel_us_per_call": device_us(prof, K1_KERNELS) / 20,
-           "top_device_us_per_call": {k[:80]: v / 20 for k, v in top}}
+           "top_device_us_per_call": {k[:80]: v / 20 for k, v in top},
+           "apply_subpolicy_draws_kernels_per_call": {k[:80]: v / APPLY_CALLS
+                                                      for k, v in alone.items()},
+           "graph_census": {"serving_step_128": {"nodes": replay_nodes,
+                                                 "launches": replay_launches},
+                            "apply_subpolicy_draws_128": {"nodes": alone_nodes,
+                                                          "launches": alone_launches}},
+           "census": "the serving step (PolicyApplier._step: the grouped draws, then the "
+                     "policy) and one apply_subpolicy_draws call, each captured in a CUDA "
+                     "graph: its nodes by type (libcuda) and the wrappers' launches"}
     emit(out)
+    # the graphed call holds K7 (the grouped draws) and K1, one each, and
+    # nothing else; apply_subpolicy_draws alone, K1 and nothing else.  The
+    # profiles may drop records, never add them: they must show no other
+    # kernel and no more than one of each a call
+    problems = []
+    if replay_nodes != {"kernel": 2} or replay_launches != {"sampler": 1, "augment": 1}:
+        problems.append(f"the serving step's graph holds {replay_nodes} from "
+                        f"{replay_launches}, not K7 and K1")
+    if alone_nodes != {"kernel": 1} or alone_launches != {"augment": 1}:
+        problems.append(f"apply_subpolicy_draws's graph holds {alone_nodes} from "
+                        f"{alone_launches}, not K1 alone")
+    for name, part in (("K7", "grouped_kernel"), ("K1", "augment_kernel")):
+        n = sum(v for k, v in kernels.items() if part in k)
+        if n > 20:
+            problems.append(f"the graphed serving call ran {name} {n} times in 20 calls")
+    others = [k for k in kernels if "grouped_kernel" not in k and "augment_kernel" not in k]
+    if others:
+        problems.append(f"the graphed serving call ran other kernels: {others[:8]}")
+    foreign = [k for k in alone if "augment_kernel" not in k]
+    if foreign or sum(alone.values()) > APPLY_CALLS:
+        problems.append(f"{APPLY_CALLS} apply_subpolicy_draws calls ran {alone}")
+    if problems:
+        fail("trace: " + "; ".join(problems))
     return out
 
 
@@ -2012,9 +2165,8 @@ def k1_op_sweep(x) -> dict:
     out = {}
     for op in [None] + list(range(aug.NUM_OPS)):
         pol = torch.tensor([[[op or 0, 0.0 if op is None else 1.0, 0.7]]], device=x.device)
-        rec = aug.slot_records(pol, sub, draws, h, w)
         out["gate_off" if op is None else aug.OP_NAMES[op]] = graph_ms(
-            lambda: _kernels.augment(x, rec))
+            lambda: _kernels.augment(x, pol, sub, draws))
     return out
 
 
@@ -2042,19 +2194,18 @@ def phase_tta_times(dev, st: dict, card: str, graphs: dict) -> dict:
     d = src.draws(src.split(st["key"], p, dev), batch=c["batch"], num_sub=pol.shape[0],
                   num_op=pol.shape[1], height=32, width=32, dispatch="exact", groups=8,
                   device=dev)
-    rec = aug.slot_records(pol, d.sub_idx, d.policy, 32, 32)
-    y = _kernels.augment(x, rec)
+    call = lambda: _kernels.augment(x, pol, d.sub_idx, d.policy)  # noqa: E731
+    y = call()
     elems = x.numel()
     plan = _kernels.augment_plan(32, 32, int(pol.shape[1]))
     k1 = {"kernel": "augment", "shape": list(x.shape), "num_op": int(pol.shape[1]),
           "launches_per_call": plan.launches, "cluster": plan.cluster,
-          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(x, rec), kernel=plan.kernel,
-                                        per_call=plan.launches),
-          "kernel_event_ms": cuda_ms(lambda: _kernels.augment(x, rec)),
-          "kernel_graph_ms": graph_ms(lambda: _kernels.augment(x, rec)),
+          "kernel_ms": kernel_device_ms(call, kernel=plan.kernel, per_call=plan.launches),
+          "kernel_event_ms": cuda_ms(call),
+          "kernel_graph_ms": graph_ms(call),
           "plain_ms": cuda_ms(lambda: aug.apply_subpolicy_draws_plain(x, pol, d.sub_idx, d.policy),
                               iters=5, warmup=1),
-          "bytes": 2 * elems * 4 + rec.numel() * 4,
+          "bytes": k1_bytes(x, pol),
           "by_op_graph_ms": k1_op_sweep(x)}
     k5 = {"kernel": "cifar_stack", "shape": list(x.shape),
           "kernel_ms": kernel_device_ms(lambda: pre.cifar_stack(y, d.crop, cutout_length=16),
@@ -2416,8 +2567,10 @@ def phase_sampler_vs_plain(dev) -> dict:
         kernel, plain = _step_draws_fns(src, sites, nb, alpha, imagenet,
                                         inet_sub if imagenet else cifar_sub)
         times[f"train_step_draws_{name}"] = timed("sampler", kernel, plain, keys(1), {})
+    # the floor of any one-launch design: an empty kernel, timed as K7 is
+    empty_ms = graph_ms(lambda: _kernels.empty_kernel(dev), iters=20, replays=5)
     out = {"phase": "sampler_vs_plain", "tolerance": "bitwise: 0 differing elements",
-           "cases": rows, "times": times,
+           "cases": rows, "times": times, "empty_kernel_graph_ms": empty_ms,
            "sampler": {"differing_vs_plain": totals["sampler"][0],
                        "differing_vs_cpu": totals["sampler"][1],
                        "max_abs_err": totals["sampler"][2]},
@@ -3507,22 +3660,21 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
                                      policy_shape=tuple(pol.shape[:2]), height=image,
                                      width=image, dispatch="exact", groups=8, device=dev)
     xf = x.to(torch.float32).contiguous()
-    rec = aug.slot_records(pol, d.sub_idx, d.policy, image, image)
-    y1 = _kernels.augment(xf, rec)
+    call = lambda c=None: _kernels.augment(xf, pol, d.sub_idx, d.policy, cluster=c)  # noqa: E731
+    y1 = call()
     elems = xf.numel()
     k1 = {"kernel": "augment", "shape": list(xf.shape), "num_op": int(pol.shape[1]),
           "launches_per_call": plan.launches, "cluster": plan.cluster,
-          "kernel_ms": kernel_device_ms(lambda: _kernels.augment(xf, rec), kernel=plan.kernel,
-                                        per_call=plan.launches),
-          "kernel_event_ms": cuda_ms(lambda: _kernels.augment(xf, rec)),
-          "kernel_graph_ms": graph_ms(lambda: _kernels.augment(xf, rec)),
+          "kernel_ms": kernel_device_ms(call, kernel=plan.kernel, per_call=plan.launches),
+          "kernel_event_ms": cuda_ms(call),
+          "kernel_graph_ms": graph_ms(call),
           "by_op_graph_ms": k1_op_sweep(xf),
           # both cluster sizes that fit at 224x224, timed alike, and how many
           # clusters of each the card holds at once
           "by_cluster": {str(c): {
-              "kernel_ms": kernel_device_ms(lambda c=c: _kernels.augment(xf, rec, cluster=c)),
-              "kernel_event_ms": cuda_ms(lambda c=c: _kernels.augment(xf, rec, cluster=c)),
-              "kernel_graph_ms": graph_ms(lambda c=c: _kernels.augment(xf, rec, cluster=c)),
+              "kernel_ms": kernel_device_ms(lambda c=c: call(c)),
+              "kernel_event_ms": cuda_ms(lambda c=c: call(c)),
+              "kernel_graph_ms": graph_ms(lambda c=c: call(c)),
               "smem_bytes": _kernels.augment_plan(image, image, 2, c).smem_bytes,
               "threads": _kernels.augment_plan(image, image, 2, c).threads,
               "max_active_clusters": _kernels.augment_max_active_clusters(
@@ -3530,7 +3682,7 @@ def phase_train_times(dev, st: dict, card: str) -> dict:
           "plain_ms": cuda_ms(lambda: aug.apply_subpolicy_draws_plain(xf, pol, d.sub_idx,
                                                                      d.policy),
                               iters=3, warmup=1),
-          "bytes": 2 * elems * 4 + rec.numel() * 4}  # images in + out once, records in
+          "bytes": k1_bytes(xf, pol)}
     k6 = {}
     args = _k6_args(d)
     copy_out = torch.empty(xf.shape, dtype=torch.float32, device=dev)
@@ -3751,6 +3903,7 @@ def _imagenet_arm(dev, conf: dict, root: str, save: str, graphed: bool) -> dict:
             marks.append(time.perf_counter())
             if len(marks) == IMAGENET_TRACE[0]:
                 prof.start()
+                prime_profiler(dev)
                 window.append(time.perf_counter())
             elif len(marks) == IMAGENET_TRACE[1]:
                 window.append(marks[-1])
@@ -3943,7 +4096,9 @@ def phase_imagenet_main_path(dev, workdir: str, card: str) -> dict:
                      f"{IMAGENET_TRACE[0] + 1}-{IMAGENET_TRACE[1]} profiled, device_idle_share = "
                      "1 - the union of all device activity (the decoder's nvJPEG kernels and "
                      "copies included) over their wall, training_idle_share = 1 - the union "
-                     "over the streams that are not the decoder's"}
+                     "over the streams that are not the decoder's; the window opens with "
+                     f"{PRIMING_LAUNCHES} empty kernels (prime_profiler), counted in its "
+                     "runtime calls and unions"}
     emit(out)
     if problems:
         fail("imagenet_main_path: " + "; ".join(problems))
@@ -4752,7 +4907,8 @@ PAIRED = (("k1_tta", 640, 32), ("k1_train", 128, 224), ("k1_serve", 128, 32),
 def time_kernels_of(tree: str) -> dict:
     """Time K1, K5 and K6 of the port in checkout `tree` on seeded inputs,
     through the functions every slice of the port since the training slice
-    has (``slot_records``, the samplers, ``_kernels.augment``,
+    has (the samplers, ``_kernels.augment`` on records (``slot_records``) before
+    the kernel built them, on the policy and the draws since,
     ``preprocess.cifar_stack``, ``PhiloxDraws().imagenet_draws``,
     ``_kernels.imagenet_stack``): device ms per call by CUDA-graph replay
     (median of 3), and launches per call from the launch counters."""
@@ -4796,11 +4952,15 @@ def time_kernels_of(tree: str) -> dict:
             sub, draws = aug.sample_grouped(keys[0], b, 8, pol.shape[0], pol.shape[1], img, img)
         else:
             sub, draws = aug.sample_exact(keys, pol.shape[0], pol.shape[1], img, img)
-        rec = aug.slot_records(pol, sub, draws, img, img)
-        if name.startswith("k1"):
-            fn = lambda: _kernels.augment(x, rec)  # noqa: E731
+        if list(inspect.signature(_kernels.augment).parameters)[1] == "records":  # K1 on records
+            rec = aug.slot_records(pol, sub, draws, img, img)
+            k1 = lambda: _kernels.augment(x, rec)  # noqa: E731
         else:
-            y, crop = _kernels.augment(x, rec), aug.sample_crop(keys, img, img)
+            k1 = lambda: _kernels.augment(x, pol, sub, draws)  # noqa: E731
+        if name.startswith("k1"):
+            fn = k1
+        else:
+            y, crop = k1(), aug.sample_crop(keys, img, img)
             fn = lambda: pre.cifar_stack(y, crop, cutout_length=FLAGSHIP["cutout"])  # noqa: E731
         out[name] = {"shape": [b, img, img, 3], "num_op": int(pol.shape[1]),
                      **_time_one(fn, _kernels)}
@@ -4860,6 +5020,7 @@ def _draw_row(name: str, draws: dict, at: str, paths: dict, shape) -> dict:
             "differing_elements_vs_cpu": draws[name]["differing_vs_cpu"],
             "ms": t["ms"], "ms_source": t["ms_source"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "empty_kernel_graph_ms": draws["empty_kernel_graph_ms"],
             "shape": shape,
             "at_other_shapes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
                                 for k, v in draws["times"].items()

@@ -8,13 +8,22 @@
  * (:168, :254, :230), _smooth_degenerate / sharpness and the _blend family
  * (:313, :329, :135), and the pointwise ops (:250-365).  XLA evaluates all
  * 19 op branches for every image and keeps one; here each block reads its
- * image's op id and runs that op only.  Each (image, slot) has a record
- * that fast_autoaugment_tpu_torch/ops/augment.py slot_records() built (op
- * id, gate, value, 2x3 affine map, cutout box); a gated-off slot leaves the
- * image as it is.
+ * image's op id and runs that op only.
+ *
+ * The kernels take the policy application's own inputs: the policy
+ * [num_sub, num_op, 3], each image's sub-policy index and its draws
+ * [num_op, 4] (gate, mirror, cutout x, cutout y), and the ops' range tables.
+ * Each block builds the record of a slot (op id, gate, value, 2x3 affine
+ * map, cutout box) in shared memory before it runs the slot (slot_record:
+ * one thread a record, those of the first three slots side by side while
+ * the image is staged), exactly as
+ * fast_autoaugment_tpu_torch/ops/augment.py slot_records() does in PyTorch
+ * for the plain version; a gated-off slot leaves the image as it is.  A
+ * sub-policy index or an op id out of range prints and traps.
  *
  * Bound: bytes.  A call reads the batch once and writes it once,
- * 2*B*H*W*3*4 bytes plus the records; the arithmetic is a few dozen float
+ * 2*B*H*W*3*4 bytes, plus 4 bytes of sub-policy index and 16 of draws per
+ * (image, slot), the policy and the tables; the arithmetic is a few dozen float
  * ops per pixel, far below the card's rate.  Two kernels, chosen by the
  * wrapper from the image's shape alone (ops/_kernels.py augment_plan):
  *
@@ -51,6 +60,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace cg = cooperative_groups;
 
@@ -59,6 +69,10 @@ namespace {
 constexpr int kThreads = 256;     // augment_slot_kernel
 constexpr int kMaxThreads = 512;  // augment_kernel
 constexpr int kRec = 16;          // floats per (image, slot) record
+constexpr int kNumOps = 19;
+constexpr int kRecords = 3;       // slot records augment_kernel builds before its first slot
+// f32(pi / 180): torch rounds the double scalar of v * (np.pi / 180.0) once
+constexpr float kDegToRad = (float)(3.14159265358979323846 / 180.0);
 constexpr int kScratchBytes = 6400;
 constexpr int kMaxSmemBytes = 232448;
 constexpr int kErrBadPlan = 100001;
@@ -147,14 +161,130 @@ __device__ void equalize_lut(int* h) {
   }
 }
 
+// ------------------------------------------------ the slot records
+
+// what a launch reads besides the images: the policy [num_sub, num_op, 3],
+// sub_idx [B], draws [B, num_op, 4], the ops' range tables [kNumOps] (the
+// device copies of ops/augment.py _OP_LOW, _OP_HIGH, _OP_MIRROR), and, when
+// not null, records [B, num_op, kRec] that receive each slot's record (for
+// holding it against slot_records)
+struct Inputs {
+  const float* policy;
+  const int* sub_idx;
+  const float* draws;
+  const float* low;
+  const float* high;
+  const unsigned char* mirror;
+  float* records;
+  int num_sub, num_op;
+};
+
+// one (image, slot): the layout of ops/augment.py REC_WIDTH
+struct Record {
+  int op;
+  bool gate, active;
+  float v;
+  float m[6];    // the inverse affine map (a, b, c, d, e, f)
+  float box[4];  // the inclusive cutout box (x0, y0, x1, y1)
+};
+
+// torch.clamp(x, min=lo) and torch.clamp(x, max=hi) on the card
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+  return isnan(x) ? x : fminf(x, hi);
+}
+
+// image b's sub-policy index; one outside [0, num_sub) prints and traps
+__device__ __forceinline__ int checked_sub(const Inputs& in, int b) {
+  const int sub = in.sub_idx[b];
+  if (sub < 0 || sub >= in.num_sub) {
+    printf("augment kernel: sub_idx[%d] = %d is outside [0, %d)\n", b, sub, in.num_sub);
+    __trap();
+  }
+  return sub;
+}
+
+// The record of image b's slot `slot`, every product and sum rounded on its
+// own in slot_records' order, built by one thread (which writes it to
+// in.records when that is set).  A sub-policy index or an op id out of range
+// prints and traps.
+__device__ Record slot_record(const Inputs& in, int b, int slot, int H, int W) {
+  const int sub = checked_sub(in, b);
+  const float* row = in.policy + ((size_t)sub * in.num_op + slot) * 3;
+  const float* d = in.draws + ((size_t)b * in.num_op + slot) * 4;
+  const float op_id = truncf(row[0]);  // .to(torch.int64)
+  if (!(op_id >= 0.0f && op_id < (float)kNumOps)) {
+    printf("augment kernel: op id %g of sub-policy %d, slot %d is outside [0, %d)\n", row[0],
+           sub, slot, kNumOps);
+    __trap();
+  }
+  Record r;
+  r.op = (int)op_id;
+  // the level -> value map and the mirror sign
+  // (fast_autoaugment_tpu/ops/augment.py:416-426 apply_op)
+  const float low = in.low[r.op], high = in.high[r.op];
+  r.v = __fadd_rn(__fmul_rn(row[2], __fsub_rn(high, low)), low);
+  if (in.mirror[r.op] && d[1] > 0.5f) r.v = __fmul_rn(r.v, -1.0f);
+  // the gate (:444-447 apply_subpolicy)
+  r.gate = d[0] < row[1];
+  // the affine rows (:189-227); cx and cy are exact, w / 2.0 and h / 2.0
+  const float v = r.v, cx = __fmul_rn((float)W, 0.5f), cy = __fmul_rn((float)H, 0.5f);
+  r.m[0] = 1.0f; r.m[1] = 0.0f; r.m[2] = 0.0f;
+  r.m[3] = 0.0f; r.m[4] = 1.0f; r.m[5] = 0.0f;
+  switch (r.op) {
+    case SHEAR_X: r.m[1] = v; break;
+    case SHEAR_Y: r.m[3] = v; break;
+    case TRANSLATE_X: r.m[2] = __fmul_rn(v, (float)W); break;
+    case TRANSLATE_Y: r.m[5] = __fmul_rn(v, (float)H); break;
+    case TRANSLATE_X_ABS: r.m[2] = v; break;
+    case TRANSLATE_Y_ABS: r.m[5] = v; break;
+    case ROTATE: {
+      // rad = v * f32(pi / 180); cosf/sinf are libdevice's, as torch.cos/sin
+      const float rad = __fmul_rn(v, kDegToRad);
+      const float ca = cosf(rad), sa = sinf(rad);
+      r.m[0] = ca;
+      r.m[1] = -sa;
+      r.m[2] = __fadd_rn(__fsub_rn(cx, __fmul_rn(ca, cx)), __fmul_rn(sa, cy));
+      r.m[3] = sa;
+      r.m[4] = ca;
+      r.m[5] = __fsub_rn(__fsub_rn(cy, __fmul_rn(sa, cx)), __fmul_rn(ca, cy));
+      break;
+    }
+    default: break;
+  }
+  // the Cutout and CutoutAbs box and its active flag (:333-365)
+  const bool frac = r.op == CUTOUT;
+  const float size = frac ? __fmul_rn(v, (float)W) : v, half = __fmul_rn(size, 0.5f);
+  r.box[0] = truncf(clamp_min(__fsub_rn(d[2], half), 0.0f));
+  r.box[1] = truncf(clamp_min(__fsub_rn(d[3], half), 0.0f));
+  r.box[2] = clamp_max(__fadd_rn(r.box[0], size), (float)W);
+  r.box[3] = clamp_max(__fadd_rn(r.box[1], size), (float)H);
+  r.active = !(size < 0.0f) && !(frac && v <= 0.0f);
+  if (in.records != nullptr) {
+    float* o = in.records + ((size_t)b * in.num_op + slot) * kRec;
+    o[0] = (float)r.op;
+    o[1] = r.gate ? 1.0f : 0.0f;
+    o[2] = r.v;
+    for (int i = 0; i < 6; ++i) o[3 + i] = r.m[i];
+    for (int i = 0; i < 4; ++i) o[9 + i] = r.box[i];
+    o[13] = r.active ? 1.0f : 0.0f;
+    o[14] = 0.0f;
+    o[15] = 0.0f;
+  }
+  return r;
+}
+
 // ------------------------------------------------ augment_slot_kernel
 
 __device__ void copy_image(const float* in, float* out, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = in[i];
 }
 
-__device__ void warp_affine(const float* in, float* out, const float* m,
+__device__ void warp_affine(const float* in, float* out, const float* map,
                             int H, int W) {
+  const float m[6] = {map[0], map[1], map[2], map[3], map[4], map[5]};  // in registers
   for (int p = threadIdx.x; p < H * W; p += blockDim.x) {
     const int y = p / W, x = p - y * W;
     float* o = out + 3 * p;
@@ -246,30 +376,33 @@ __device__ void sharpness(const float* in, float* out, int H, int W, float f) {
 }
 
 __global__ void __launch_bounds__(kThreads) augment_slot_kernel(
-    const float* __restrict__ src, float* __restrict__ dst,
-    const float* __restrict__ records, int slot, int num_op, int H, int W) {
+    const float* __restrict__ src, float* __restrict__ dst, const Inputs inputs, int slot,
+    int H, int W) {
   __shared__ int lut[3][256];
   __shared__ int lo[3], hi[3];
   __shared__ unsigned long long gray_sum;
+  __shared__ Record rec;
 
   const int HW = H * W;
-  const size_t base = (size_t)blockIdx.x * HW * 3;
+  const int b = blockIdx.x;
+  const size_t base = (size_t)b * HW * 3;
   const float* in = src + base;
   float* out = dst + base;
-  const float* rec = records + ((size_t)blockIdx.x * num_op + slot) * kRec;
-  const int op = (int)rec[0];
-  const float v = rec[2];
+  if (threadIdx.x == 0) rec = slot_record(inputs, b, slot, H, W);
+  __syncthreads();
+  const int op = rec.op;
+  const float v = rec.v;
 
   // every branch below is uniform across the block (one record per block),
   // so the __syncthreads() inside the reductions are reached by all threads
-  if (!(rec[1] > 0.0f)) {  // gate off: the image passes through
+  if (!rec.gate) {  // gate off: the image passes through
     copy_image(in, out, 3 * HW);
     return;
   }
   switch (op) {
     case SHEAR_X: case SHEAR_Y: case TRANSLATE_X: case TRANSLATE_Y:
     case ROTATE: case TRANSLATE_X_ABS: case TRANSLATE_Y_ABS:
-      warp_affine(in, out, rec + 3, H, W);
+      warp_affine(in, out, rec.m, H, W);
       break;
     case AUTO_CONTRAST:
       auto_contrast(in, out, HW, lo, hi);
@@ -311,11 +444,11 @@ __global__ void __launch_bounds__(kThreads) augment_slot_kernel(
       sharpness(in, out, H, W, v);
       break;
     case CUTOUT: case CUTOUT_ABS: {
-      if (!(rec[13] > 0.0f)) {
+      if (!rec.active) {
         copy_image(in, out, 3 * HW);
         break;
       }
-      const float x0 = rec[9], y0 = rec[10], x1 = rec[11], y1 = rec[12];
+      const float x0 = rec.box[0], y0 = rec.box[1], x1 = rec.box[2], y1 = rec.box[3];
       const float fill[3] = {125.0f, 123.0f, 114.0f};
       for (int p = threadIdx.x; p < HW; p += blockDim.x) {
         const int y = p / W, x = p - y * W;
@@ -325,7 +458,7 @@ __global__ void __launch_bounds__(kThreads) augment_slot_kernel(
       }
       break;
     }
-    default:  // op ids are validated on the host; never reached
+    default:  // slot_record traps on any other op id; never reached
       copy_image(in, out, 3 * HW);
   }
 }
@@ -341,6 +474,7 @@ struct Scratch {
   unsigned long long gray;   // this block's grey sum
   unsigned long long ggray;  // the cluster's grey sum
   unsigned long long bar;    // mbarrier of the staging copy
+  Record rec[kRecords];      // slot s's record in rec[s % kRecords]
 };
 static_assert(sizeof(Scratch) <= kScratchBytes, "scratch outgrew its reservation");
 
@@ -406,11 +540,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       :: "r"(bar), "r"(parity) : "memory");
 }
 
-// copy n floats from global `src` to shared `dst`, which lie at the same
-// address modulo 16: the aligned body in one bulk copy, head and tail by the
-// threads.  Ends with the block synchronised.
-__device__ __forceinline__ void stage(float* dst, const float* src, int n,
-                                      unsigned long long* bar) {
+// start copying n floats from global `src` to shared `dst`, which lie at
+// the same address modulo 16: the aligned body in one bulk copy, head and
+// tail by the threads.  stage_wait(bar) completes it.
+__device__ __forceinline__ void stage_start(float* dst, const float* src, int n,
+                                            unsigned long long* bar) {
   const int head = min(n, (int)(((16u - ((uintptr_t)src & 15u)) & 15u) >> 2));
   const int body = (n - head) & ~3;
   const uint32_t b = smem_addr(bar);
@@ -435,7 +569,11 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n,
   }
   for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
   for (int i = head + body + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  mbar_wait(b, 0);
+}
+
+// wait for stage_start's copy; ends with the block synchronised
+__device__ __forceinline__ void stage_wait(unsigned long long* bar) {
+  mbar_wait(smem_addr(bar), 0);
   __syncthreads();
 }
 
@@ -458,7 +596,9 @@ __device__ __forceinline__ void store_band(float* dst, const float* src, int n) 
 // the warps: each output pixel of the band gathers its source pixel from
 // buffer `cur` of the block that holds the source row
 __device__ __forceinline__ void band_warp(const Geo& g, int cur, float* out,
-                                          const float* m) {
+                                          const float* map) {
+  // the map in registers: the stores to `out` may alias the record's shared memory
+  const float m[6] = {map[0], map[1], map[2], map[3], map[4], map[5]};
   for (int p = threadIdx.x; p < g.nrows * g.W; p += blockDim.x) {
     const int ly = p / g.W, x = p - ly * g.W;
     float* o = out + 3 * p;
@@ -572,8 +712,8 @@ __device__ __forceinline__ void band_contrast(const Geo& g, Scratch& s, const fl
 // [rank * rows, (rank + 1) * rows).  Every branch on the record is uniform
 // across the cluster, so every block reaches every barrier.
 __global__ void __launch_bounds__(kMaxThreads) augment_kernel(
-    const float* __restrict__ src, float* __restrict__ dst,
-    const float* __restrict__ records, int num_op, int H, int W, int rows, int C) {
+    const float* __restrict__ src, float* __restrict__ dst, const Inputs inputs, int H, int W,
+    int rows, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
   Scratch& s = *reinterpret_cast<Scratch*>(smem);
   Geo g;
@@ -590,22 +730,35 @@ __global__ void __launch_bounds__(kMaxThreads) augment_kernel(
 
   const int n = g.nrows * W * 3;
   const size_t band = image + (size_t)g.r0 * W * 3;
-  stage(own_band(g, 0), src + band, n, &s.bar);
+  // while the band is copied, lanes 0-2 of warp 0 build the first three
+  // slots' records side by side (each a chain of dependent loads: sub_idx,
+  // then the policy row and the draws, then the range tables)
+  stage_start(own_band(g, 0), src + band, n, &s.bar);
+  Inputs own = inputs;  // every block builds its records; rank 0 writes them out when asked
+  if (g.rank != 0) own.records = nullptr;
+  if ((int)threadIdx.x < min(inputs.num_op, kRecords))
+    s.rec[threadIdx.x] = slot_record(own, b, threadIdx.x, H, W);
+  stage_wait(&s.bar);  // the band and the records are in
   sync_cluster(g);  // every band is staged before any block reads another's
 
   int cur = 0;
-  for (int slot = 0; slot < num_op; ++slot) {
-    const float* rec = records + ((size_t)b * num_op + slot) * kRec;
-    const int op = (int)rec[0];
-    const float v = rec[2];
-    if (!(rec[1] > 0.0f)) continue;  // gate off: the image stays as it is
-    if ((op == CUTOUT || op == CUTOUT_ABS) && !(rec[13] > 0.0f)) continue;
+  for (int slot = 0; slot < inputs.num_op; ++slot) {
+    if (slot >= kRecords) {  // the slots after the third: thread 0 builds each in its turn
+      __syncthreads();  // no thread still reads the record this one replaces
+      if (threadIdx.x == 0) s.rec[slot % kRecords] = slot_record(own, b, slot, H, W);
+      __syncthreads();
+    }
+    const Record& rec = s.rec[slot % kRecords];
+    const int op = rec.op;
+    const float v = rec.v;
+    if (!rec.gate) continue;  // gate off: the image stays as it is
+    if ((op == CUTOUT || op == CUTOUT_ABS) && !rec.active) continue;
     const float* in = own_band(g, cur);
     float* out = own_band(g, cur ^ 1);
     switch (op) {
       case SHEAR_X: case SHEAR_Y: case TRANSLATE_X: case TRANSLATE_Y:
       case ROTATE: case TRANSLATE_X_ABS: case TRANSLATE_Y_ABS:
-        band_warp(g, cur, out, rec + 3);
+        band_warp(g, cur, out, rec.m);
         break;
       case AUTO_CONTRAST:
         band_auto_contrast(g, s, in, out);
@@ -647,7 +800,7 @@ __global__ void __launch_bounds__(kMaxThreads) augment_kernel(
         band_sharpness(g, cur, in, out, v);
         break;
       case CUTOUT: case CUTOUT_ABS: {
-        const float x0 = rec[9], y0 = rec[10], x1 = rec[11], y1 = rec[12];
+        const float x0 = rec.box[0], y0 = rec.box[1], x1 = rec.box[2], y1 = rec.box[3];
         const float fill[3] = {125.0f, 123.0f, 114.0f};
         for (int p = threadIdx.x; p < g.nrows * W; p += blockDim.x) {
           const int ly = p / W, x = p - ly * W, y = g.r0 + ly;
@@ -657,7 +810,7 @@ __global__ void __launch_bounds__(kMaxThreads) augment_kernel(
         }
         break;
       }
-      default:  // op ids are validated on the host; never reached
+      default:  // slot_record traps on any other op id; never reached
         for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = in[i];
     }
     cur ^= 1;
@@ -715,17 +868,30 @@ cudaError_t prepare(int device, int smem_bytes, int cluster, int threads, unsign
   return cudaSuccess;
 }
 
+// The inputs of a launch (Inputs), checked for what the kernels cannot check.
+bool valid_inputs(const float* policy, const int* sub_idx, const float* draws, const float* low,
+                  const float* high, const unsigned char* mirror, int num_sub, int num_op) {
+  return policy && sub_idx && draws && low && high && mirror && num_sub >= 1 && num_op >= 1;
+}
+
 }  // namespace
 
-// One launch: every op slot of `records [batch, num_op, 16]` over `src`, with
-// clusters of `cluster` blocks of `threads` threads and `smem_bytes` of
-// dynamic shared memory (the wrapper's plan; a plan that does not match the
-// kernel's layout returns kErrBadPlan, a cluster that cannot be resident
-// kErrNotResident).
-extern "C" int faa_augment(const float* src, float* dst, const float* records,
-                           int num_op, int batch, int height, int width, int cluster,
-                           int smem_bytes, int threads, int device, void* stream) {
-  if (!valid_plan(height, width, cluster, smem_bytes, threads, device)) return kErrBadPlan;
+// One launch: every op slot of the policy over `src`: image i goes through
+// sub-policy sub_idx[i] of `policy [num_sub, num_op, 3]` with its draws
+// `draws [batch, num_op, 4]` and the range tables `low`, `high`, `mirror`
+// [19]; `records [batch, num_op, 16]`, when not null, receives the slot
+// records.  Clusters of `cluster` blocks of `threads` threads and
+// `smem_bytes` of dynamic shared memory (the wrapper's plan; a plan that does
+// not match the kernel's layout returns kErrBadPlan, a cluster that cannot be
+// resident kErrNotResident).
+extern "C" int faa_augment(const float* src, float* dst, const float* policy, const int* sub_idx,
+                           const float* draws, const float* low, const float* high,
+                           const unsigned char* mirror, float* records, int num_sub, int num_op,
+                           int batch, int height, int width, int cluster, int smem_bytes,
+                           int threads, int device, void* stream) {
+  if (!valid_plan(height, width, cluster, smem_bytes, threads, device) ||
+      !valid_inputs(policy, sub_idx, draws, low, high, mirror, num_sub, num_op))
+    return kErrBadPlan;
   if (batch <= 0) return 0;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
@@ -745,8 +911,8 @@ extern "C" int faa_augment(const float* src, float* dst, const float* records,
     cfg.numAttrs = 0;  // one block per image: an ordinary launch
   }
   const int rows = (height + cluster - 1) / cluster;
-  err = cudaLaunchKernelEx(&cfg, augment_kernel, src, dst, records, num_op, height,
-                           width, rows, cluster);
+  const Inputs inputs{policy, sub_idx, draws, low, high, mirror, records, num_sub, num_op};
+  err = cudaLaunchKernelEx(&cfg, augment_kernel, src, dst, inputs, height, width, rows, cluster);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -766,22 +932,29 @@ extern "C" int faa_augment_max_active_clusters(int height, int width, int cluste
   return (int)cudaOccupancyMaxActiveClusters(active, augment_kernel, &cfg);
 }
 
-// One launch of one op slot (the large-image path).
-extern "C" int faa_augment_slot(const float* src, float* dst, const float* records,
-                                int slot, int num_op, int batch, int height,
+// One launch of one op slot (the large-image path), with the inputs of
+// faa_augment.
+extern "C" int faa_augment_slot(const float* src, float* dst, const float* policy,
+                                const int* sub_idx, const float* draws, const float* low,
+                                const float* high, const unsigned char* mirror, float* records,
+                                int slot, int num_sub, int num_op, int batch, int height,
                                 int width, int device, void* stream) {
+  if (!valid_inputs(policy, sub_idx, draws, low, high, mirror, num_sub, num_op) || slot < 0 ||
+      slot >= num_op)
+    return kErrBadPlan;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch <= 0) return 0;
-  augment_slot_kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
-      src, dst, records, slot, num_op, height, width);
+  const Inputs inputs{policy, sub_idx, draws, low, high, mirror, records, num_sub, num_op};
+  augment_slot_kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(src, dst, inputs, slot,
+                                                                     height, width);
   return (int)cudaGetLastError();
 }
 
 extern "C" const char* faa_error_string(int code) {
   if (code == kErrBadPlan)
     return "the launch plan does not match the augmentation kernel's layout "
-           "(cluster size, threads or dynamic shared memory)";
+           "(cluster size, threads or dynamic shared memory), or an input is missing";
   if (code == kErrNotResident)
     return "no cluster of the planned size and shared memory can be resident "
            "on this device";

@@ -627,6 +627,17 @@ extern "C" int faa_train_noise(int count, int items, const int* begin, const int
   return (int)cudaGetLastError();
 }
 
+// An empty kernel: the fixed cost of one launch, the floor that any design
+// doing a call's work in one launch meets.  On no path; timed beside K7.
+__global__ void empty_kernel() {}
+
+extern "C" int faa_empty_kernel(int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* faa_error_string(int code) {
   if (code == kErrBadArgs) return "the sampler's arguments do not match its kernels' layout";
   if (code == kErrTooManySites)

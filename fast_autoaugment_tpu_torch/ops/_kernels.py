@@ -4,10 +4,11 @@ Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface and bound with
 ``ctypes``:
 
-- ``augment.cu``: the policy augmentation (``augment``): every op slot in
-  one launch with the image held in shared memory, one thread-block
-  cluster per image, or one launch per slot for images too large for a
-  cluster (:func:`augment_plan` chooses by shape);
+- ``augment.cu``: the policy augmentation (``augment``, K1) from the
+  policy, the sub-policy indices and the draws, each slot's record built on
+  chip: every op slot in one launch with the image held in shared memory,
+  one thread-block cluster per image, or one launch per slot for images too
+  large for a cluster (:func:`augment_plan` chooses by shape);
 - ``preprocess.cu``: the CIFAR crop/flip/normalize/cutout stack
   (``cifar_stack``, one block per image, :func:`cifar_plan`);
 - ``imagenet.cu``: the ImageNet flip/ColorJitter/lighting/normalize/cutout
@@ -49,10 +50,11 @@ import torch
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "AugmentPlan", "CifarPlan", "ImageNetPlan",
            "augment_plan", "cifar_plan", "imagenet_plan", "load_libraries", "augment",
+           "augment_operands",
            "augment_max_active_clusters", "cifar_stack", "imagenet_stack",
            "imagenet_max_active_clusters", "on_card", "sampler_keys", "sampler_lanes",
-           "sampler_grouped", "train_noise", "launch_counts", "reset_launch_counts", "counting_capture",
-           "count_replays"]
+           "sampler_grouped", "train_noise", "empty_kernel", "launch_counts",
+           "reset_launch_counts", "counting_capture", "count_replays"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"augment": _PKG / "csrc" / "augment.cu",
@@ -76,8 +78,10 @@ _L, _U = ctypes.c_longlong, ctypes.c_uint
 _RECORD_ARGS = [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I]
 #: {C function: argument types} of each library; each returns an int
 _SIGNATURES = {
-    "augment": {"faa_augment": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-                "faa_augment_slot": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "augment": {"faa_augment": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P],
+                "faa_augment_slot": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _P],
                 "faa_augment_max_active_clusters": [_I, _I, _I, _I, _I, _I,
                                                     ctypes.POINTER(_I)]},
     "preprocess": {"faa_cifar_stack": [_P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -93,7 +97,8 @@ _SIGNATURES = {
                 "faa_sampler_grouped": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _D,
                                         *_RECORD_ARGS, _I, _P],
                 "faa_train_noise": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _D,
-                                    _D, _D, _I, _P, _P, _I, _P]},
+                                    _D, _D, _I, _P, _P, _I, _P],
+                "faa_empty_kernel": [_I, _P]},
 }
 
 _lock = threading.Lock()
@@ -423,30 +428,59 @@ def _check_rc(lib, rc: int, what: str) -> None:
                            f"{lib.faa_error_string(rc).decode()}")
 
 
-def augment(images: torch.Tensor, records: torch.Tensor, *,
-            cluster: int | None = None) -> torch.Tensor:
-    """Run every op slot of ``records [B, num_op, 16]`` over ``images
-    [B, H, W, 3]`` with the CUDA kernel as :func:`augment_plan` says: one
-    launch on the cluster path; on the per-slot path one launch per slot,
-    ping-ponging between two buffers so that the last slot writes the
-    result.  `cluster` forces the cluster size (for measurement).  A launch
-    the device refuses raises ``RuntimeError``."""
-    if images.device.type != "cuda" or records.device != images.device:
+def augment_operands(policy: torch.Tensor, sub_idx: torch.Tensor,
+                     draws: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """What K1 reads besides the images, in the order of ``faa_augment``'s
+    pointers: the policy, ``sub_idx``, the draws, and the ops' range tables
+    (low, high, mirror) on the policy's device, ``ops/augment.py
+    _op_tables``' tensors, so the table stays in one place and a call inside
+    a CUDA graph capture copies nothing from the host."""
+    from fast_autoaugment_tpu_torch.ops.augment import _op_tables
+
+    return (policy, sub_idx, draws, *_op_tables(policy.device))
+
+
+def augment(images: torch.Tensor, policy: torch.Tensor, sub_idx: torch.Tensor,
+            draws: torch.Tensor, *, cluster: int | None = None,
+            records: torch.Tensor | None = None) -> torch.Tensor:
+    """Apply sub-policy ``policy[sub_idx[i]]`` (``policy [num_sub, num_op,
+    3]`` float32) to image i of ``images [B, H, W, 3]`` float32 with its
+    draws ``draws [B, num_op, 4]`` float32 (``sub_idx [B]`` int32) with the
+    CUDA kernel as :func:`augment_plan` says: one launch on the cluster path;
+    on the per-slot path one launch per slot, ping-ponging between two
+    buffers so that the last slot writes the result.  The kernel builds each
+    slot's record (``ops/augment.py slot_records``) on chip; a sub-policy
+    index or an op id out of range makes it print and trap.
+
+    `cluster` forces the cluster size (for measurement).  `records`, a
+    contiguous ``[B, num_op, 16]`` float32 tensor on the images' device,
+    receives the records the kernel built (to hold them against
+    ``slot_records``).  A launch the device refuses raises ``RuntimeError``."""
+    operands = augment_operands(policy, sub_idx, draws)
+    extra = () if records is None else (records,)
+    if images.device.type != "cuda" or any(t.device != images.device
+                                           for t in operands + extra):
         raise ValueError("the augmentation kernel takes CUDA tensors on one device")
-    if images.dtype != torch.float32 or records.dtype != torch.float32:
-        raise TypeError("the augmentation kernel takes float32 images and records")
-    if not (images.is_contiguous() and records.is_contiguous()):
+    if images.dtype != torch.float32 or policy.dtype != torch.float32 \
+            or draws.dtype != torch.float32 or sub_idx.dtype != torch.int32 \
+            or any(t.dtype != torch.float32 for t in extra):
+        raise TypeError("the augmentation kernel takes float32 images, policy, draws and "
+                        "records and int32 sub_idx")
+    if not all(t.is_contiguous() for t in (images,) + operands + extra):
         raise ValueError("the augmentation kernel takes contiguous tensors")
     if images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(f"images must be [B, H, W, 3], got {tuple(images.shape)}")
     b, h, w, _ = images.shape
-    if records.dim() != 3 or records.shape[0] != b or records.shape[2] != 16:
-        raise ValueError(f"records must be [{b}, num_op, 16], got {tuple(records.shape)}")
+    if policy.dim() != 3 or policy.shape[-1] != 3 or min(policy.shape) < 1:
+        raise ValueError(f"policy must be [num_sub, num_op, 3], got {tuple(policy.shape)}")
+    num_sub, num_op = int(policy.shape[0]), int(policy.shape[1])
+    if tuple(sub_idx.shape) != (b,) or tuple(draws.shape) != (b, num_op, 4):
+        raise ValueError(f"sub_idx must be [{b}] and draws [{b}, {num_op}, 4], got "
+                         f"{tuple(sub_idx.shape)} and {tuple(draws.shape)}")
+    if records is not None and tuple(records.shape) != (b, num_op, 16):
+        raise ValueError(f"records must be [{b}, {num_op}, 16], got {tuple(records.shape)}")
     if h * w >= 1 << 24:
         raise ValueError(f"image of {h}x{w} pixels is too large for the kernel")
-    num_op = records.shape[1]
-    if num_op == 0:
-        raise ValueError("records must hold at least one op slot")
     plan = augment_plan(h, w, num_op, cluster)
     if b == 0:
         return torch.empty_like(images)
@@ -454,10 +488,10 @@ def augment(images: torch.Tensor, records: torch.Tensor, *,
     out = torch.empty_like(images)
     dev = images.device.index or 0
     stream = torch.cuda.current_stream(images.device).cuda_stream
+    ptrs = [t.data_ptr() for t in operands] + [records.data_ptr() if extra else None]
     if plan.path == "cluster":
-        rc = lib.faa_augment(images.data_ptr(), out.data_ptr(), records.data_ptr(), num_op,
-                             b, h, w, plan.cluster, plan.smem_bytes, plan.threads, dev,
-                             stream)
+        rc = lib.faa_augment(images.data_ptr(), out.data_ptr(), *ptrs, num_sub, num_op, b, h, w,
+                             plan.cluster, plan.smem_bytes, plan.threads, dev, stream)
         _check_rc(lib, rc, "augment")
         _count("augment")
         return out
@@ -465,8 +499,8 @@ def augment(images: torch.Tensor, records: torch.Tensor, *,
     src = images
     for slot in range(num_op):
         dst = out if (num_op - 1 - slot) % 2 == 0 else tmp
-        rc = lib.faa_augment_slot(src.data_ptr(), dst.data_ptr(), records.data_ptr(),
-                                  slot, num_op, b, h, w, dev, stream)
+        rc = lib.faa_augment_slot(src.data_ptr(), dst.data_ptr(), *ptrs, slot, num_sub, num_op,
+                                  b, h, w, dev, stream)
         _check_rc(lib, rc, "augment")
         _count("augment")
         src = dst
@@ -770,6 +804,18 @@ def sampler_grouped(keys: torch.Tensor, *, batch: int, groups: int, num_sub: int
                 *_record_scalars(num_sub, num_op, height, width, pad, strength, alphastd),
                 *rec, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     return out
+
+
+def empty_kernel(device: torch.device) -> None:
+    """Launch an empty kernel on `device`'s current stream: the fixed cost of
+    one launch, the floor of any kernel that does a call's work in one
+    launch (for timing beside K7; on no path, so not counted)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the empty kernel runs on a CUDA device")
+    lib = load_libraries()["sampler"]
+    _check_rc(lib, lib.faa_empty_kernel(dev.index or 0, torch.cuda.current_stream(dev).cuda_stream),
+              "empty")
 
 
 def train_noise(*, batch: int = 0, sites=None, key_shake: torch.Tensor | None = None,

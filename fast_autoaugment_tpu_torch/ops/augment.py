@@ -19,11 +19,13 @@ hand-written sampler kernel (``csrc/sampler.cu``, K7) for keys on a CUDA
 device, with the same bits.
 
 The per-slot scalars (value after the range table and the mirror sign,
-the gate, the 2x3 affine matrix, the cutout box) are computed once per
-(image, slot) by :func:`slot_records`, in PyTorch on the images' device,
-and both the plain version and the CUDA kernel consume those same
-records.  So Rotate's ``cos``/``sin`` are evaluated once, the same way for
-both, and the kernel's per-pixel arithmetic is all that remains to match.
+the gate, the 2x3 affine matrix, the cutout box) form one record per
+(image, slot).  The plain version builds them with :func:`slot_records`, in
+PyTorch on the images' device; the CUDA kernel builds the same records on
+chip from the policy, ``sub_idx`` and the draws, each product and sum in
+:func:`slot_records`' order and Rotate's ``cos``/``sin`` with the same
+libdevice functions ``torch.cos``/``torch.sin`` call on the card, so a call
+on the card is one kernel launch and nothing else.
 
 Rounding is the reference's documented float32 semantics: every product
 and every sum is rounded on its own, in the reference's order (PIL's
@@ -430,6 +432,7 @@ def check_policy(policy) -> np.ndarray:
 
 
 def _check_draws(images, policy, sub_idx, draws):
+    """The shapes, dtypes and device of a policy application's inputs."""
     if images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(f"images must be [B, H, W, 3], got {tuple(images.shape)}")
     if images.dtype != torch.float32 or policy.dtype != torch.float32 \
@@ -445,7 +448,13 @@ def _check_draws(images, policy, sub_idx, draws):
     devices = {t.device for t in (images, policy, sub_idx, draws)}
     if len(devices) != 1:
         raise ValueError(f"all inputs must be on one device, got {devices}")
-    if b:
+
+
+def _check_sub_range(policy, sub_idx):
+    """``sub_idx`` in ``[0, num_sub)`` for the plain version: raised on the
+    CPU, asserted on the device (no host read, so a CUDA graph may capture
+    it).  The kernel checks its own inputs and traps."""
+    if sub_idx.numel():
         lo, hi = torch.aminmax(sub_idx.to(torch.int64))
         msg = f"sub_idx out of range [0, {policy.shape[0]})"
         if sub_idx.device.type == "cpu":
@@ -462,6 +471,7 @@ def apply_subpolicy_draws_plain(images: torch.Tensor, policy: torch.Tensor,
     per op slot, each gated-on image goes through its op; the others pass
     through unchanged."""
     _check_draws(images, policy, sub_idx, draws)
+    _check_sub_range(policy, sub_idx)
     _, h, w, _ = images.shape
     rec = slot_records(policy, sub_idx, draws, h, w)
     x = images
@@ -485,16 +495,29 @@ def apply_subpolicy_draws(images: torch.Tensor, policy: torch.Tensor,
     ``images [B, H, W, 3]`` float32 integral in [0, 255], ``policy
     [num_sub, num_op, 3]`` float32, ``sub_idx [B]`` integer, ``draws
     [B, num_op, 4]`` float32, all on one device.  A CUDA batch goes through
-    the hand-written kernel (one launch for all op slots, as
-    ``_kernels.augment_plan`` says); a CPU batch through the plain version.
-    Returns a new tensor."""
+    the hand-written kernel, which builds the slot records on chip (one
+    launch for all op slots, as ``_kernels.augment_plan`` says, and no other
+    work on the device for int32 ``sub_idx``; any other integer type is
+    converted once, clamped so that an index out of range stays out of
+    range); a CPU batch through the plain version.  Returns a new tensor."""
     if images.device.type == "cpu":
         return apply_subpolicy_draws_plain(images, policy, sub_idx, draws)
     if images.device.type != "cuda":
         raise ValueError(f"no augmentation path for device {images.device}")
     _check_draws(images, policy, sub_idx, draws)
-    _, h, w, _ = images.shape
-    return _kernels.augment(images, slot_records(policy, sub_idx, draws, h, w))
+    return _kernels.augment(images, policy.contiguous(),
+                            _kernel_sub_idx(sub_idx, policy.shape[0]).contiguous(),
+                            draws.contiguous())
+
+
+def _kernel_sub_idx(sub_idx: torch.Tensor, num_sub: int) -> torch.Tensor:
+    """``sub_idx`` as the kernel takes it: int32 as it is; any other type
+    converted once, as the plain version's ``.to(torch.int64)`` reads it,
+    and clamped to ``[-1, num_sub]`` so that an index out of range stays out
+    of range in 32 bits (the kernel traps on it)."""
+    if sub_idx.dtype == torch.int32:
+        return sub_idx
+    return sub_idx.to(torch.int64).clamp(-1, num_sub).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

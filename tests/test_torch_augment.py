@@ -308,7 +308,7 @@ def test_cpu_path_never_reaches_the_kernel():
     assert _kernels.launch_counts() == {"augment": 0, "cifar_stack": 0, "imagenet_stack": 0,
                                         "sampler": 0, "train_noise": 0}
     with pytest.raises(ValueError):  # the kernel wrapper takes CUDA tensors only
-        _kernels.augment(imgs, torch.zeros((4, 2, 16)))
+        _kernels.augment(imgs, pol, sub, draws)
 
 
 # ------------------------------------------------------ generator + samplers

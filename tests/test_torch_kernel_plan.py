@@ -121,7 +121,8 @@ def test_cifar_plan(h, w, staged):
 def test_wrappers_refuse_cpu_tensors_before_building():
     """On the CPU the plain versions run; the wrappers take CUDA tensors only."""
     with pytest.raises(ValueError, match="CUDA"):
-        K.augment(torch.zeros((1, 8, 8, 3)), torch.zeros((1, 1, 16)))
+        K.augment(torch.zeros((1, 8, 8, 3)), torch.zeros((1, 1, 3)),
+                  torch.zeros(1, dtype=torch.int32), torch.zeros((1, 1, 4)))
     with pytest.raises(ValueError, match="CUDA"):
         K.cifar_stack(torch.zeros((1, 8, 8, 3)), torch.zeros((1, 5), dtype=torch.int32),
                       pad=4, cutout_length=0, scale=1 / 255, mean=(0, 0, 0), rstd=(1, 1, 1))

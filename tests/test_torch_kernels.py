@@ -6,9 +6,9 @@ GPU machine that has only the port's dependencies:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 
-Bound: bitwise (``torch.equal``).  The augmentation kernel and its plain
-version consume the same per-slot records and round every product and sum
-the same way; the CIFAR stack kernel and its plain version compute the same
+Bound: bitwise (``torch.equal``).  The augmentation kernel builds the
+per-slot records on chip as its plain version's ``slot_records`` does and
+both round every product and sum the same way; the CIFAR stack kernel and its plain version compute the same
 gather and the same reciprocal-form normalization, each product and
 difference rounded on its own; the ImageNet stack kernel and its plain
 version compute the same blends, the same integer grey sum and the same
@@ -91,10 +91,9 @@ def test_every_op_at_every_cluster_size(cuda_device, b, h, w, clusters):
     imgs = _images(g, b, h, w, cuda_device)
     for op in range(T.NUM_OPS):
         pol, sub, draws = _forced(g, b, h, w, op, cuda_device)
-        rec = T.slot_records(pol, sub, draws, h, w)
         want = T.apply_subpolicy_draws_plain(imgs, pol, sub, draws)
         for c in clusters:
-            got = _kernels.augment(imgs, rec, cluster=c)
+            got = _kernels.augment(imgs, pol, sub, draws, cluster=c)
             assert torch.equal(got, want), (T.OP_NAMES[op], c)
 
 
@@ -175,15 +174,25 @@ def test_samplers_bitwise_cuda_vs_cpu(cuda_device):
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     imgs = torch.zeros((2, 8, 8, 3), device=cuda_device)
-    rec = torch.zeros((2, 2, 16), device=cuda_device)
+    pol = torch.zeros((3, 2, 3), device=cuda_device)
+    sub = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    draws = torch.zeros((2, 2, 4), device=cuda_device)
     with pytest.raises(TypeError):
-        _kernels.augment(imgs.double(), rec)
+        _kernels.augment(imgs.double(), pol, sub, draws)
+    with pytest.raises(TypeError):
+        _kernels.augment(imgs, pol, sub.long(), draws)
     with pytest.raises(ValueError):
-        _kernels.augment(imgs[:, :, :, :2], rec)
+        _kernels.augment(imgs[:, :, :, :2], pol, sub, draws)
     with pytest.raises(ValueError):
-        _kernels.augment(imgs.permute(0, 2, 1, 3), rec)
+        _kernels.augment(imgs.permute(0, 2, 1, 3), pol, sub, draws)
     with pytest.raises(ValueError):
-        _kernels.augment(imgs, rec.cpu())
+        _kernels.augment(imgs, pol, sub, draws.transpose(0, 1))
+    with pytest.raises(ValueError):
+        _kernels.augment(imgs, pol, sub, draws[:, :1].contiguous())
+    with pytest.raises(ValueError):
+        _kernels.augment(imgs, pol.cpu(), sub, draws)
+    with pytest.raises(ValueError):
+        _kernels.augment(imgs, pol, sub, draws, records=torch.zeros((2, 2, 15), device=cuda_device))
 
 
 def _stack_draws(b, h, w, g):
