@@ -308,9 +308,11 @@ def device_us(prof, name_part) -> float:
     return sum(device_us_of(e) for e in prof.key_averages() if any(p in e.key for p in parts))
 
 
-#: the draw kernels of csrc/sampler.cu: K7's three, K8's one
+#: the draw kernels of csrc/sampler.cu: K7's three, K8's two (alone, and
+#: as a train step's draws)
 SAMPLER_KERNELS = ("keys_kernel", "lanes_kernel", "grouped_kernel")
-NOISE_KERNELS = ("noise_kernel",)
+NOISE_KERNELS = ("noise_kernel", "step_kernel")
+DRAW_KERNELS = SAMPLER_KERNELS + NOISE_KERNELS
 
 
 def device_kernel_counts(prof) -> dict[str, int]:
@@ -327,12 +329,14 @@ GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph"
                     6: "wait_event", 7: "event_record", 10: "mem_alloc", 11: "mem_free"}
 
 
-def graph_census(fn) -> tuple[dict[str, int], dict[str, int]]:
+def graph_census(fn, names: bool = False) -> tuple:
     """Every piece of device work one call of `fn` does, read from a CUDA
     graph that captures the call (after a warm-up call, as the port's graphs
     are made): its nodes by type (kernels, copies, memsets, ...) through
     libcuda's graph calls, and the launches the port's wrappers recorded
-    into it.  A capture misses nothing that runs on the device, where a
+    into it; with `names` also its kernel nodes by name (``cuFuncGetName``;
+    a kernel of ``csrc/sampler.cu`` by its short name, any other by its
+    mangled one).  A capture misses nothing that runs on the device, where a
     profile may drop records."""
     import ctypes
 
@@ -363,13 +367,27 @@ def graph_census(fn) -> tuple[dict[str, int], dict[str, int]]:
     nodes = (ctypes.c_void_p * n.value)()
     check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
     types: dict[str, int] = {}
+    kernels: dict[str, int] = {}
     for node in nodes:
         t = ctypes.c_int(-1)
         check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)), "cuGraphNodeGetType")
         name = GRAPH_NODE_TYPES.get(t.value, f"type_{t.value}")
         types[name] = types.get(name, 0) + 1
+        if names and name == "kernel":
+            # CUDA_KERNEL_NODE_PARAMS begins with the CUfunction; the rest of
+            # the struct (its size differs between versions) is left unread
+            params = (ctypes.c_void_p * 32)()
+            check(cu.cuGraphKernelNodeGetParams(ctypes.c_void_p(node), params),
+                  "cuGraphKernelNodeGetParams")
+            raw = ctypes.c_char_p()
+            check(cu.cuFuncGetName(ctypes.byref(raw), ctypes.c_void_p(params[0])),
+                  "cuFuncGetName")
+            full = raw.value.decode()
+            short = next((k for k in DRAW_KERNELS if k in full), full)
+            kernels[short] = kernels.get(short, 0) + 1
     del graph
-    return types, {k: v for k, v in tally.items() if v}
+    tally = {k: v for k, v in tally.items() if v}
+    return (types, tally, kernels) if names else (types, tally)
 
 
 def kernel_counts(prof, parts) -> dict[str, int]:
@@ -406,13 +424,12 @@ ALL_KERNELS = ("augment", "cifar_stack", "imagenet_stack", "sampler", "train_noi
 TTA_CALL_SAMPLER = 3
 
 
-def _step_draw_launches(steps: int, noisy: bool = False) -> dict:
-    """K7 and K8 launches of `steps` train steps (``train/steps.py``): the
-    step counter's fold_in, the split into the augment and model keys and
-    the augment stack's record (K7); a model with noise sites or mixup
-    (`noisy`) adds the split of the model key (K7) and its noise and mixup
-    draws (one K8 launch)."""
-    return {"sampler": (4 if noisy else 3) * steps, "train_noise": steps if noisy else 0}
+def _step_draw_launches(steps: int) -> dict:
+    """K7 and K8 launches of `steps` train steps (``train/steps.py``): one K8
+    launch a step (``PhiloxDraws.step_draws``: the key chain, the augment
+    stack's record, the noise and mixup draws), none of K7, whether the
+    model has noise sites or mixup or not."""
+    return {"sampler": 0, "train_noise": steps}
 
 
 def launches_differ(counts: dict, want: dict) -> bool:
@@ -2378,47 +2395,83 @@ def _noise_fns(src, sites, batch: int, alpha: float) -> tuple:
     return kernel, plain
 
 
+def _step_fields(d) -> tuple:
+    """The tensors of a ``StepDraws``, in order (None where a draw is absent)."""
+    return ((d.key_aug, d.lam, d.perm) + (_draw_fields(d.draws) if d.draws is not None else ())
+            + (_draw_fields(d.noise) if d.noise is not None else ()))
+
+
+#: the step counter of the timed train-step draws: above 2^32, exact in float64
+STEP_DRAWS_STEP = 2**33 + 5
+
+
 def _step_draws_fns(src, sites, batch: int, alpha: float, imagenet: bool, num_sub: int):
-    """Every draw of one train step (``train/steps.py make_train_step_body``
-    and its augment function, exact dispatch, 2 slots) from a key ``[1, 2]``
-    and step 5: the kernels' path (K7 and K8 launches) and the plain
-    versions'."""
+    """Every draw of one train step (``PhiloxDraws.step_draws``: the key
+    chain, the augment stack's record, exact dispatch and 2 slots, the noise
+    and mixup) from a key ``[1, 2]`` at step :data:`STEP_DRAWS_STEP`: the one
+    launch, the parent's chain of K7 and K8 launches (``tta.step_draws``
+    over ``PhiloxDraws``' own calls) and the plain versions, each as a flat
+    tuple of tensors."""
     import torch
 
     from fast_autoaugment_tpu_torch.ops import rng
-    from fast_autoaugment_tpu_torch.ops.shake import ModelNoise
+    from fast_autoaugment_tpu_torch.ops.shake import ModelNoise, noise_layout
     from fast_autoaugment_tpu_torch.search import tta
 
     hw = 224 if imagenet else 32
+    record = tta.DrawRecord(imagenet, batch, hw, hw, (num_sub, 2), "exact", 8)
+    kw = dict(sites=sites, batch=batch, alpha=alpha, record=record)
+    layout = noise_layout(sites, batch) if sites else None
+    made: dict = {}  # the step's scalars on each device, made at the first (uncaptured) call
 
-    def kernel(k, d):
-        key_aug, key_model = rng.split(rng.fold_in(k[0], torch.full((), 5, device=d)), 2)
-        out = []
-        if sites or alpha:
-            km, ks, kd = rng.split(key_model, 3)
-            noise, lam, perm = src.train_draws(sites, batch, ks, kd, km, alpha, d)
-            out += [noise, lam, perm]
-        if imagenet:
-            return out + [src.imagenet_draws(key_aug, batch=batch, policy_shape=(num_sub, 2),
-                                             height=hw, width=hw, dispatch="exact", groups=8,
-                                             device=d)]
-        return out + [src.draws(key_aug, batch=batch, num_sub=num_sub, num_op=2, height=hw,
-                                width=hw, dispatch="exact", groups=8, device=d)]
+    def scalars(d):
+        if str(d) not in made:
+            made[str(d)] = torch.tensor([float(STEP_DRAWS_STEP), 0.1, 0.0, 1.0],
+                                        dtype=torch.float64, device=d)
+        return made[str(d)]
+
+    def one(k, d):
+        return _step_fields(src.step_draws(k[0], scalars(d), layout=layout, **kw))
+
+    def chain(k, d):
+        return _step_fields(tta.step_draws(src, k[0], scalars(d), **kw))
 
     def plain(k, d):
         key_aug, key_model = rng.split_plain(
-            rng.fold_in_plain(k[0], torch.full((), 5, device=d)), 2)
-        out = []
+            rng.fold_in_plain(k[0], scalars(d)[0].to(torch.int64)), 2)
+        noise = lam = perm = None
         if sites or alpha:
             km, ks, kd = rng.split_plain(key_model, 3)
-            out += [ModelNoise.draw_plain(sites, batch, ks, kd) if sites else None]
-            out += list(tta.mixup_draws_plain(km, batch, alpha)) if alpha else [None, None]
+            noise = ModelNoise.draw_plain(sites, batch, ks, kd) if sites else None
+            lam, perm = tta.mixup_draws_plain(km, batch, alpha) if alpha else (None, None)
         lanes = key_aug.reshape(1, 2)
-        if imagenet:
-            return out + [tta.imagenet_draws_plain(lanes, batch, (num_sub, 2), hw, hw, False, 8)]
-        return out + [tta.lane_draws_plain(lanes, batch, num_sub, 2, hw, hw, False, 8)]
+        draws = (tta.imagenet_draws_plain(lanes, batch, (num_sub, 2), hw, hw, False, 8)
+                 if imagenet else tta.lane_draws_plain(lanes, batch, num_sub, 2, hw, hw, False, 8))
+        return _step_fields(tta.StepDraws(key_aug, draws, noise, lam, perm))
 
-    return kernel, plain
+    return one, chain, plain
+
+
+def _step_draws_bound(lay, batch: int, alpha: float, imagenet: bool, num_op: int = 2) -> dict:
+    """:func:`_sampler_bound` of one train step's draws: the key chain's
+    Philox blocks (fold_in, the two halves of the step key's split, the
+    model key's three), a fold_in a noise site and a block an item, mixup's
+    (the splits of the mix key and of key_lam, a candidate each Gamma, the
+    permutation's words and its sort), and the exact record's blocks a lane
+    (its key, the sub-policy, the slots, the crop's 2 or ImageNet's 3);
+    bytes: the key, the counter, key_aug, the packed noise, lam and the
+    permutation, the record."""
+    noisy = lay is not None or alpha > 0
+    blocks = 1 + 2 + (3 if noisy else 0)
+    if lay is not None:
+        blocks += lay.count + lay.items
+    if alpha:
+        blocks += 2 + 2 + 2 + batch
+    blocks += batch * (1 + 1 + num_op + (3 if imagenet else 2))
+    nbytes = (16 + 8 + 16 + (lay.nbytes if lay is not None else 0)
+              + (4 + 8 * batch if alpha else 0)
+              + batch * (4 + 16 * num_op + (40 if imagenet else 20)))
+    return _sampler_bound(blocks, _sort_compares(batch) if alpha else 0, nbytes)
 
 
 def phase_sampler_vs_plain(dev) -> dict:
@@ -2559,14 +2612,55 @@ def phase_sampler_vs_plain(dev) -> dict:
         times[f"noise_{name}"] = timed(*cases[f"noise_{name}"][:3], keys(3), _sampler_bound(
             blocks, _sort_compares(nb) if alpha else 0,
             48 + lay.nbytes + (4 + 8 * nb if alpha else 0)))
-    # every draw of one train step (the step's key tree, the noise and mixup,
-    # the augment stack's records): the train.sampler stage of each zoo
-    # model's step and of ResNet-50's
-    steps_at = dict(zoo, resnet50=([], int(RESNET50["batch"]), 0.0, True))
+    # where K8 alone spends its time at EfficientNet's step: mixup alone (a
+    # Beta's warp, the permutation's block) and the noise sites alone
+    sites, nb, alpha, _ = zoo["efficientnet_b0_condconv8"]
+    lay = noise_layout(sites, nb)
+    times["mixup_efficientnet_b0_condconv8"] = timed(
+        "train_noise", lambda k, d: _mixup_draws(k, alpha, nb),
+        lambda k, d: _mixup_plain(k, alpha, nb), keys(1),
+        _sampler_bound(2 + 2 + 2 + nb, _sort_compares(nb), 16 + 4 + 8 * nb))
+    times["noise_efficientnet_b0_condconv8_sites"] = timed(
+        "train_noise", *_noise_fns(src, sites, nb, 0.0), keys(3),
+        _sampler_bound(len(sites) + lay.items, 0, 32 + lay.nbytes))
+    # every draw of one train step (the step's key chain, the noise and
+    # mixup, the augment stack's record): the one launch beside the parent's
+    # chain of K7 and K8 launches and the plain versions, bitwise, timed in
+    # turns (one, chain, chain, one) by graph replay, for the flagship
+    # WRN-40-2, each zoo model and ResNet-50
+    steps_at = dict(wrn40_2=([], 128, 0.0, False), **zoo,
+                    resnet50=([], int(RESNET50["batch"]), 0.0, True))
     for name, (sites, nb, alpha, imagenet) in steps_at.items():
-        kernel, plain = _step_draws_fns(src, sites, nb, alpha, imagenet,
-                                        inet_sub if imagenet else cifar_sub)
-        times[f"train_step_draws_{name}"] = timed("sampler", kernel, plain, keys(1), {})
+        one, chain, plain = _step_draws_fns(src, sites, nb, alpha, imagenet,
+                                            inet_sub if imagenet else cifar_sub)
+        k = keys(1)
+        kd = k.to(dev)
+        before = _kernels.launch_counts()
+        got = one(kd, dev)
+        torch.cuda.synchronize()
+        one_launches = {n: v for n, v in counts_since(before).items() if v}
+        before = _kernels.launch_counts()
+        ref = chain(kd, dev)
+        torch.cuda.synchronize()
+        chain_launches = {n: v for n, v in counts_since(before).items() if v}
+        n_chain, err_chain = _bits_differ(got, ref)
+        n_plain, err_plain = _bits_differ(got, plain(kd, dev))
+        n_cpu, err_cpu = _bits_differ(got, one(k, cpu))
+        row = timed("train_noise", one, plain, k, _step_draws_bound(
+            noise_layout(sites, nb) if sites else None, nb, alpha, imagenet))
+        chain_ms = [graph_ms(lambda: chain(kd, dev), iters=20, replays=5) for _ in range(2)]
+        row["ms_turns"] = [row["ms"], graph_ms(lambda: one(kd, dev), iters=20, replays=5)]
+        row.update(ms=float(np.median(row["ms_turns"])), chain_ms=float(np.median(chain_ms)),
+                   chain_ms_turns=chain_ms, chain_launches_per_call=chain_launches,
+                   differing_vs_chain=n_chain, differing_vs_plain=n_plain,
+                   differing_vs_cpu=n_cpu, max_abs_err=max(err_chain, err_plain, err_cpu))
+        times[f"train_step_draws_{name}"] = row
+        totals["train_noise"][0] += n_plain + n_chain
+        totals["train_noise"][1] += n_cpu
+        totals["train_noise"][2] = max(totals["train_noise"][2], row["max_abs_err"])
+        if n_chain or n_plain or n_cpu or one_launches != {"train_noise": 1}:
+            problems.append(f"train_step_draws_{name}: launches {one_launches}, "
+                            f"differing vs chain {n_chain}, plain {n_plain}, CPU {n_cpu}")
     # the floor of any one-launch design: an empty kernel, timed as K7 is
     empty_ms = graph_ms(lambda: _kernels.empty_kernel(dev), iters=20, replays=5)
     out = {"phase": "sampler_vs_plain", "tolerance": "bitwise: 0 differing elements",
@@ -2587,6 +2681,75 @@ def phase_sampler_vs_plain(dev) -> dict:
     emit(out)
     if problems:
         fail("sampler_vs_plain: " + "; ".join(problems))
+    return out
+
+
+#: the train steps whose captured graphs `step_draws_census` reads: the
+#: flagship WRN-40-2 (no noise sites, no mixup) and Shake-Shake 26 2x96d
+#: (noise sites), each at its preset's batch on 32x32 CIFAR batches
+CENSUS_STEPS = (("wrn40_2", "confs/wresnet40x2_cifar.yaml"),
+                ("shakeshake26_2x96d", "confs/shake26_2x96d_cifar.yaml"))
+
+
+def phase_step_draws_census(dev) -> dict:
+    """The nodes of a captured train step (:func:`graph_census`, kernels by
+    name): with ``PhiloxDraws`` one draw kernel node (``step_kernel``) and
+    one ``train_noise`` launch; with the parent's chain (``tta.step_draws``
+    over ``PhiloxDraws``' calls) 3 or 5 draw kernels and the step counter's
+    cast, so the chain's graph holds as many kernel nodes more as it has
+    draw kernels."""
+    import torch
+
+    from fast_autoaugment_tpu_torch.core.config import load_config
+    from fast_autoaugment_tpu_torch.models import get_model, num_class
+    from fast_autoaugment_tpu_torch.ops.optim import build_optimizer
+    from fast_autoaugment_tpu_torch.policies.archive import load_policy, policy_to_tensor
+    from fast_autoaugment_tpu_torch.search import tta
+    from fast_autoaugment_tpu_torch.train import steps
+
+    class Chain(tta.PhiloxDraws):
+        def step_draws(self, *a, **kw):
+            return tta.step_draws(self, *a, **kw)
+
+    policy = torch.from_numpy(policy_to_tensor(load_policy("fa_reduced_cifar10"))).to(dev)
+    key = torch.tensor([0, 7], device=dev)
+    out, problems = {"phase": "step_draws_census"}, []
+    for name, path in CENSUS_STEPS:
+        conf = load_config(os.path.join(REPO, path))
+        classes, b = num_class(conf["dataset"]), int(conf["batch"])
+        model = get_model(dict(conf["model"], dataset=conf["dataset"]), classes, device=dev)
+        opt = build_optimizer(conf["optimizer"], lambda c: 0.01)
+        state = steps.create_train_state(model, opt, use_ema=False)
+        g = np.random.default_rng(3)
+        x = torch.from_numpy(g.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)).to(dev)
+        y = torch.from_numpy(g.integers(0, classes, b)).to(dev)
+        arms = {}
+        for arm, src in (("one_launch", tta.PhiloxDraws()), ("chain", Chain())):
+            body = steps.make_train_step_body(model, opt, num_classes=classes,
+                                              cutout_length=int(conf.get("cutout", 0) or 0),
+                                              draw_source=src)
+            scalars = torch.from_numpy(body.scalars(9, 9)[0]).to(dev)
+            types, tally, kernels = graph_census(
+                lambda: body(state, x, y, policy, key, scalars), names=True)
+            arms[arm] = {"nodes": types, "launches": tally,
+                         "draw_kernel_nodes": {k: v for k, v in kernels.items()
+                                               if k in DRAW_KERNELS}}
+        one, chain = arms["one_launch"], arms["chain"]
+        chain_draws = sum(chain["draw_kernel_nodes"].values())
+        extra = chain["nodes"].get("kernel", 0) - one["nodes"].get("kernel", 0)
+        arms["chain_kernel_nodes_more"] = extra
+        out[name] = arms
+        if one["draw_kernel_nodes"] != {"step_kernel": 1} \
+                or {k: one["launches"].get(k, 0) for k in ("sampler", "train_noise")} \
+                != {"sampler": 0, "train_noise": 1}:
+            problems.append(f"{name}: the captured step holds {one}")
+        if chain_draws not in (3, 5) or extra != chain_draws:
+            problems.append(f"{name}: the chain's captured step holds {chain_draws} draw kernels "
+                            f"and {extra} kernel nodes more than the one launch's")
+        del model, state, opt
+    emit(out)
+    if problems:
+        fail("step_draws_census: " + "; ".join(problems))
     return out
 
 
@@ -2726,7 +2889,7 @@ def _search_expected_launches(epochs: int, audited: int, audit_folds: int,
             + 4 * warm + tta_warm, "imagenet_stack": 0,
             "sampler": _step_draw_launches(train_steps)["sampler"]
             + TTA_CALL_SAMPLER * (trials + audit_calls + tta_warm) + key_folds,
-            "train_noise": 0}
+            "train_noise": _step_draw_launches(train_steps)["train_noise"]}
 
 
 def _read_json(path):
@@ -3470,13 +3633,24 @@ def _plain_imagenet_augment(cutout, use_policy=True):
 
 
 class _CaptureAugment:
+    """An augment_fn that keeps its outputs.  It carries the wrapped
+    function's ``record`` where that has one, so a train step draws the
+    record in its one launch and calls :meth:`apply`."""
+
     def __init__(self, fn):
         self.fn, self.out = fn, []
+        if hasattr(fn, "record"):
+            self.record = fn.record
 
-    def __call__(self, images, policy, key, src):
-        x = self.fn(images, policy, key, src)
+    def _keep(self, x):
         self.out.append(x.detach().clone())
         return x
+
+    def apply(self, images, policy, draws):
+        return self._keep(self.fn.apply(images, policy, draws))
+
+    def __call__(self, images, policy, key, src):
+        return self._keep(self.fn(images, policy, key, src))
 
 
 def _copy_state(state):
@@ -3551,7 +3725,7 @@ def phase_train_main_path(dev, st: dict) -> dict:
     k6_u8 = _kernels.imagenet_plan(st["image"], st["image"], torch.uint8).launches
     want = {"augment": per_call * calls, "cifar_stack": 0,
             "imagenet_stack": k6_f32 * calls + k6_u8,
-            **_step_draw_launches(calls + 1, _noisy(st["model"], 0.0))}
+            **_step_draw_launches(calls + 1)}
     if launches_differ(counts, want):
         fail(f"train launch counts {counts} != {want} ({calls} steps with a policy, 1 without)")
     grouped_loss = float(mg["loss"] / mg["num"])
@@ -4262,19 +4436,12 @@ def _zoo_expected_launches(st: dict, steps: int) -> dict:
 
     img, num_op = st["image"], int(st["policy"].shape[1])
     k1 = _kernels.augment_plan(img, img, num_op).launches * steps
-    draws = _step_draw_launches(steps, _noisy(st["model"], st["conf"].get("mixup", 0)))
+    draws = _step_draw_launches(steps)
     if st["imagenet"]:  # K6 reads K1's float32 output
         return {"augment": k1, "cifar_stack": 0,
                 "imagenet_stack": _kernels.imagenet_plan(img, img, torch.float32).launches * steps,
                 **draws}
     return {"augment": k1, "cifar_stack": steps, "imagenet_stack": 0, **draws}
-
-
-def _noisy(model, mixup) -> bool:
-    """Whether a train step of `model` draws K8: noise sites, or mixup."""
-    from fast_autoaugment_tpu_torch.ops.shake import noise_sites
-
-    return bool(noise_sites(model)) or float(mixup or 0) > 0.0
 
 
 def _is_condconv(name: str, shapes) -> bool:
@@ -4475,7 +4642,7 @@ def phase_zoo_train_cli(dev, workdir: str) -> dict:
     # the default device cache: one CUDA graph (N = 1), one warm-up step
     want = {"augment": _kernels.augment_plan(32, 32, num_op).launches * (steps + 1),
             "cifar_stack": steps + 1 + evals, "imagenet_stack": 0,
-            **_step_draw_launches(steps + 1, noisy=True)}  # ShakeShake's sites
+            **_step_draw_launches(steps + 1)}
     out = {"phase": "zoo_train_cli", "argv": argv, "result": first, "only_eval": again,
            "wall_s": wall, "checkpoint_step": int(tree["step"]), "digest": meta.get("digest"),
            "launches": counts, "expected_launches": want}
@@ -5026,9 +5193,10 @@ def _draw_row(name: str, draws: dict, at: str, paths: dict, shape) -> dict:
                                 for k, v in draws["times"].items()
                                 if v["kernel"] == name and k != at and "bound_ms" in v},
             **({"train_step_draws": {k[len("train_step_draws_"):]: {
-                f: v[f] for f in ("ms", "plain_ms", "launches_per_call")}
+                f: v[f] for f in ("ms", "chain_ms", "plain_ms", "bound_ms", "launches_per_call",
+                                  "chain_launches_per_call")}
                 for k, v in draws["times"].items() if k.startswith("train_step_draws_")}}
-               if name == "sampler" else {})}
+               if name == "train_noise" else {})}
 
 
 #: the JAX lines each draw kernel stands for (XLA fuses these jax.random
@@ -5038,7 +5206,9 @@ DRAWS_REPLACE = {
                ":554-567; ops/preprocess.py:93; ops/preprocess_imagenet.py:139-171; "
                "search/tta.py:120, :225",
     "train_noise": "fast_autoaugment_tpu/core/metrics.py:66-68; ops/shake.py:59-62, "
-                   ":105-109; models/efficientnet.py:160, :354; train/steps.py:137, :155"}
+                   ":105-109; models/efficientnet.py:160, :354; train/steps.py:137, :155 "
+                   "(and, as a train step's draws, the augment record of "
+                   "ops/preprocess.py:93, ops/preprocess_imagenet.py:139-171)"}
 
 
 def main() -> int:
@@ -5088,6 +5258,7 @@ def main() -> int:
         print(card, flush=True)
         phase_lighting_cpu_vs_card(dev)
         phase_sampler_vs_plain(dev)
+        phase_step_draws_census(dev)
         phase_zoo_noise_cpu_vs_card(dev)
         return 0
     if sys.argv[1:2] == ["--runtime-only"]:  # the search runtime's phases alone
@@ -5114,6 +5285,7 @@ def main() -> int:
     check6 = phase_k6_vs_plain(dev)
     lighting = phase_lighting_cpu_vs_card(dev)
     draws = phase_sampler_vs_plain(dev)
+    phase_step_draws_census(dev)
     with tempfile.TemporaryDirectory() as workdir:
         main_path = phase_main_path(dev, workdir)
         plane = phase_serve_plane(dev, workdir, card)
@@ -5178,9 +5350,11 @@ def main() -> int:
                 "imagenet_resnet50_jpeg": imagenet_launches[kernel]}
 
     sampler_paths, noise_paths = by_path("sampler"), by_path("train_noise")
-    silent = [p for p in ("serve", "serve_plane", "tta", "train_resnet50", "search_wrn40_2",
+    silent = [p for p in ("serve", "serve_plane", "tta", "search_wrn40_2",
                           "imagenet_resnet50_jpeg") if not sampler_paths[p]]
-    silent += [p for p in zoo_by_path("augment") if not noise_paths.get(p)]
+    silent += [p for p in ("train_resnet50", "train_and_eval_wrn40_2", "search_wrn40_2",
+                           "device_cache_wrn40_2_arms", "imagenet_resnet50_jpeg",
+                           *zoo_by_path("augment")) if not noise_paths.get(p)]
     if silent:
         fail(f"paths that never launched the sampler or the train noise: {silent}")
     print(card, flush=True)
@@ -5256,8 +5430,8 @@ def main() -> int:
         "library_ms": None, "shape": k6["shape"], "input": k6["input"],
         "at_uint8_input": {k: train_t["k6"]["uint8"].get(k) for k in timing_keys}},
         _draw_row("sampler", draws, "serve_grouped_128x32", sampler_paths, [128, 32, 32, 3]),
-        _draw_row("train_noise", draws, "noise_shakeshake26_2x96d", noise_paths,
-                  "one train step of shakeshake26_2x96d, batch 128")]})
+        _draw_row("train_noise", draws, "train_step_draws_shakeshake26_2x96d", noise_paths,
+                  "one train step's draws of shakeshake26_2x96d, batch 128 at 32x32")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -12,7 +12,7 @@
  * int64 torch version beside it (ops/rng.py, ops/augment.py sample_*,
  * ops/shake.py ModelNoise.draw_plain), on every input.
  *
- * Four kernels:
+ * Five kernels:
  *
  *   keys_kernel     fold_in, split, fold_in_range and Philox blocks of a
  *                   set of keys: one thread a block.  fold_in's counter may
@@ -31,13 +31,28 @@
  *                   per-image slots and, per lane, the crop or ImageNet
  *                   draws.  The words live in a 16 KB shared tile; a batch
  *                   beyond the tile regenerates it tile by tile.
- *   noise_kernel    K8, one launch a train step: every noise site's
- *                   (u0, u1, gate) of ShakeShake, ShakeDrop and
- *                   drop-connect, a uniform per dropout element, mixup's
- *                   Beta(alpha, alpha) (Marsaglia-Tsang Gammas, 16
- *                   candidates each, in float64) and the permutation of the
- *                   batch (the rank code above); one packed buffer holds the
- *                   sites' tensors.
+ *   noise_kernel    K8 alone: every noise site's (u0, u1, gate) of
+ *                   ShakeShake, ShakeDrop and drop-connect, a uniform per
+ *                   dropout element, mixup's Beta(alpha, alpha)
+ *                   (Marsaglia-Tsang Gammas, 16 candidates each, in float64,
+ *                   one warp a Beta) and the permutation of the batch (the
+ *                   rank code above); one packed buffer holds the sites'
+ *                   tensors.
+ *   step_kernel     K8 as a train step's draws: the key chain of the step
+ *                   (fold_in of the counter read from the step's float64
+ *                   scalars, the splits into key_aug, key_mix, key_shake,
+ *                   key_drop), key_aug's augment record (lanes_kernel's or
+ *                   grouped_kernel's, one key), the noise items and
+ *                   mixup's Beta and permutation, each role a range of
+ *                   whole blocks and each block deriving its own keys, so
+ *                   the step's draws are one launch with no launch waiting
+ *                   on another.
+ *
+ * The Beta runs across a warp: lanes 0-15 test Gamma X's 16 candidates and
+ * lanes 16-31 Gamma Y's, each lane one candidate as the serial loop would
+ * run it; a ballot picks each half's first accepted candidate, so the draw
+ * is the serial loop's and the dependent float64 chain is one candidate
+ * long, not up to 32.
  *
  * Rounding.  Every float64 +, -, x, / goes through __dadd_rn, __dsub_rn,
  * __dmul_rn, __ddiv_rn and the root through __dsqrt_rn (correctly rounded,
@@ -366,6 +381,16 @@ struct Lanes {
   int exact;  // draw the exact sub-policy and slots
 };
 
+// lane l's exact record from its key: the sub-policy and slots when `exact`,
+// then the stack's draws (lanes_kernel, step_kernel)
+__device__ __forceinline__ void lane_record(Key lane, long long l, bool exact, const Records& r) {
+  if (exact) {
+    r.sub[l] = pick(sampler_block(lane, 0u, kSub, 0u).x0, r.num_sub);
+    slot_draws(lane, 0u, l, r);
+  }
+  stack_draws(lane, l, r);
+}
+
 __global__ void __launch_bounds__(kThreads) lanes_kernel(const Lanes a, const Records r) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long total = a.batch ? (long long)a.num_keys * a.batch : a.num_keys;
@@ -377,11 +402,7 @@ __global__ void __launch_bounds__(kThreads) lanes_kernel(const Lanes a, const Re
   } else {
     lane = load_key(a.keys + 2 * l);
   }
-  if (a.exact) {
-    r.sub[l] = pick(sampler_block(lane, 0u, kSub, 0u).x0, r.num_sub);
-    slot_draws(lane, 0u, l, r);
-  }
-  stack_draws(lane, l, r);
+  lane_record(lane, l, a.exact, r);
 }
 
 struct Grouped {
@@ -390,21 +411,27 @@ struct Grouped {
   int presplit;  // lanes from split(key, 2)[0], the policy from split(key, 2)[1]
 };
 
-__global__ void __launch_bounds__(kThreads) grouped_kernel(const Grouped a, const Records r) {
-  __shared__ uint32_t tile[kTile];
-  const int d = blockIdx.x;
-  Key lanes_key = load_key(a.keys + 2 * d), key = lanes_key;
-  if (a.presplit) {
+// the grouped records of draw key d (`key`) over `batch` images, lanes d *
+// batch + i; every thread of the block calls it (grouped_kernel, step_kernel)
+__device__ void grouped_records(Key key, int d, int batch, int chunk, bool presplit,
+                                const Records& r, uint32_t* tile) {
+  Key lanes_key = key;
+  if (presplit) {
     lanes_key = split_key(key, 0u);
     key = split_key(key, 1u);
   }
-  const int batch = a.batch, chunk = a.chunk;
   stable_ranks(key, true, kPerm, batch, tile, [&](int i, int rank) {
     const long long l = (long long)d * batch + i;
     r.sub[l] = pick(sampler_block(key, (uint32_t)(rank / chunk), kGroup, 0u).x0, r.num_sub);
     slot_draws(key, (uint32_t)(i + 1), l, r);
     if (r.crop || r.flip) stack_draws(split_key(lanes_key, (uint32_t)i), l, r);
   });
+}
+
+__global__ void __launch_bounds__(kThreads) grouped_kernel(const Grouped a, const Records r) {
+  __shared__ uint32_t tile[kTile];
+  const int d = blockIdx.x;
+  grouped_records(load_key(a.keys + 2 * d), d, a.batch, a.chunk, a.presplit, r, tile);
 }
 
 // ------------------------------------------------ K8
@@ -430,47 +457,72 @@ struct Mix {
   int64_t* perm;           // [perm_n]
 };
 
-// ln X for X ~ Gamma(alpha) from key k (ops/rng.py gamma_log): the first of
-// 16 candidates that Marsaglia and Tsang's test accepts
-__device__ double gamma_log(Key k, const Mix& m) {
-  for (int j = 0; j < kCandidates; ++j) {
-    const Block b = rng_block(k, (uint32_t)j, kGamma);
-    double cs, sn;
-    cos_sin_turn(b.x1 >> 8, cs, sn);
-    const double x = mul(radius(b.x0), cs);
-    double v = mul(x, m.c);
-    v = add(v, 1.0);
-    double v3 = mul(v, v);
-    v3 = mul(v3, v);
-    const bool ok = v3 > 0.0;
-    if (!ok) v3 = 1.0;
-    double rhs = mul(x, x);
-    rhs = mul(rhs, 0.5);
-    rhs = add(rhs, m.d);
-    rhs = sub(rhs, mul(v3, m.d));
-    rhs = add(rhs, mul(log_f64(v3), m.d));
-    if (ok && log_unit((1u << 24) - (b.x2 >> 8)) < rhs) {
-      double log_x = log_f64(mul(v3, m.d));
-      if (m.boost) log_x = add(log_x, mul(log_unit((1u << 24) - (b.x3 >> 8)), m.inv_shape));
-      return log_x;
-    }
-  }
-  printf("the Beta sampler's Gamma accepted none of its %d candidates (key %u %u)\n",
-         kCandidates, k.w0, k.w1);
-  __trap();
-  return 0.0;
+// Candidate j of the Gamma(alpha) draw from key k (ops/rng.py gamma_log):
+// whether Marsaglia and Tsang's test accepts it, and its ln X.  Every value
+// is the serial loop's; the logs that depend on nothing but the block's
+// words (the acceptance and boost uniforms') and the two of v^3 are taken
+// whether or not the candidate is accepted, so they run side by side and
+// the dependent chain is one log of the radius and one of v^3 long.
+__device__ bool gamma_candidate(Key k, int j, const Mix& m, double& log_x) {
+  const Block b = rng_block(k, (uint32_t)j, kGamma);
+  const double log_u = log_unit((1u << 24) - (b.x2 >> 8));
+  const double log_boost = log_unit((1u << 24) - (b.x3 >> 8));
+  double cs, sn;
+  cos_sin_turn(b.x1 >> 8, cs, sn);
+  const double x = mul(radius(b.x0), cs);
+  double v = mul(x, m.c);
+  v = add(v, 1.0);
+  double v3 = mul(v, v);
+  v3 = mul(v3, v);
+  const bool ok = v3 > 0.0;
+  if (!ok) v3 = 1.0;
+  const double log_v3 = log_f64(v3), log_v3d = log_f64(mul(v3, m.d));
+  double rhs = mul(x, x);
+  rhs = mul(rhs, 0.5);
+  rhs = add(rhs, m.d);
+  rhs = sub(rhs, mul(v3, m.d));
+  rhs = add(rhs, mul(log_v3, m.d));
+  log_x = m.boost ? add(log_v3d, mul(log_boost, m.inv_shape)) : log_v3d;
+  return ok && log_u < rhs;
 }
 
-// Beta(alpha, alpha) from key k (ops/rng.py beta_symmetric)
-__device__ double beta_symmetric(Key k, const Mix& m) {
-  const double lx = gamma_log(split_key(k, 0u), m), ly = gamma_log(split_key(k, 1u), m);
+// Beta(alpha, alpha) from key k (ops/rng.py beta_symmetric) by one warp:
+// lanes 0-15 evaluate the 16 candidates of Gamma X (key split(k, 2)[0]),
+// lanes 16-31 those of Gamma Y (split(k, 2)[1]); each half takes its lowest
+// accepting lane, the first candidate the serial loop would accept, so the
+// draw is the serial one's.  Every lane of the warp calls it; each returns
+// the draw.  A half that accepts none prints its key and traps.
+__device__ double beta_warp(Key k, const Mix& m) {
+  const int lane = threadIdx.x & 31;
+  const Key g = split_key(k, (uint32_t)(lane >> 4));
+  double log_x = 0.0;
+  const unsigned votes = __ballot_sync(0xFFFFFFFFu, gamma_candidate(g, lane & 15, m, log_x));
+  const unsigned xs = votes & 0xFFFFu, ys = votes >> 16;
+  if (!xs || !ys) {
+    if (lane == (xs ? 16 : 0)) {  // X is drawn first: its failure is the one reported
+      printf("the Beta sampler's Gamma accepted none of its %d candidates (key %u %u)\n",
+             kCandidates, g.w0, g.w1);
+      __trap();
+    }
+    return 0.0;  // never used: the trap ends the launch
+  }
+  const double lx = __shfl_sync(0xFFFFFFFFu, log_x, __ffs(xs) - 1);
+  const double ly = __shfl_sync(0xFFFFFFFFu, log_x, 16 + __ffs(ys) - 1);
   const double top = fmax(lx, ly);
   const double ex = exp_f64(sub(lx, top)), ey = exp_f64(sub(ly, top));
   return dvd(ex, add(ex, ey));
 }
 
-__device__ __forceinline__ int find_site(const Sites& s, int item) {
-  int lo = 0, hi = s.count - 1;  // the last site whose begin <= item
+// mixup's permutation of m.perm_n from the mixup key's split(key, 2)[1]
+// (ops/rng.py permutation); every thread of the block calls it
+__device__ void mix_permutation(Key key_mix, const Mix& m, uint32_t* tile) {
+  int64_t* perm = m.perm;
+  stable_ranks(split_key(key_mix, 1u), false, kRngPerm, m.perm_n, tile,
+               [&](int i, int rank) { perm[rank] = i; });
+}
+
+// the last site in [lo, hi] whose begin <= item
+__device__ __forceinline__ int find_site(const Sites& s, int item, int lo, int hi) {
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
     if (s.begin[mid] <= item) lo = mid; else hi = mid - 1;
@@ -478,49 +530,174 @@ __device__ __forceinline__ int find_site(const Sites& s, int item) {
   return lo;
 }
 
+// The noise items [first, first + blockDim.x) of one block (ops/shake.py
+// ModelNoise.draw_plain).  The threads of the first sites the block's items
+// fall in fold their site into the step's key_shake or key_drop (`keys`
+// gives both; only those threads call it) into `site_keys`; then each
+// thread draws its item's Philox block.  Every thread of the block calls it.
+template <class F>
+__device__ void noise_items(const Sites& s, int first, int batch, float* fbuf, uint8_t* bbuf,
+                            Key* site_keys, F&& keys) {
+  const int last = min(first + (int)blockDim.x, s.items) - 1;
+  if (first > last) return;
+  const int k0 = find_site(s, first, 0, s.count - 1), k1 = find_site(s, last, k0, s.count - 1);
+  if ((int)threadIdx.x <= k1 - k0) {
+    const int k = k0 + threadIdx.x;
+    Key shake, drop;
+    keys(shake, drop);
+    const bool dropout = (s.meta[k] >> 16) == kDropoutSite;
+    site_keys[threadIdx.x] = fold_key(dropout ? drop : shake, (uint32_t)(s.meta[k] & 0xFFFF));
+  }
+  __syncthreads();
+  const int item = first + threadIdx.x;
+  if (item > last) return;
+  const int k = find_site(s, item, k0, k1), local = item - s.begin[k];
+  const int kind = s.meta[k] >> 16;
+  const float thr = s.thr[k];
+  const Key key = site_keys[k - k0];
+  if (kind == kDropoutSite) {
+    bbuf[s.out[k] + local] = uniform24(rng_block(key, (uint32_t)local, kDropout).x0) < thr;
+    return;
+  }
+  const Block b = rng_block(key, (uint32_t)local, kSite);
+  const float u0 = uniform24(b.x0), u1 = uniform24(b.x1);
+  float* o = fbuf + s.out[k];
+  if (kind == kShakeShake) {
+    o[local] = u0;
+    o[batch + local] = u1;
+  } else if (kind == kShakeDrop) {
+    if (local == 0) o[0] = uniform24(b.x3) < thr ? 1.0f : 0.0f;
+    o[1 + local] = __fsub_rn(__fmul_rn(u0, 2.0f), 1.0f);
+    o[1 + batch + local] = u1;
+  } else if (kind == kDropConnect) {
+    o[local] = u0 < thr ? 1.0f : 0.0f;
+  }
+}
+
+constexpr int kWarps = kThreads / 32;
+
+// K8 alone: blocks [0, beta_blocks) draw a Beta a warp, then the
+// permutation's block (perm_n > 0), then the noise items, a thread each
 __global__ void __launch_bounds__(kThreads) noise_kernel(
     const __grid_constant__ Sites s, const int64_t* __restrict__ key_shake,
     const int64_t* __restrict__ key_drop, int batch, float* fbuf, uint8_t* bbuf,
-    const __grid_constant__ Mix m, int item_blocks) {
+    const __grid_constant__ Mix m, int beta_blocks) {
   __shared__ uint32_t tile[kTile];
-  if ((int)blockIdx.x == item_blocks) {  // the permutation's block
-    const Key k = split_key(load_key(m.keys), 1u);
-    int64_t* perm = m.perm;
-    stable_ranks(k, false, kRngPerm, m.perm_n, tile, [&](int i, int rank) { perm[rank] = i; });
+  __shared__ Key site_keys[kThreads];
+  int block = blockIdx.x;
+  if (block < beta_blocks) {
+    const int j = block * kWarps + (threadIdx.x >> 5);
+    if (j >= m.num_lam) return;
+    const double lam = beta_warp(split_key(load_key(m.keys + 2 * j), 0u), m);
+    if ((threadIdx.x & 31) == 0) m.lam[j] = __double2float_rn(lam);
     return;
   }
-  const int item = blockIdx.x * blockDim.x + threadIdx.x;
-  if (item < s.items) {
-    const int k = find_site(s, item), local = item - s.begin[k];
-    const int site = s.meta[k] & 0xFFFF, kind = s.meta[k] >> 16;
-    const float thr = s.thr[k];
-    if (kind == kDropoutSite) {
-      const Key key = fold_key(load_key(key_drop), (uint32_t)site);
-      bbuf[s.out[k] + local] = uniform24(rng_block(key, (uint32_t)local, kDropout).x0) < thr;
+  block -= beta_blocks;
+  if (m.perm_n > 0) {
+    if (block == 0) {
+      mix_permutation(load_key(m.keys), m, tile);
       return;
     }
-    const Key key = fold_key(load_key(key_shake), (uint32_t)site);
-    const Block b = rng_block(key, (uint32_t)local, kSite);
-    const float u0 = uniform24(b.x0), u1 = uniform24(b.x1);
-    float* o = fbuf + s.out[k];
-    if (kind == kShakeShake) {
-      o[local] = u0;
-      o[batch + local] = u1;
-    } else if (kind == kShakeDrop) {
-      if (local == 0) o[0] = uniform24(b.x3) < thr ? 1.0f : 0.0f;
-      o[1 + local] = __fsub_rn(__fmul_rn(u0, 2.0f), 1.0f);
-      o[1 + batch + local] = u1;
-    } else if (kind == kDropConnect) {
-      o[local] = u0 < thr ? 1.0f : 0.0f;
+    block -= 1;
+  }
+  noise_items(s, block * blockDim.x, batch, fbuf, bbuf, site_keys, [&](Key& sh, Key& dr) {
+    sh = load_key(key_shake);
+    dr = load_key(key_drop);
+  });
+}
+
+// ------------------------------------------------ a train step's draws
+
+constexpr int kNoRecord = 0, kLaneRecord = 1, kGroupedRecord = 2;
+
+struct Step {
+  const int64_t* key;     // the step function's key [2]
+  const double* scalars;  // the step's scalars: [0] its counter, an integer exact in float64
+  int64_t* key_aug;       // out [2]
+  int batch;              // the step's images: noise samples, permutation, record lanes
+  int mix;                // mixup: a Beta warp's block and the permutation's block
+  int record;             // kNoRecord, kLaneRecord or kGroupedRecord, from key_aug
+  int exact;              // lanes: draw the sub-policy and slots
+  int chunk, presplit;    // grouped: positions a chunk; the ImageNet tree's split first
+  int record_blocks;
+};
+
+// fold_in(key, step) (train/steps.py; the JAX step's :155): the counter is
+// scalars[0]'s low 32 bits, as fold_in takes an int64
+__device__ __forceinline__ Key step_key(const Step& a) {
+  return fold_key(load_key(a.key), (uint32_t)(long long)a.scalars[0]);
+}
+
+// (key_aug, key_model) = split(step key, 2); key_model splits into
+// (key_mix, key_shake, key_drop) (the JAX step's :137)
+__device__ __forceinline__ Key model_key(const Step& a, uint32_t j) {
+  return split_key(split_key(step_key(a), 1u), j);
+}
+
+// One train step's draws in one launch: the last block writes key_aug; with
+// mixup block 0's first warp draws the Beta and block 1 the permutation; then the
+// record's blocks (a thread a lane, or one block for the grouped record);
+// then the noise items.  Each block derives the keys of its role from the
+// step's key and counter, so no block waits on another.
+__global__ void __launch_bounds__(kThreads) step_kernel(
+    const __grid_constant__ Step a, const __grid_constant__ Sites s,
+    const __grid_constant__ Mix m, const __grid_constant__ Records r, float* fbuf,
+    uint8_t* bbuf) {
+  __shared__ uint32_t tile[kTile];
+  __shared__ Key site_keys[kThreads];
+  int block = blockIdx.x;
+  if (block == (int)gridDim.x - 1 && threadIdx.x == 0) {  // off the Beta's chain in block 0
+    const Key k = split_key(step_key(a), 0u);
+    a.key_aug[0] = k.w0;
+    a.key_aug[1] = k.w1;
+  }
+  if (a.mix) {
+    if (block == 0) {
+      if (threadIdx.x >= 32) return;
+      const double lam = beta_warp(split_key(model_key(a, 0u), 0u), m);
+      if (threadIdx.x == 0) m.lam[0] = __double2float_rn(lam);
+      return;
     }
+    if (block == 1) {
+      mix_permutation(model_key(a, 0u), m, tile);
+      return;
+    }
+    block -= 2;
+  }
+  if (block < a.record_blocks) {
+    const Key key_aug = split_key(step_key(a), 0u);
+    if (a.record == kGroupedRecord) {
+      grouped_records(key_aug, 0, a.batch, a.chunk, a.presplit, r, tile);
+      return;
+    }
+    const long long l = (long long)block * blockDim.x + threadIdx.x;
+    if (l < a.batch) lane_record(split_key(key_aug, (uint32_t)l), l, a.exact, r);
     return;
   }
-  const int j = item - s.items;  // a Beta draw
-  if (j >= m.num_lam) return;
-  m.lam[j] = __double2float_rn(beta_symmetric(split_key(load_key(m.keys + 2 * j), 0u), m));
+  block -= a.record_blocks;
+  noise_items(s, block * blockDim.x, a.batch, fbuf, bbuf, site_keys, [&](Key& sh, Key& dr) {
+    const Key model = split_key(step_key(a), 1u);
+    sh = split_key(model, 1u);
+    dr = split_key(model, 2u);
+  });
 }
 
 inline unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+// the launch parameters' copy of a site table (count <= kMaxSites)
+inline Sites site_table(int count, int items, const int* begin, const int* out, const int* meta,
+                        const float* thr) {
+  Sites s = {};
+  s.count = count;
+  s.items = items;
+  for (int i = 0; i < count; ++i) {
+    s.begin[i] = begin[i];
+    s.out[i] = out[i];
+    s.meta[i] = meta[i];
+    s.thr[i] = thr[i];
+  }
+  return s;
+}
 
 }  // namespace
 
@@ -609,21 +786,57 @@ extern "C" int faa_train_noise(int count, int items, const int* begin, const int
     return kErrBadArgs;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  Sites s = {};
-  s.count = count;
-  s.items = items;
-  for (int i = 0; i < count; ++i) {
-    s.begin[i] = begin[i];
-    s.out[i] = out[i];
-    s.meta[i] = meta[i];
-    s.thr[i] = thr[i];
-  }
+  const Sites s = site_table(count, items, begin, out, meta, thr);
   const Mix m = {mix_keys, num_lam, perm_n, d, c, inv_shape, boost, lam, perm};
-  const int item_blocks = (int)blocks_for((long long)items + num_lam);
-  const int grid = item_blocks + (perm_n > 0 ? 1 : 0);
+  const int beta_blocks = (num_lam + kWarps - 1) / kWarps;
+  const int grid = beta_blocks + (perm_n > 0 ? 1 : 0) + (int)blocks_for(items);
   if (grid == 0) return 0;
   noise_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(s, key_shake, key_drop, batch,
-                                                            fbuf, bbuf, m, item_blocks);
+                                                            fbuf, bbuf, m, beta_blocks);
+  return (int)cudaGetLastError();
+}
+
+// One train step's draws in one launch (step_kernel): from `key` [2] and the
+// counter scalars[0], key_aug [2]; the noise sites as faa_train_noise takes
+// them; with `mix`, mixup's Beta (lam [1]) and permutation of batch (perm);
+// and the record (kNoRecord, kLaneRecord: faa_sampler_lanes' lanes of one
+// key, kGroupedRecord: faa_sampler_grouped's of one key) from key_aug
+extern "C" int faa_step_draws(const int64_t* key, const double* scalars, int64_t* key_aug,
+                              int count, int items, const int* begin, const int* out,
+                              const int* meta, const float* thr, int batch, float* fbuf,
+                              uint8_t* bbuf, int mix, double d, double c, double inv_shape,
+                              int boost, float* lam, int64_t* perm, int record, int chunk,
+                              int presplit, int num_sub, int num_op, int height, int width,
+                              int span, float jit_span, float jit_lo, double alphastd,
+                              int32_t* sub, float* pol, int32_t* crop, int32_t* flip,
+                              int flip_stride, int32_t* order, int order_stride,
+                              int32_t* centre, int centre_stride, float* factors,
+                              int factors_stride, float* alpha, int alpha_stride, int device,
+                              void* stream) {
+  if (count > kMaxSites) return kErrTooManySites;
+  const bool exact = sub != nullptr;
+  if (!key || !scalars || !key_aug || count < 0 || items < 0 || batch < 1 || device < 0 ||
+      (count > 0 && (!begin || !out || !meta || !thr || !fbuf)) ||
+      (mix && !(lam && perm)) || record < kNoRecord || record > kGroupedRecord ||
+      (record != kNoRecord && (height < 1 || width < 1 ||
+                               (flip && !(order && centre && factors && alpha)))) ||
+      (exact && (!pol || num_sub < 1 || num_op < 1)) ||
+      (record == kGroupedRecord && (!exact || chunk < 1)))
+    return kErrBadArgs;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Sites s = site_table(count, items, begin, out, meta, thr);
+  const Mix m = {nullptr, mix ? 1 : 0, mix ? batch : 0, d, c, inv_shape, boost, lam, perm};
+  const int record_blocks = record == kGroupedRecord ? 1
+                            : record == kLaneRecord ? (int)blocks_for(batch) : 0;
+  const Step a = {key, scalars, key_aug, batch, mix ? 1 : 0, record, exact ? 1 : 0,
+                  chunk, presplit, record_blocks};
+  const Records r = {num_sub, num_op, height, width, span, jit_span, jit_lo, alphastd,
+                     sub, pol, crop, flip, order, centre, factors, alpha,
+                     flip_stride, order_stride, centre_stride, factors_stride, alpha_stride};
+  const int grid = (mix ? 2 : 0) + record_blocks + (int)blocks_for(items);
+  step_kernel<<<grid > 0 ? grid : 1, kThreads, 0, (cudaStream_t)stream>>>(a, s, m, r, fbuf,
+                                                                          bbuf);
   return (int)cudaGetLastError();
 }
 

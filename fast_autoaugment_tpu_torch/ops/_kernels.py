@@ -19,7 +19,8 @@ shared library of its own with a plain C interface and bound with
   (:func:`imagenet_plan` chooses by shape and dtype);
 - ``sampler.cu``: the draw sampler (K7: the key entry ``sampler_keys``, the
   exact records ``sampler_lanes``, the grouped records ``sampler_grouped``)
-  and the train noise (K8, ``train_noise``), each one launch a call.
+  and the train noise (K8: ``train_noise`` alone, ``step_draws`` as all of
+  a train step's draws), each one launch a call.
 
 Each wrapper counts its launches (:func:`launch_counts`).  A launch that
 a CUDA graph capture records is not a launch yet: it goes to the tally of
@@ -53,7 +54,7 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "AugmentPlan", "CifarPlan", "Im
            "augment_operands",
            "augment_max_active_clusters", "cifar_stack", "imagenet_stack",
            "imagenet_max_active_clusters", "on_card", "sampler_keys", "sampler_lanes",
-           "sampler_grouped", "train_noise", "empty_kernel", "launch_counts",
+           "sampler_grouped", "train_noise", "step_draws", "empty_kernel", "launch_counts",
            "reset_launch_counts", "counting_capture", "count_replays"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -98,6 +99,9 @@ _SIGNATURES = {
                                         *_RECORD_ARGS, _I, _P],
                 "faa_train_noise": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _D,
                                     _D, _D, _I, _P, _P, _I, _P],
+                "faa_step_draws": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _D, _D,
+                                   _D, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _D,
+                                   *_RECORD_ARGS, _I, _P],
                 "faa_empty_kernel": [_I, _P]},
 }
 
@@ -818,6 +822,19 @@ def empty_kernel(device: torch.device) -> None:
               "empty")
 
 
+#: csrc/sampler.cu's record kinds of faa_step_draws
+_NO_RECORD, _LANE_RECORD, _GROUPED_RECORD = 0, 1, 2
+
+
+def _noise_table(sites) -> tuple[int, int, list]:
+    """``(count, items, [begin, out, meta, thr])`` of a ``NoiseLayout`` (or
+    None): host pointers the launcher copies into the launch's parameters."""
+    if sites is None:
+        return 0, 0, [None] * 4
+    return sites.count, sites.items, [a.ctypes.data for a in (sites.begin, sites.out, sites.meta,
+                                                             sites.thr)]
+
+
 def train_noise(*, batch: int = 0, sites=None, key_shake: torch.Tensor | None = None,
                 key_drop: torch.Tensor | None = None, mix_keys: torch.Tensor | None = None,
                 perm_n: int = 0, gamma: tuple | None = None) -> dict:
@@ -846,15 +863,12 @@ def train_noise(*, batch: int = 0, sites=None, key_shake: torch.Tensor | None = 
         if not num_lam:
             raise ValueError("a permutation needs a mixup key")
         out["perm"] = torch.empty((perm_n,), dtype=torch.int64, device=dev)
-    count = items = 0
-    table = [None] * 4
+    count, items, table = _noise_table(sites)
     fbuf = bbuf = None
     if sites is not None:
         if key_shake is None or key_drop is None:
             raise ValueError("noise sites need key_shake and key_drop")
         packed = out["packed"] = torch.empty((sites.nbytes,), dtype=torch.uint8, device=dev)
-        count, items = sites.count, sites.items
-        table = [a.ctypes.data for a in (sites.begin, sites.out, sites.meta, sites.thr)]
         fbuf = bbuf = packed.data_ptr()  # sites.out: floats and bytes from its start
     d, c, inv, boost = gamma or (0.0, 0.0, 0.0, False)
     if count or num_lam:
@@ -865,4 +879,72 @@ def train_noise(*, batch: int = 0, sites=None, key_shake: torch.Tensor | None = 
                 int(perm_n), float(d), float(c), float(inv), int(bool(boost)),
                 ptr(out.get("lam")), ptr(out.get("perm")), dev.index or 0,
                 torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def step_draws(key: torch.Tensor, scalars: torch.Tensor, *, batch: int, sites=None,
+               gamma: tuple | None = None, record: dict | None = None) -> dict:
+    """K8 as all the draws of one train step, in one launch (``csrc/sampler.cu
+    step_kernel``).
+
+    The kernel derives the step's key chain on chip: ``fold_in(key, step)``
+    with the step counter read from ``scalars[0]`` (the step's float64
+    scalars, so a captured graph reads each replay's row), its split into
+    ``(key_aug, key_model)`` (``"key_aug"`` ``[2]`` int64 is an output) and
+    ``key_model``'s into ``(key_mix, key_shake, key_drop)``.  `sites` (a
+    ``NoiseLayout``) draws the noise into ``"packed"`` as :func:`train_noise`
+    does; `gamma` (``ops/rng.py gamma_constants``) draws mixup's Beta
+    (``"lam"`` ``[1]``) and permutation of `batch` (``"perm"``) from
+    ``key_mix``; `record` draws one key's augment record from ``key_aug``:
+    ``dict(grouped, groups, num_sub, num_op, height, width, crop, imagenet,
+    presplit)`` as :func:`sampler_lanes` (``num_op`` None: no sub-policy) or
+    :func:`sampler_grouped` take them, the outputs under their names."""
+    dev = _check_keys("step-draws", key)
+    if tuple(key.shape) != (2,):
+        raise ValueError(f"the step's key must be [2], got {tuple(key.shape)}")
+    if scalars.device != dev or scalars.dtype != torch.float64 or not scalars.is_contiguous() \
+            or scalars.numel() < 1:
+        raise ValueError("scalars must be a contiguous float64 tensor on the key's device")
+    if batch < 1:
+        raise ValueError(f"a train step's draws need a batch >= 1, got {batch}")
+    out = {"key_aug": torch.empty((2,), dtype=torch.int64, device=dev)}
+    count, items, table = _noise_table(sites)
+    fbuf = None
+    if sites is not None:
+        if sites.batch != batch:
+            raise ValueError(f"the noise layout is for a batch of {sites.batch}, not {batch}")
+        out["packed"] = torch.empty((sites.nbytes,), dtype=torch.uint8, device=dev)
+        fbuf = out["packed"].data_ptr()  # sites.out: floats and bytes from its start
+    if gamma is not None:
+        out["lam"] = torch.empty((1,), dtype=torch.float32, device=dev)
+        out["perm"] = torch.empty((batch,), dtype=torch.int64, device=dev)
+    kind, chunk, presplit = _NO_RECORD, 0, 0
+    rec_scalars = [0, 0, 1, 1, 1, 0.0, 0.0, 0.0]
+    rec = [None, None, None] + [None, 0] * 5
+    if record is not None:
+        r = record
+        num_op = r.get("num_op")
+        if r["grouped"]:
+            if num_op is None or num_op < 1 or r["num_sub"] < 1:
+                raise ValueError(f"no grouped record of {r['num_sub']} x {num_op}")
+            kind, chunk = _GROUPED_RECORD, -(-batch // max(1, min(int(r["groups"]), batch)))
+            presplit = int(bool(r.get("presplit")))
+        else:
+            if num_op is not None and (num_op < 1 or r["num_sub"] < 1):
+                raise ValueError(f"no exact record of {r['num_sub']} x {num_op}")
+            kind = _LANE_RECORD
+        outs, rec = _records(dev, batch, num_op=num_op, crop=bool(r.get("crop")),
+                             imagenet=bool(r.get("imagenet")))
+        out.update(outs)
+        rec_scalars = _record_scalars(r.get("num_sub", 1), num_op, r["height"], r["width"],
+                                      r.get("pad", 4), r.get("strength", 0.4),
+                                      r.get("alphastd", 0.1))
+    d, c, inv, boost = gamma or (0.0, 0.0, 0.0, False)
+    lib = load_libraries()["sampler"]
+    ptr = lambda k: out[k].data_ptr() if k in out else None  # noqa: E731
+    _launch(lib.faa_step_draws, "step-draws", "train_noise", key.data_ptr(), scalars.data_ptr(),
+            ptr("key_aug"), count, items, *table, int(batch), fbuf, fbuf, int(gamma is not None),
+            float(d), float(c), float(inv), int(bool(boost)), ptr("lam"), ptr("perm"), kind,
+            chunk, presplit, *rec_scalars, *rec, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
     return out

@@ -81,8 +81,9 @@ from fast_autoaugment_tpu_torch.ops.preprocess import cifar_train_batch
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import ImageNetDraws, imagenet_train_batch
 from fast_autoaugment_tpu_torch.ops.shake import ModelNoise, noise_layout
 
-__all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "PhiloxDraws", "prng_key", "lane_draws_plain",
-           "imagenet_draws_plain", "mixup_draws_plain", "train_draws",
+__all__ = ["AUG_DISPATCH_MODES", "LaneDraws", "DrawRecord", "StepDraws", "PhiloxDraws",
+           "prng_key", "lane_draws_plain", "imagenet_draws_plain", "mixup_draws_plain",
+           "train_draws", "step_draws",
            "cifar_augment_fn", "imagenet_augment_fn", "make_tta_step", "make_audit_step",
            "eval_tta", "eval_tta_batched", "eval_audit"]
 
@@ -103,12 +104,78 @@ class LaneDraws:
     crop: torch.Tensor
 
 
+@dataclass(frozen=True)
+class DrawRecord:
+    """The augment record a train step draws from its ``key_aug``: the draws
+    of one ``cifar_train_batch`` call (:meth:`PhiloxDraws.draws`) or, with
+    `imagenet`, of one ``imagenet_train_batch`` call
+    (:meth:`PhiloxDraws.imagenet_draws`), on `batch` images of ``height x
+    width``.  ``policy_shape`` is ``(num_sub, num_op)``, or None for the
+    ImageNet stack without a policy (the CIFAR stack without one draws
+    ``(1, num_op)``, as its augment function always has)."""
+
+    imagenet: bool
+    batch: int
+    height: int
+    width: int
+    policy_shape: tuple | None
+    dispatch: str
+    groups: int
+
+    @property
+    def grouped(self) -> bool:
+        """Whether the grouped sampler draws the sub-policies: under
+        ``grouped`` a multi-sub policy, as the draw source decides."""
+        return (self.dispatch == "grouped" and self.policy_shape is not None
+                and self.policy_shape[0] > 1)
+
+    def draw(self, src, key, device):
+        """The record from `key` by any draw source's own call."""
+        if self.imagenet:
+            return src.imagenet_draws(key, batch=self.batch, policy_shape=self.policy_shape,
+                                      height=self.height, width=self.width,
+                                      dispatch=self.dispatch, groups=self.groups, device=device)
+        num_sub, num_op = self.policy_shape
+        return src.draws(key, batch=self.batch, num_sub=num_sub, num_op=num_op,
+                         height=self.height, width=self.width, dispatch=self.dispatch,
+                         groups=self.groups, device=device)
+
+    def kernel_args(self) -> dict:
+        """The ``record`` of ``_kernels.step_draws``: what
+        :meth:`PhiloxDraws.draws` or :func:`_imagenet_records` launch."""
+        num_sub, num_op = self.policy_shape or (1, None)
+        return dict(grouped=self.grouped, groups=self.groups, num_sub=num_sub, num_op=num_op,
+                    height=self.height, width=self.width, crop=not self.imagenet,
+                    imagenet=self.imagenet, presplit=self.imagenet and self.grouped)
+
+    def from_kernel(self, rec: dict):
+        """The :class:`LaneDraws` or ``ImageNetDraws`` of a launch's outputs."""
+        if not self.imagenet:
+            return LaneDraws(rec["sub"], rec["pol"], rec["crop"])
+        return _imagenet_draws_of(rec)
+
+
+@dataclass
+class StepDraws:
+    """Every draw of one train step (:func:`step_draws`): ``key_aug``, the
+    augment record drawn from it (``draws``, None without a
+    :class:`DrawRecord`), the model's noise (None without noise sites) and
+    mixup's ``lam`` and ``perm`` (None without mixup)."""
+
+    key_aug: object
+    draws: object
+    noise: ModelNoise | None
+    lam: torch.Tensor | None
+    perm: torch.Tensor | None
+
+
 class PhiloxDraws:
     """The port's draw source: Philox4x32-10 keys (``[..., 2]`` int64
     tensors of 32-bit words), bit-identical on the CPU and the card.  It
     makes the draws of the CIFAR stack (:meth:`draws`), of the ImageNet
-    stack (:meth:`imagenet_draws`), and a train step's model noise
-    (:meth:`model_noise`) and mixup draws (:meth:`mixup_draws`).
+    stack (:meth:`imagenet_draws`), a train step's model noise
+    (:meth:`model_noise`) and mixup draws (:meth:`mixup_draws`), and all of
+    a train step's draws at once (:meth:`step_draws`).
 
     A draw key's lanes are its images: lane b's key is ``split(draw_key,
     B)[b]``, which gives the exact sampler's sub-policy and op-slot draws
@@ -175,6 +242,27 @@ class PhiloxDraws:
             perm_n=batch if mix else 0, gamma=rng.gamma_constants(alpha) if mix else None)
         noise = ModelNoise.from_packed(lay, out["packed"]) if sites else None
         return (noise, out["lam"].reshape(()), out["perm"]) if mix else (noise, None, None)
+
+    def step_draws(self, key, scalars: torch.Tensor, *, sites, batch: int, alpha: float,
+                   record: DrawRecord | None = None, layout=None) -> StepDraws:
+        """Every draw of one train step (:func:`step_draws`, the plain
+        composition, on the CPU).  On the card one launch (``csrc/sampler.cu
+        step_kernel``): the key chain from `key` and the counter
+        ``scalars[0]``, `record`'s augment draws, the noise of `sites` (laid
+        out by `layout`, the step body's ``noise_layout(sites, batch)``) and,
+        at ``alpha > 0``, mixup's draws."""
+        key = self.key(key, scalars.device).reshape(2)
+        if not _kernels.on_card(key):
+            return step_draws(self, key, scalars, sites=sites, batch=batch, alpha=alpha,
+                              record=record)
+        lay = layout if layout is not None else noise_layout(sites, batch) if sites else None
+        mix = alpha > 0.0
+        out = _kernels.step_draws(key.contiguous(), scalars, batch=batch, sites=lay,
+                                  gamma=rng.gamma_constants(alpha) if mix else None,
+                                  record=None if record is None else record.kernel_args())
+        return StepDraws(out["key_aug"], None if record is None else record.from_kernel(out),
+                         ModelNoise.from_packed(lay, out["packed"]) if sites else None,
+                         out["lam"].reshape(()) if mix else None, out["perm"] if mix else None)
 
     def imagenet_draws(self, key, *, batch: int, policy_shape: tuple[int, int] | None,
                        height: int, width: int, dispatch: str, groups: int,
@@ -263,10 +351,32 @@ def train_draws(src, sites, batch: int, key_shake, key_drop, key_mix, alpha: flo
     """``(noise, lam, perm)`` of one train step from a draw source's
     ``model_noise`` (None without sites) and ``mixup_draws`` (Nones at
     ``alpha == 0``), in that order: a draw source's ``train_draws``, which
-    the train step calls."""
+    :func:`step_draws` calls."""
     noise = src.model_noise(sites, batch, key_shake, key_drop, device) if sites else None
     lam, perm = src.mixup_draws(key_mix, batch, alpha, device) if alpha > 0.0 else (None, None)
     return noise, lam, perm
+
+
+def step_draws(src, key, scalars: torch.Tensor, *, sites, batch: int, alpha: float,
+               record: DrawRecord | None = None, layout=None) -> StepDraws:
+    """Every draw of one train step from a draw source's own calls, in the
+    order of the JAX step's key tree (``train/steps.py:137``, ``:155``): the
+    step counter ``scalars[0]`` folded into `key`, split into ``(key_aug,
+    key_model)``; with noise sites or mixup (``alpha > 0``) ``key_model``
+    split into ``(key_mix, key_shake, key_drop)`` and the source's
+    ``train_draws``; then `record`'s draws from ``key_aug``.  It is a draw
+    source's ``step_draws``, which the train step calls once a step; with
+    :class:`PhiloxDraws` on the card it is the chain of K7 and K8 launches
+    that :meth:`PhiloxDraws.step_draws` makes in one.  `layout` is unused
+    (the sources draw the noise from `sites`)."""
+    dev = scalars.device
+    key_aug, key_model = src.split(src.fold_in(key, scalars[0].to(torch.int64), dev), 2, dev)
+    noise = lam = perm = None
+    if sites or alpha > 0.0:
+        key_mix, key_shake, key_drop = src.split(key_model, 3, dev)
+        noise, lam, perm = src.train_draws(sites, batch, key_shake, key_drop, key_mix, alpha, dev)
+    draws = None if record is None else record.draw(src, key_aug, dev)
+    return StepDraws(key_aug, draws, noise, lam, perm)
 
 
 def mixup_draws_plain(key: torch.Tensor, batch: int, alpha: float) -> tuple:
@@ -289,6 +399,12 @@ def _imagenet_records(keys: torch.Tensor, batch: int, policy_shape, height: int,
                                      num_op=policy_shape[1], **kw)
     else:
         rec = _kernels.sampler_lanes(keys.contiguous(), **kw)
+    return _imagenet_draws_of(rec)
+
+
+def _imagenet_draws_of(rec: dict) -> ImageNetDraws:
+    """The ``ImageNetDraws`` of a sampler launch's outputs (``sub`` and
+    ``pol`` absent without a policy)."""
     return ImageNetDraws(rec.get("sub"), rec.get("pol"), flip=rec["flip"], order=rec["order"],
                          factors=rec["factors"], alpha=rec["alpha"], centre=rec["centre"])
 

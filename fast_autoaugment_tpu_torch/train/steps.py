@@ -18,7 +18,10 @@ scalar and permutation (``mixup_alpha > 0``: the augmented batch is mixed
 and the loss is ``mixup_cross_entropy``), and the model's noise
 (``ops/shake.py``: ShakeShake, ShakeDrop and drop-connect from
 ``key_shake``, dropout from ``key_drop``), which a model with noise sites
-takes as ``model(x, noise=...)``.
+takes as ``model(x, noise=...)``.  A step draws all of these with one call
+of the draw source's ``step_draws`` (``search/tta.py``): on the card one
+launch (the key chain from the step's scalars, the augment function's record,
+the noise and mixup), on the CPU the chain of the source's own calls.
 
 The JAX step is a pure function of its state; here the state holds the
 model, and a step updates the model's parameters and BatchNorm statistics,
@@ -81,8 +84,8 @@ from fast_autoaugment_tpu_torch.ops.optim import (
 )
 from fast_autoaugment_tpu_torch.ops.preprocess import cifar_eval_batch, cifar_train_batch
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import imagenet_train_batch
-from fast_autoaugment_tpu_torch.ops.shake import noise_sites
-from fast_autoaugment_tpu_torch.search.tta import PhiloxDraws, check_aug_dispatch
+from fast_autoaugment_tpu_torch.ops.shake import noise_layout, noise_sites
+from fast_autoaugment_tpu_torch.search.tta import DrawRecord, PhiloxDraws, check_aug_dispatch
 
 __all__ = ["TrainState", "create_train_state", "cifar_augment_fn", "imagenet_augment_fn",
            "StepBody", "make_train_step_body", "make_train_step", "make_graphed_train_step",
@@ -114,6 +117,23 @@ def create_train_state(model: torch.nn.Module, optimizer: Optimizer,
                       ema=init_ema(model) if use_ema else None)
 
 
+def _augment_fn(record: Callable, apply: Callable) -> Callable:
+    """An ``augment_fn(images, policy, key, draw_source)`` made of its two
+    halves, which it carries as attributes: ``record(images, policy)``, the
+    :class:`~fast_autoaugment_tpu_torch.search.tta.DrawRecord` it draws from
+    `key`, and ``apply(images, policy, draws)``, which augments with those
+    draws.  The train step draws the record with the step's other draws
+    (``step_draws``) and calls ``apply``; other callers call the function."""
+
+    def augment_fn(images, policy, key, draw_source):
+        with record_function("train.sampler"):
+            d = record(images, policy).draw(draw_source, key, images.device)
+        return apply(images, policy, d)
+
+    augment_fn.record, augment_fn.apply = record, apply
+    return augment_fn
+
+
 def cifar_augment_fn(cutout_length: int, use_policy: bool = True, aug_dispatch: str = "exact",
                      aug_groups: int = 8) -> Callable:
     """The CIFAR/SVHN train stack as an ``augment_fn(images, policy, key,
@@ -121,21 +141,19 @@ def cifar_augment_fn(cutout_length: int, use_policy: bool = True, aug_dispatch: 
     then the policy (when `use_policy`) and crop/flip/normalize/cutout."""
     check_aug_dispatch(aug_dispatch)
 
-    def augment_fn(images, policy, key, draw_source):
+    def record(images, policy) -> DrawRecord:
         b, h, w = (int(v) for v in images.shape[:3])
-        with record_function("train.sampler"):
-            d = draw_source.draws(key, batch=b,
-                                  num_sub=int(policy.shape[0]) if use_policy else 1,
-                                  num_op=int(policy.shape[1]),
-                                  height=h, width=w, dispatch=aug_dispatch, groups=aug_groups,
-                                  device=images.device)
+        return DrawRecord(False, b, h, w, (int(policy.shape[0]) if use_policy else 1,
+                                           int(policy.shape[1])), aug_dispatch, aug_groups)
+
+    def apply(images, policy, d):
         with record_function("train.augment"):
             if not use_policy:
                 return cifar_train_batch(images, d.crop, cutout_length=cutout_length)
             return cifar_train_batch(images, d.crop, policy=policy, sub_idx=d.sub_idx,
                                      policy_draws=d.policy, cutout_length=cutout_length)
 
-    return augment_fn
+    return _augment_fn(record, apply)
 
 
 def imagenet_augment_fn(cutout_length: int, use_policy: bool = True,
@@ -146,18 +164,17 @@ def imagenet_augment_fn(cutout_length: int, use_policy: bool = True,
     flip, ColorJitter, lighting, normalize and cutout."""
     check_aug_dispatch(aug_dispatch)
 
-    def augment_fn(images, policy, key, draw_source):
+    def record(images, policy) -> DrawRecord:
         b, h, w = (int(v) for v in images.shape[:3])
         shape = (int(policy.shape[0]), int(policy.shape[1])) if use_policy else None
-        with record_function("train.sampler"):
-            d = draw_source.imagenet_draws(key, batch=b, policy_shape=shape, height=h, width=w,
-                                           dispatch=aug_dispatch, groups=aug_groups,
-                                           device=images.device)
+        return DrawRecord(True, b, h, w, shape, aug_dispatch, aug_groups)
+
+    def apply(images, policy, d):
         with record_function("train.augment"):
             return imagenet_train_batch(images, d, policy=policy if use_policy else None,
                                         cutout_length=cutout_length)
 
-    return augment_fn
+    return _augment_fn(record, apply)
 
 
 class StepBody:
@@ -194,9 +211,13 @@ def make_train_step_body(model: torch.nn.Module, optimizer: Optimizer, *, num_cl
     sites = noise_sites(model)
     if augment_fn is None:
         augment_fn = cifar_augment_fn(cutout_length, use_policy, aug_dispatch, aug_groups)
+    # an augment_fn made of a record and its application (cifar_augment_fn,
+    # imagenet_augment_fn) has its record drawn with the step's other draws
+    record_of, apply = getattr(augment_fn, "record", None), getattr(augment_fn, "apply", None)
     params = list(model.parameters())
     mask = non_bn_mask(model)
     topk = min(5, num_classes)
+    layouts: dict[int, object] = {}  # batch -> the sites' NoiseLayout, worked out once
 
     def body(state: TrainState, images, labels, policy, key, scalars):
         if state.model is not model:
@@ -204,15 +225,15 @@ def make_train_step_body(model: torch.nn.Module, optimizer: Optimizer, *, num_cl
         model.train()
         dev = images.device
         b = int(images.shape[0])
-        noise = lam = None
+        if sites and b not in layouts:
+            layouts[b] = noise_layout(sites, b)
+        record = record_of(images, policy) if record_of is not None else None
         with record_function("train.sampler"):
-            step = scalars[0].to(torch.int64)
-            key_aug, key_model = src.split(src.fold_in(key, step, dev), 2, dev)
-            if sites or mixup_alpha > 0.0:
-                key_mix, key_shake, key_drop = src.split(key_model, 3, dev)
-                noise, lam, perm = src.train_draws(sites, b, key_shake, key_drop, key_mix,
-                                                   mixup_alpha, dev)
-        x = augment_fn(images, policy, key_aug, src)
+            d = src.step_draws(key, scalars, sites=sites, batch=b, alpha=mixup_alpha,
+                               record=record, layout=layouts.get(b))
+        noise, lam, perm = d.noise, d.lam, d.perm
+        x = apply(images, policy, d.draws) if record is not None \
+            else augment_fn(images, policy, d.key_aug, src)
         labels = labels.to(device=dev, dtype=torch.int64)
         with record_function("train.model"):
             if lam is not None:
@@ -254,10 +275,11 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, *, num_classes
     draw_source) -> [B, 3, H, W]` defaults to the CIFAR/SVHN stack
     (:func:`cifar_augment_fn` with ``aug_dispatch``/``aug_groups``); pass
     :func:`imagenet_augment_fn` for that family.  A custom `augment_fn`
-    owns its own dispatch.  A model with noise sites gets its noise from
-    ``key_shake`` and ``key_drop``, mixup its draws from ``key_mix``, both
-    from the draw source's ``train_draws`` (``search/tta.py train_draws``:
-    its ``model_noise`` and ``mixup_draws``)."""
+    owns its own dispatch and draws from the ``key_aug`` it is given.  A
+    model with noise sites gets its noise from ``key_shake`` and
+    ``key_drop``, mixup its draws from ``key_mix``: all of a step's draws
+    come from one call of the draw source's ``step_draws``
+    (``search/tta.py step_draws``)."""
     body = make_train_step_body(
         model, optimizer, num_classes=num_classes, mixup_alpha=mixup_alpha,
         lb_smooth=lb_smooth, ema_mu=ema_mu, cutout_length=cutout_length, use_policy=use_policy,

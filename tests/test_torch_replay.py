@@ -313,6 +313,14 @@ class JaxDraws:
 
         return train_draws(self, *args)
 
+    def step_draws(self, *args, **kw):
+        """Every draw of a train step, through this source's calls in the
+        port's order (``tta.step_draws``: the key chain, ``train_draws``,
+        the record)."""
+        from fast_autoaugment_tpu_torch.search.tta import step_draws
+
+        return step_draws(self, *args, **kw)
+
     def imagenet_draws(self, key, *, batch, policy_shape, height, width, dispatch, groups,
                        device):
         k = tuple(int(v) for v in np.asarray(key, np.uint32).reshape(2))

@@ -254,18 +254,39 @@ def _static(reps):
     return [{"tag": f"r{i}", "host": "127.0.0.1", "port": r.port} for i, r in enumerate(reps)]
 
 
+#: the scenarios' clock, frozen for the router module under test: a
+#: Retry-After window (7 s, 1 s) opened in a scenario stays open to its end
+#: however slowly a loaded host runs it, as it does on an idle one
+SCENARIO_NOW = 1000.0
+#: the scenarios' readyz timeout, passed to both routers: a stub's answer
+#: is never turned into a transport failure by a loaded host
+SCENARIO_READYZ_TIMEOUT_S = 30.0
+
+
 def _scenario(mod, stubs, fault: str | None = None) -> list:
     """One routing scenario through `mod`'s Router: affinity, failover on
     a 503 with Retry-After and on a dead replica, ejection and readmission,
-    digest-less round robin, and an optional FAA_FAULT drill."""
+    digest-less round robin, and an optional FAA_FAULT drill.  The router
+    module's clock is frozen at :data:`SCENARIO_NOW` for the scenario, so
+    its log depends on the scenario alone, not on the host's speed."""
     rmod, fmod = mod
     for s in stubs:
         s.ready, s.status, s.headers = True, 200, {}
     if fault:
         os.environ["FAA_FAULT"] = fault
     fmod.reset()
+    clock = rmod.mono
+    rmod.mono = lambda: SCENARIO_NOW
+    try:
+        return _scenario_log(rmod, fmod, stubs)
+    finally:
+        rmod.mono = clock
+
+
+def _scenario_log(rmod, fmod, stubs) -> list:
     r = rmod.Router(static_replicas=_static(stubs), eject_after=1, readmit_after=1,
-                    failover_attempts=2, name=f"rt{next(_SEQ)}")
+                    failover_attempts=2, readyz_timeout_s=SCENARIO_READYZ_TIMEOUT_S,
+                    name=f"rt{next(_SEQ)}")
     log = []
 
     def fwd(digest, body=b"x"):
