@@ -72,6 +72,7 @@ import fnmatch
 import json
 import os
 import random
+import threading
 import time
 
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
@@ -460,8 +461,11 @@ def exists(path: str) -> bool:
 
 def write_json_atomic(path: str, obj) -> None:
     """The canonical fsync-then-rename atomic write, recording the path as an own-write
-    so the ``lag`` verb never hides a host's writes from itself."""
-    tmp = path + ".tmp"
+    so the ``lag`` verb never hides a host's writes from itself.  The
+    temporary file is the writer's own (pid and thread in its name), so
+    hosts that write one shared path at once never rename each other's
+    temporary away."""
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
     with open(tmp, "w") as fh:
         json.dump(obj, fh)
         fh.flush()

@@ -19,10 +19,11 @@ port's copy of ``fast_autoaugment_tpu/core/telemetry.py``).
    segment rotation; armed by ``--telemetry DIR`` or ``FAA_TELEMETRY``
    (:func:`configure_telemetry`), flushed every 0.25 s and by
    :func:`journal_flush`.  Off (the default) :func:`emit` is a None check.
+   Its TensorBoard bridge writes every numeric field of a non-dispatch
+   event as a scalar curve under ``<dir>/tb/`` (``utils/tb_events.py``).
 
-Records are those of the JAX package field for field; the JAX module's
-TensorBoard bridge and its shared-filesystem fault seam (``FAA_FSFAULT``
-skew of :func:`wall`) are not copied.
+Records are those of the JAX package field for field; :func:`wall` takes
+the ``FAA_FSFAULT`` skew (``core/fsfault.py``).
 """
 
 from __future__ import annotations
@@ -472,6 +473,16 @@ class FlightRecorder:
         self._fh = None
         self._bytes = 0
         self._open_segment()
+        # TB bridge (utils/tb_events.py): numeric event fields double as
+        # TensorBoard scalar curves for free — <dir>/tb/events.out...
+        self._tb = None
+        try:
+            from fast_autoaugment_tpu_torch.utils.tb_events import TBEventWriter
+
+            self._tb = TBEventWriter(os.path.join(self.directory, "tb"),
+                                     f"{self.host}.a{self.attempt}")
+        except OSError as e:
+            logger.warning("telemetry TB bridge disabled: %s", e)
 
     # ------------------------------------------------------- internals
 
@@ -556,6 +567,37 @@ class FlightRecorder:
                 self._last_flush = now
             if self._bytes >= self.max_segment_bytes:
                 self._rotate_locked()
+        if self._tb is not None and etype not in self._TB_SKIP_TYPES \
+                and fields:
+            self._tb_scalars({"type": etype, "label": label, "seq": seq,
+                              **fields})
+
+    _TB_SKIP = frozenset({"t_wall", "t_mono", "seq", "pid", "tid",
+                          "attempt", "t_mono_start", "t_mono_end", "step"})
+    #: high-frequency event types the TB bridge skips: dispatch windows
+    #: fire per device dispatch (kHz on small programs) and already
+    #: live in the faa_dispatch_seconds histogram + the Chrome trace —
+    #: a per-dispatch TB scalar write would dominate the span seam cost
+    _TB_SKIP_TYPES = frozenset({"dispatch"})
+
+    def _tb_scalars(self, rec: dict) -> None:
+        if self._tb is None or rec["type"] in self._TB_SKIP_TYPES:
+            return
+        step = rec.get("step")
+        step = int(step) if isinstance(step, (int, float)) and step >= 0 \
+            else rec["seq"]
+        tag_base = f"{rec['type']}/{rec.get('label') or 'event'}"
+        for k, v in rec.items():
+            if k in self._TB_SKIP or k in ("type", "label", "host",
+                                           "thread"):
+                continue
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            try:
+                self._tb.add_scalar(f"{tag_base}/{k}", v, step)
+            except (OSError, ValueError) as e:
+                logger.warning("telemetry TB bridge write failed: %s", e)
+                return
 
     def allow_dispatch_event(self, label: str) -> bool:
         """Token check for one ``dispatch`` journal slice: True while
@@ -586,6 +628,9 @@ class FlightRecorder:
             if self._fh is not None:
                 self._fh.close()
                 self._fh = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
 
 # --------------------------------------------------------------------------

@@ -37,9 +37,24 @@ The runtime flags are the JAX CLI's: ``--async-pipeline on``
 search runs).  A preemption (SIGTERM/SIGUSR1, honoured at the next
 dispatch or epoch boundary with a checkpoint) or a hung dispatch exits
 :data:`~fast_autoaugment_tpu_torch.core.resilience.PREEMPTED_EXIT_CODE`
-(77): rerunning the same command resumes.  The JAX CLI's flags for
-machinery that is not ported are refused with the ROADMAP item that ports
-them; argparse refuses the rest.
+(77): rerunning the same command resumes.
+
+The fleet flags are the JAX CLI's too.  ``--workqueue DIR`` (``--lease-ttl``,
+``--host-tag``) scatters the folds' phase-1 and phase-2 units and phase 3
+across peer hosts through the lease queue of ``launch/workqueue.py``: a dead
+host's units are reclaimed and finished by the survivors, and
+``search_result.json`` says so (``degraded``, ``lost_hosts``,
+``reclaimed_units``).  ``--fleet-transport DIR`` (``--search-role
+{auto,learner,actor}``, ``--ckpt-publish-timeout``; or the
+``FAA_FLEET_TRANSPORT`` and ``FAA_SEARCH_ROLE`` handoff of
+``launch/fleet.py``) runs phase 2 as a learner host publishing TPE rounds
+and actor hosts scoring them (``search/pipeline.py FleetTransport``).  Under
+either, every host is a single-process job of its own, and the fleet
+launcher's ``--coordinator``, ``--num-hosts`` and ``--host-id`` are
+accepted (``--host-id`` names the default owner tag ``host<id>``); without
+them those three stay refused (ROADMAP Queue 1 item 10c, one job across
+hosts).  The JAX CLI's other flags for machinery that is not ported are
+refused with the ROADMAP item that ports them; argparse refuses the rest.
 """
 
 from __future__ import annotations
@@ -62,13 +77,17 @@ from fast_autoaugment_tpu_torch.core.resilience import (
     PreemptedError,
     install_signal_handlers,
 )
-from fast_autoaugment_tpu_torch.search.driver import search_policies, write_json_atomic
+from fast_autoaugment_tpu_torch.search.driver import (
+    search_actor,
+    search_policies,
+    write_json_atomic,
+)
 from fast_autoaugment_tpu_torch.train.trainer import HOST_STEPS, train_and_eval
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
 from fast_autoaugment_tpu_torch.utils.stats import paired_t_test
 
 __all__ = ["build_parser", "main", "parse_args", "random_arm_skip_reason", "require_device",
-           "add_runtime_flags", "run_with_exit_contract", "UNPORTED_FLAGS"]
+           "add_runtime_flags", "run_with_exit_contract", "UNPORTED_FLAGS", "RANK_FLAGS"]
 
 logger = get_logger("faa_torch.search_cli")
 
@@ -76,9 +95,10 @@ logger = get_logger("faa_torch.search_cli")
 #: ROADMAP Queue 1 item that ports it
 UNPORTED_FLAGS = {
     "--fold-stack": "10b", "--coordinator": "10c", "--num-hosts": "10c", "--host-id": "10c",
-    "--fleet-transport": "13", "--search-role": "13", "--ckpt-publish-timeout": "13",
-    "--workqueue": "13", "--lease-ttl": "13", "--host-tag": "13",
 }
+#: the fleet launcher's rank suffix: search_cli takes it under --workqueue
+#: or a fleet transport (each host its own job), refuses it otherwise
+RANK_FLAGS = ("--coordinator", "--num-hosts", "--host-id")
 
 
 def parse_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
@@ -200,7 +220,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="fast-autoaugment policy search on the card (PyTorch port)",
         epilog="Not ported yet (ROADMAP Queue 1 item): " + ", ".join(
-            f"{f} ({i})" for f, i in UNPORTED_FLAGS.items()))
+            f"{f} ({i})" for f, i in UNPORTED_FLAGS.items()
+            if f not in RANK_FLAGS) + "; " + ", ".join(RANK_FLAGS)
+        + " without --workqueue or a fleet transport (10c)")
     p.add_argument("-c", "--conf", required=True)
     p.add_argument("--dataroot", default="./data",
                    help=("data folder: CIFAR's pickle batches, SVHN's .mat files, CIFAR-10.1's "
@@ -279,17 +301,141 @@ def build_parser() -> argparse.ArgumentParser:
                    help="drop selected sub-policies whose own mean-over-draws fold accuracy "
                         "is below floor x baseline (<= 0 turns the audit off)")
     add_runtime_flags(p)
+    p.add_argument("--fleet-transport", default=None, metavar="DIR",
+                   help="fleet search: the async pipeline's candidate queue as a round "
+                        "transport under DIR (a directory every host mounts).  The LEARNER "
+                        "host trains the phase-1 folds, publishes each gate-cleared "
+                        "checkpoint and the TPE rounds as leased work units; ACTOR hosts "
+                        "claim rounds, run the TTA evaluations and post the rewards back.  "
+                        "The fleet gives the single-host --async-pipeline artifacts bit for "
+                        "bit with the same flags; a dead actor's rounds are reclaimed "
+                        "through the lease TTL.  Default: the inherited FAA_FLEET_TRANSPORT "
+                        "(the fleet launcher's --fleet-transport); 'off' or unset = one host")
+    p.add_argument("--search-role", default="auto", choices=("auto", "learner", "actor"),
+                   help="this host's role in a --fleet-transport search: 'auto' (default) "
+                        "reads FAA_SEARCH_ROLE (the fleet launcher's --roles) and falls back "
+                        "to 'learner'; 'actor' trains nothing and runs no TPE: it serves "
+                        "published rounds until the learner marks the search done, then "
+                        "exits 0")
+    p.add_argument("--ckpt-publish-timeout", type=float, default=900.0,
+                   help="actor hosts: seconds to wait for a claimed round's fold checkpoint "
+                        "to be published (and its digest to match here) before exiting")
+    p.add_argument("--workqueue", default=None, metavar="DIR",
+                   help="elastic multi-host scatter: claim phase-1 fold trainings, per-fold "
+                        "phase-2 searches and phase 3 off a lease queue under DIR (a "
+                        "directory every host mounts), renewing leases at dispatch and trial "
+                        "boundaries and RECLAIMING units whose lease went stale: a dead "
+                        "host's fold is finished by a survivor, and search_result.json stamps "
+                        "degraded/lost_hosts/reclaimed_units")
+    p.add_argument("--lease-ttl", type=float, default=60.0,
+                   help="seconds a lease must be seen unchanged before survivors may reclaim "
+                        "its unit (must dominate the longest gap between renewals)")
+    p.add_argument("--host-tag", default=None,
+                   help="this host's stable owner id in the --workqueue or the transport "
+                        "(default: host<--host-id> under the fleet launcher, else host<pid>); "
+                        "a relaunch REUSES its predecessor's tag and resumes its own leases "
+                        "at once")
+    # the fleet launcher's rank suffix (accepted under --workqueue or a fleet
+    # transport: --host-id names the default --host-tag)
+    p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--num-hosts", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--host-id", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) or cpu (the plain versions of the kernels)")
     p.add_argument("override", nargs="*", help="dotted conf overrides key=value")
     return p
 
 
+def _transport_spec(args) -> str:
+    """The round-transport directory: ``--fleet-transport``, else the
+    ``FAA_FLEET_TRANSPORT`` handoff; '' when off."""
+    from fast_autoaugment_tpu_torch.search.pipeline import FLEET_TRANSPORT_ENV_VAR
+
+    spec = (args.fleet_transport or "").strip()
+    if spec.lower() in ("", "off"):
+        spec = os.environ.get(FLEET_TRANSPORT_ENV_VAR, "").strip()
+    return "" if spec.lower() in ("", "off") else spec
+
+
+def _check_rank_args(parser: argparse.ArgumentParser, args) -> None:
+    """The rank suffix is the fleet launcher's: each host of a work queue or
+    a round transport is its own job, so it only names the host there.  One
+    job across hosts is item 10c."""
+    if args.workqueue or _transport_spec(args):
+        return
+    for flag in RANK_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            parser.error(f"{flag} is not ported yet (ROADMAP Queue 1 item "
+                         f"{UNPORTED_FLAGS[flag]})")
+
+
+def _owner_tag(args) -> str:
+    """Stable owner id for lease-holding layers: --host-tag, then
+    host<--host-id> (the fleet launcher's per-host identity — a relaunch
+    reclaims its own leases immediately), then host<pid>."""
+    return args.host_tag or (f"host{args.host_id}" if args.host_id is not None
+                             else f"host{os.getpid()}")
+
+
+def _build_workqueue(args):
+    """The shared lease queue (or None)."""
+    if not args.workqueue:
+        return None
+    from fast_autoaugment_tpu_torch.launch.workqueue import WorkQueue
+
+    tag = _owner_tag(args)
+    wq = WorkQueue(args.workqueue, tag, lease_ttl=args.lease_ttl)
+    logger.info("workqueue: owner=%s root=%s lease_ttl=%.1fs", tag, args.workqueue,
+                args.lease_ttl)
+    return wq
+
+
+def _resolve_fleet_transport(args):
+    """``(transport, role)``: the cross-host round transport (or None) and
+    this host's resolved role.  The directory falls back to the
+    FAA_FLEET_TRANSPORT handoff (the fleet launcher exports it to every host
+    launch and retry)."""
+    from fast_autoaugment_tpu_torch.search.pipeline import FleetTransport, resolve_search_role
+
+    role = resolve_search_role(args.search_role)
+    spec = _transport_spec(args)
+    if not spec:
+        if role == "actor":
+            raise SystemExit("search_cli: --search-role actor needs a --fleet-transport DIR "
+                             "(or the FAA_FLEET_TRANSPORT handoff) - an actor host without a "
+                             "transport has nothing to serve")
+        return None, role
+    if args.workqueue:
+        raise SystemExit("search_cli: --fleet-transport and --workqueue are mutually exclusive "
+                         "(rounds-over-hosts vs folds-over-hosts)")
+    transport = FleetTransport(spec, _owner_tag(args), lease_ttl=args.lease_ttl, role=role)
+    logger.info("fleet transport: role=%s owner=%s root=%s lease_ttl=%.1fs", role,
+                transport.owner, spec, args.lease_ttl)
+    return transport, role
+
+
+def _run_actor(args, conf, transport, draw_source) -> dict:
+    """The --search-role actor main path: serve published rounds until the
+    learner marks the search done; write no search artifacts."""
+    stats = search_actor(
+        conf, dataroot=args.dataroot, save_dir=args.save_dir, fleet_transport=transport,
+        cv_num=args.num_fold, cv_ratio=args.cv_ratio, num_policy=args.num_policy,
+        num_op=args.num_op, trial_batch=args.trial_batch, seed=args.seed,
+        aug_dispatch=args.aug_dispatch, aug_groups=args.aug_groups, watchdog=args.watchdog,
+        compile_cache=args.compile_cache, telemetry_spec=args.telemetry,
+        ckpt_timeout=args.ckpt_publish_timeout, device=args.device, draw_source=draw_source)
+    transport.mark_host_done({"rounds_ok": stats["rounds_ok"],
+                              "rounds_err": stats["rounds_err"]})
+    return stats
+
+
 def main(argv=None, *, draw_source=None) -> dict:
     """Run the CLI; returns the result dict that ``search_result.json``
     holds (with the policy sets).  `draw_source` replaces the port's Philox
     draws (tests replay the JAX key tree with it)."""
-    args = parse_args(build_parser(), argv)
+    parser = build_parser()
+    args = parse_args(parser, argv)
+    _check_rank_args(parser, args)
     require_device(args.device, "search_cli")
     conf = load_config(args.conf, overrides=args.override)
     return run_with_exit_contract(args, "search_cli", lambda: _run(args, conf, draw_source))
@@ -297,6 +443,10 @@ def main(argv=None, *, draw_source=None) -> dict:
 
 def _run(args, conf, draw_source) -> dict:
     t_start = time.time()
+    transport, role = _resolve_fleet_transport(args)
+    if role == "actor":
+        return _run_actor(args, conf, transport, draw_source)
+    work_queue = _build_workqueue(args)
     result = search_policies(
         conf, dataroot=args.dataroot, save_dir=args.save_dir, cv_num=args.num_fold,
         cv_ratio=args.cv_ratio, num_policy=args.num_policy, num_op=args.num_op,
@@ -314,7 +464,8 @@ def _run(args, conf, draw_source) -> dict:
         watchdog=args.watchdog, compile_cache=args.compile_cache,
         async_pipeline=args.async_pipeline, pipeline_actors=args.pipeline_actors,
         pipeline_queue_depth=args.pipeline_queue_depth, telemetry_spec=args.telemetry,
-        device=args.device, draw_source=draw_source)
+        work_queue=work_queue, fleet_transport=transport, device=args.device,
+        draw_source=draw_source)
     final_policy_set = result["final_policy_set"]
     random_policy_set = result.get("random_policy_set") or []
     logger.info("final policy set: %d sub-policies", len(final_policy_set))
@@ -338,7 +489,30 @@ def _run(args, conf, draw_source) -> dict:
         return result
 
     if args.until < 3 or not final_policy_set:
+        if work_queue is not None:
+            work_queue.mark_host_done()
+        if transport is not None:
+            transport.mark_host_done()
         return persist()
+
+    phase3_hb = None
+    if transport is not None:
+        # the learner retrains alone (the actors drained on search_done),
+        # but its host beat must stay fresh for the fleet's wedge detector
+        phase3_hb = transport.beat
+    if work_queue is not None:
+        # phase 3 is one unit: exactly one host runs the retrains (a stale
+        # lease lets a survivor reclaim them; per-run checkpoints make the
+        # rerun resume)
+        if not work_queue.claim("phase3"):
+            logger.info("workqueue: phase 3 is owned elsewhere (or done) - this host is "
+                        "finished; the owner persists the final result")
+            work_queue.mark_host_done()
+            return persist()
+
+        def phase3_hb():
+            work_queue.renew("phase3")
+            work_queue.beat_host()
 
     # phase 3: full retrains, default vs augmented (search.py:264-312), plus
     # the random arm; runs pair by seed (the same data and init), so the
@@ -381,7 +555,7 @@ def _run(args, conf, draw_source) -> dict:
                     host_step=args.host_step,
                     checkpoint_every_dispatch=args.ckpt_every_dispatch,
                     divergence_retries=args.divergence_retries, watchdog=args.watchdog,
-                    compile_cache=args.compile_cache, device=args.device,
+                    heartbeat=phase3_hb, compile_cache=args.compile_cache, device=args.device,
                     draw_source=draw_source)
                 outcomes[mode].append(float(res.get("top1_test", 0.0)))
                 logger.info("phase3 %s run %d: top1_test=%.4f", mode, run, outcomes[mode][-1])
@@ -390,6 +564,11 @@ def _run(args, conf, draw_source) -> dict:
     summary = " vs ".join("%s %.4f+-%.4f" % (name, phase3[name]["mean"], phase3[name]["std"])
                           for name, _ in modes if name in phase3)
     logger.info("phase3 (n=%d): %s", num_runs, summary)
+    if work_queue is not None:
+        work_queue.release("phase3", info={"num_runs": num_runs})
+        work_queue.mark_host_done()
+    if transport is not None:
+        transport.mark_host_done()
     persist()
     logger.info("search complete: %.3f device-hours on %s (%s)", result["device_hours_total"],
                 result["backend"], result["device_kind"])

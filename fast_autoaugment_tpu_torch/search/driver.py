@@ -71,9 +71,29 @@ ImageNet those steps augment with the ImageNet train stack
 ``imagenet_train_batch`` in (``:336-345``), at ``conf["imgsize"]`` or the
 model's input size.
 
-Refused, naming the ROADMAP item that ports them: fold stacking
-(``fold_stack`` != 0, item 10b); the work queue and the fleet transport
-(item 13).
+The fleet tier (JAX ``:779-1100``, ``:1229-1240``, ``:1452-1464``,
+``:1688-1814``):
+
+- ``work_queue`` (a ``launch/workqueue.py WorkQueue``) scatters whole folds
+  across peer hosts: each claims ``p1-fold<k>`` and then ``p2-fold<k>``
+  units off the lease queue (its start on the card, ``_FoldEval.warm_up``,
+  paid before the first claim), renews the lease and beats at every trainer
+  dispatch, between a first dispatch's warm-up step and its graph capture,
+  and at every persisted trial (``_lease_heartbeat``), writes its
+  trial log per fold (``search_trials.fold<k>.json``: one writer per
+  lease), reclaims the stale leases of dead hosts and stamps the
+  degraded-completion accounting (``degraded``, ``lost_hosts``,
+  ``reclaimed_units``, ``resilience.fleet``).  The async pipeline and fold
+  stacking are forced off: the queue already scatters folds;
+- ``fleet_transport`` (a ``search/pipeline.py FleetTransport``) scatters
+  ask ROUNDS across actor hosts: this host is the learner (the pipeline is
+  forced on, its rounds go out through the transport's backend, each
+  gate-cleared fold checkpoint is published for the actors, and
+  ``search_done`` marks the end); :func:`search_actor` is the actor
+  host's entry.  The two are mutually exclusive.
+
+Refused, naming the ROADMAP item that ports it: fold stacking
+(``fold_stack`` != 0 outside the work queue, item 10b).
 """
 
 from __future__ import annotations
@@ -89,13 +109,17 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from fast_autoaugment_tpu_torch.core import telemetry
+from fast_autoaugment_tpu_torch.core import fsfault, telemetry
 from fast_autoaugment_tpu_torch.core.checkpoint import load_checkpoint, read_metadata
 from fast_autoaugment_tpu_torch.core.compilecache import (
     compile_cache_stats,
     configure_compile_cache,
 )
 from fast_autoaugment_tpu_torch.core.device import resolve_device
+# the search's artifacts are written fsync-then-rename through the shared
+# seam, whose temporary file is the writer's own: the hosts of a work queue
+# may write one artifact at the same time
+from fast_autoaugment_tpu_torch.core.fsfault import write_json_atomic
 from fast_autoaugment_tpu_torch.core.resilience import (
     DispatchHungError,
     PreemptedError,
@@ -124,6 +148,7 @@ from fast_autoaugment_tpu_torch.search.pipeline import (
     _failure_text,
     replay_trial_log,
     resolve_async_pipeline,
+    run_fleet_actor,
     run_fold_pipeline,
     run_overlapped_phases,
 )
@@ -145,8 +170,9 @@ from fast_autoaugment_tpu_torch.utils.interop import flax_layout, flax_to_tensor
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
 from fast_autoaugment_tpu_torch.utils.profiling import PhaseStopwatch
 
-__all__ = ["search_policies", "make_search_space", "SearchResult", "resolve_quality_floor",
-           "write_json_atomic", "draw_random_policy_set", "audit_sub_policies"]
+__all__ = ["search_policies", "search_actor", "make_search_space", "SearchResult",
+           "resolve_quality_floor", "write_json_atomic", "draw_random_policy_set",
+           "audit_sub_policies"]
 
 logger = get_logger("faa_torch.search")
 
@@ -173,16 +199,6 @@ def resolve_quality_floor(floor, num_classes: int) -> float | None:
             return None
         floor = float(floor)
     return floor if floor > 0 else None
-
-
-def write_json_atomic(path: str, obj) -> None:
-    """fsync-then-rename write: a crash mid-write never tears the file."""
-    tmp = path + ".tmp"
-    with open(tmp, "w") as fh:
-        json.dump(obj, fh)
-        fh.flush()
-        os.fsync(fh.fileno())
-    os.replace(tmp, path)
 
 
 def make_search_space(num_policy: int, num_op: int):
@@ -298,6 +314,7 @@ class _FoldEval:
         self.watchdog = resolve_watchdog(watchdog)
         self.trace = trace
         self._built = False
+        self._warm = False
         self._loaded = None  # (path, digest) of the weights in the model
         self._batches: dict[int, list] = {}
         self._lock = threading.RLock()
@@ -333,6 +350,33 @@ class _FoldEval:
             self.tta_step_batch = (make_tta_step(self.model, num_candidates=self.trial_batch,
                                                  **kw) if self.trial_batch > 1 else None)
             self._built = True
+
+    def warm_up(self, batch: int) -> None:
+        """Pay this process's one-time start on the card before its first
+        claim of fleet work, so that no lease has to outlast it: the kernel
+        libraries, the fold data and model, and the model's first forward and
+        backward pass at `batch` (the cuDNN and cuBLAS kernels a process loads
+        on first use, which made a fresh host's first train dispatch take
+        10-13 s on an NVIDIA H100 80GB HBM3 shared by six search processes).
+        No draw is taken and the model's weights and statistics are
+        untouched.  A no-op on the CPU and after the first call."""
+        if self.dev.type != "cuda" or self._warm:
+            return
+        from fast_autoaugment_tpu_torch.ops import _kernels
+
+        _kernels.load_libraries()
+        self._build()
+        with self._lock:
+            training = self.model.training
+            self.model.eval()
+            x = torch.zeros((batch, self.image, self.image, 3),
+                            device=self.dev).permute(0, 3, 1, 2)
+            out = self.model(x)
+            torch.autograd.grad(out.float().sum(),
+                                [p for p in self.model.parameters() if p.requires_grad])
+            torch.cuda.synchronize(self.dev)
+            self.model.train(training)
+        self._warm = True
 
     def load_fold(self, path: str) -> None:
         """Put the weights and BatchNorm statistics of the checkpoint at
@@ -475,14 +519,21 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     random arm; `async_pipeline`, `pipeline_actors`, `pipeline_queue_depth`,
     `watchdog`, `divergence_retries`, `compile_cache` and `telemetry_spec`
     are the runtime seams of the module docstring; `host_step` is
-    ``train_and_eval``'s, for phase 1's host-fed training.  The unported options
-    raise."""
+    ``train_and_eval``'s, for phase 1's host-fed training; `work_queue` and
+    `fleet_transport` are the fleet tier of the module docstring.  The
+    unported options raise."""
+    if work_queue is not None and fold_stack not in (None, 0, "0"):
+        # lease units are per fold: a stacked group would advance folds
+        # this host does not own
+        logger.warning("workqueue: fold stacking forced off - work units are per fold")
+        fold_stack = 0
     if fold_stack not in (None, 0, "0"):
         _refuse(f"fold stacking (fold_stack={fold_stack!r})", "10b")
-    if work_queue is not None:
-        _refuse("the elastic work queue", "13")
-    if fleet_transport is not None:
-        _refuse("the fleet transport", "13")
+    if fleet_transport is not None and work_queue is not None:
+        raise ValueError(
+            "fleet_transport and work_queue are mutually exclusive: the round transport "
+            "scatters ask ROUNDS across actor hosts, the lease workqueue scatters whole FOLDS "
+            "across peer searches")
     dev = resolve_device(device)
     # flag-setting SIGTERM/SIGUSR1 handlers (here, on the caller's thread:
     # the overlapped trainer thread cannot install them)
@@ -500,6 +551,17 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     pipeline_on = resolve_async_pipeline(async_pipeline)
     pipeline_actors = max(1, int(pipeline_actors))
     pipeline_queue_depth = max(0, int(pipeline_queue_depth))
+    if fleet_transport is not None and not pipeline_on:
+        # the learner schedule IS the pipeline schedule (ask horizon,
+        # reorder buffer, id-order tells): rounds just dispatch to actor
+        # hosts instead of actor threads
+        logger.info("fleet transport: async pipeline forced ON (the learner's round schedule "
+                    "is the pipeline schedule)")
+        pipeline_on = True
+    if pipeline_on and work_queue is not None:
+        logger.warning("workqueue: async pipeline forced off - the lease queue already "
+                       "scatters folds across hosts")
+        pipeline_on = False
     wd = resolve_watchdog(watchdog)
     fold_quality_floor = resolve_quality_floor(fold_quality_floor, num_class(conf["dataset"]))
     os.makedirs(save_dir, exist_ok=True)
@@ -519,11 +581,20 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     trials_path = os.path.join(save_dir, "search_trials.json")
     trials_log: dict = {}
     if resume and os.path.exists(trials_path):
-        with open(trials_path) as fh:
-            trials_log = json.load(fh)
+        trials_log = fsfault.load_json(trials_path)
+
+    def _fold_trials_path(fold: int) -> str:
+        """Per-fold trial log (work-queue mode): one writer per lease, so
+        concurrent hosts can never clobber each other's folds."""
+        return os.path.join(save_dir, f"search_trials.fold{fold}.json")
+
+    def _load_fold_trials(fold: int) -> list:
+        if work_queue is not None and os.path.exists(_fold_trials_path(fold)):
+            return fsfault.load_json(_fold_trials_path(fold))
+        return trials_log.get(str(fold), [])
 
     def _fold_searched(fold: int) -> bool:
-        return len(trials_log.get(str(fold), [])) >= num_search
+        return len(_load_fold_trials(fold)) >= num_search
 
     trial_batch = max(1, int(trial_batch))
     result["trial_batch"] = trial_batch
@@ -531,7 +602,7 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
         result["warm_start"] = {
             "base_num_search": base_num_search, "topup_trials": topup_trials,
             "num_search": num_search,
-            "resumed_trials_per_fold": {str(f): len(trials_log.get(str(f), []))
+            "resumed_trials_per_fold": {str(f): len(_load_fold_trials(f))
                                         for f in fold_list}}
     # the pipeline's threads dispatch under one lock (core/watchdog.py);
     # disarmed for serial runs, so one process can run both in turn
@@ -556,6 +627,18 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     train_kw = dict(ckpt_keep=ckpt_keep, device=dev, draw_source=draw_source,
                     device_cache=device_cache, steps_per_dispatch=steps_per_dispatch,
                     divergence_retries=divergence_retries, watchdog=wd, host_step=host_step)
+
+    def _lease_heartbeat(unit: str):
+        """Dispatch-boundary callback for the trainer and the trial loop:
+        renew the unit's lease and this host's liveness beat."""
+        if work_queue is None:
+            return None
+
+        def beat():
+            work_queue.renew(unit)
+            work_queue.beat_host()
+        return beat
+
     fold_baselines: dict[int, float] = {}
     excluded_folds: list[int] = []
     # phase-1 training walls on one ledger, mirrored into the registry
@@ -569,16 +652,19 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     fold_paths = [_fold_ckpt_path(save_dir, conf, f, cv_ratio) for f in range(cv_num)]
     phase1_epochs_eff = int(no_aug_conf["epoch"])
 
-    def _train(fold: int, path: str, train_seed: int) -> None:
+    def _train(fold: int, path: str, train_seed: int, heartbeat=None) -> None:
         with phase1_sw.phase(f"phase1_fold{fold}"):
             if train_fold_fn is not None:
                 _call_train_fold_fn(train_fold_fn, no_aug_conf, fold, path, train_seed)
             else:
                 train_and_eval(no_aug_conf, dataroot, test_ratio=cv_ratio, cv_fold=fold,
-                               save_path=path, metric="last", seed=train_seed, **train_kw)
+                               save_path=path, metric="last", seed=train_seed,
+                               heartbeat=heartbeat, **train_kw)
 
-    def _phase1_fold(fold: int) -> None:
-        """Train the fold if needed, then the quality gate (and its retrains)."""
+    def _phase1_fold(fold: int, heartbeat=None) -> None:
+        """Train the fold if needed, then the quality gate (and its retrains).
+        `heartbeat` (work-queue mode) renews the fold's lease at every
+        trainer dispatch boundary."""
         path = fold_paths[fold]
         if _fold_searched(fold):
             # trials merged from another run: nothing left to train, but a
@@ -600,7 +686,7 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
         meta = read_metadata(path)
         if not (resume and meta and meta.get("epoch", 0) >= phase1_epochs_eff):
             logger.info("phase1: training fold %d -> %s", fold, path)
-            _train(fold, path, seed)
+            _train(fold, path, seed, heartbeat)
         else:
             logger.info("phase1: fold %d already trained (epoch %d)", fold, meta["epoch"])
         if fold_quality_floor is None:
@@ -614,7 +700,7 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                            "fresh seed (try %d/%d)", fold, acc, fold_quality_floor, tries,
                            fold_retrain_tries)
             _remove_ckpt(alt)
-            _train(fold, alt, seed + 1009 * tries + fold)
+            _train(fold, alt, seed + 1009 * tries + fold, heartbeat)
             alt_acc = evaluator.baseline(fold, alt)
             if alt_acc > acc:
                 _replace_ckpt(alt, path)
@@ -631,10 +717,53 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
             logger.info("phase1: fold %d baseline %.3f (floor %.3f) ok", fold, acc,
                         fold_quality_floor)
 
+    def _workqueue_phase(units: dict[int, str], run) -> None:
+        """Claim-and-run `units` ({fold: unit_id}) until EVERY unit is done
+        (by this host or any other).  Passes that find nothing claimable
+        wait out a fraction of the TTL — a stale lease (dead or wedged
+        owner) is then reclaimed and the unit finished here, resuming from
+        the shared checkpoint chain / trial log.  A LeaseLostError mid-work
+        abandons the unit to its new owner (this host was presumed dead;
+        its writes stay safe — same seeds, same atomic chain)."""
+        from fast_autoaugment_tpu_torch.launch.workqueue import LeaseLostError
+
+        pending = dict(units)
+        # the process's start on the card, before its first claim
+        evaluator.warm_up(int(conf["batch"]))
+        while pending:
+            progress = False
+            for fold, unit in sorted(pending.items()):
+                if work_queue.is_done(unit):
+                    del pending[fold]
+                    progress = True
+                    continue
+                if not work_queue.claim(unit):
+                    continue
+                work_queue.beat_host()
+                try:
+                    info = run(fold, unit)
+                    # release() verifies the fencing token at post time —
+                    # a robbed host raises here instead of clobbering the
+                    # reclaimer's completion record
+                    work_queue.release(unit, info=info)
+                except LeaseLostError as e:
+                    logger.warning("workqueue: lost the lease on %s mid-work (%s) - "
+                                   "abandoning it to its new owner", unit, e)
+                    continue
+                del pending[fold]
+                progress = True
+            if pending and not progress:
+                work_queue.beat_host()
+                # TTL-bounded claim poll: the loop's exit is queue completion
+                # by ANY host, and each wait is capped well under the lease
+                # TTL so reclaims are never starved
+                time.sleep(max(0.2, min(5.0, work_queue.lease_ttl / 4.0)))  # robust: allow
+        work_queue.beat_host()
+
     # phase overlap (async pipeline): phase-1 training moves onto a trainer
     # thread inside phase 2 below; fold k's trials start when its gate
     # clears, while fold k+1 trains
-    overlap_mode = pipeline_on and until >= 2
+    overlap_mode = pipeline_on and work_queue is None and until >= 2
     phase1_t0 = t0
 
     def _stamp_phase1(end_time: float | None = None) -> None:
@@ -648,16 +777,38 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     if overlap_mode:
         logger.info("async pipeline: overlapping phase-1 fold training with phase-2 search "
                     "(each fold hands over when its gate clears)")
-    else:
+    elif work_queue is None:
         with record_function("search.phase1"):
             for fold in range(cv_num):
                 if fold in fold_list:
                     _phase1_fold(fold)
         _stamp_phase1()
+    else:
+        work_queue.beat_host()
+
+        def _run_p1(fold, unit):
+            _phase1_fold(fold, heartbeat=_lease_heartbeat(unit))
+            return {"baseline": fold_baselines.get(fold), "excluded": fold in excluded_folds}
+
+        with record_function("search.phase1"):
+            _workqueue_phase({f: f"p1-fold{f}" for f in fold_list}, _run_p1)
+        # folds finished by other hosts: adopt their gate verdicts from the
+        # done markers (the ranking below must honour every exclusion,
+        # wherever the gate ran)
+        for fold in fold_list:
+            info = work_queue.done_info(f"p1-fold{fold}") or {}
+            if info.get("baseline") is not None and fold not in fold_baselines:
+                fold_baselines[fold] = float(info["baseline"])
+            if info.get("excluded") and fold not in excluded_folds:
+                excluded_folds.append(fold)
+        _stamp_phase1()
     if until < 2:
         result["final_policy_set"] = []
         result["compile_cache"] = compile_cache_stats()
         result["elapsed_total"] = time.time() - t_start
+        if fleet_transport is not None:
+            # no rounds will ever be published: let actor hosts drain
+            fleet_transport.mark_search_done({"until": until})
         return result
 
     # ---------------- phase 2: TPE search per fold --------------------
@@ -673,7 +824,11 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
 
     def _persist_trials(fold: int, fold_trials: list) -> None:
         trials_log[str(fold)] = fold_trials
-        write_json_atomic(trials_path, trials_log)
+        if work_queue is not None:
+            # one writer per lease: the fold file, not the shared log
+            write_json_atomic(_fold_trials_path(fold), fold_trials)
+        else:
+            write_json_atomic(trials_path, trials_log)
 
     def _quarantine(tpe, fold: int, lo: int, hi: int, exc: BaseException) -> float:
         """Log failed trial(s); the reward told to the TPE is the worst
@@ -701,7 +856,10 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
 
     def _phase2_fold_async(fold: int, path: str, tpe, key_fold, fold_trials: list) -> None:
         """One fold's trial budget through the actor/learner pipeline; the
-        trial log is appended in trial-id order."""
+        trial log is appended in trial-id order.  Under the fleet transport
+        the rounds go to actor hosts: the learner publishes them and polls
+        the posted results, and runs no TTA itself (the graph census belongs
+        to the actors)."""
         replay_trial_log(tpe, fold_trials, trial_batch, num_search,
                          max_inflight=pipeline_actors + pipeline_queue_depth)
 
@@ -710,6 +868,16 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                            "QUARANTINED with worst-observed reward %.4f; the search continues",
                            fold, lo, hi - 1, _failure_text(exc), worst)
 
+        backend = heartbeat = None
+        on_first_ok = lambda: _census_first(trial_batch > 1)  # noqa: E731
+        if fleet_transport is not None:
+            # key_seed reproduces this fold's key on any host (key_fold is
+            # the key of seed * 77 + fold)
+            backend = fleet_transport.learner_backend(
+                fold, key_seed=seed * 77 + fold, trial_batch=trial_batch,
+                num_policy=num_policy, num_op=num_op)
+            heartbeat = fleet_transport.beat
+            on_first_ok = None
         trace.begin_segment(f"p2-fold{fold}")
         try:
             stats = run_fold_pipeline(
@@ -717,29 +885,32 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
                 trial_batch=trial_batch, actors=pipeline_actors,
                 queue_depth=pipeline_queue_depth, num_policy=num_policy, num_op=num_op,
                 persist=lambda: _persist_trials(fold, fold_trials),
-                record_quarantine=_record_quarantine,
-                on_first_ok=lambda: _census_first(trial_batch > 1),
-                should_stop=lambda: pipeline_stop_cell[0] if pipeline_stop_cell else None)
+                record_quarantine=_record_quarantine, on_first_ok=on_first_ok,
+                should_stop=lambda: pipeline_stop_cell[0] if pipeline_stop_cell else None,
+                heartbeat=heartbeat, backend=backend)
         finally:
             trace.end_segment()
         pipeline_fold_stats.append(dict(stats, fold=fold))
 
-    def _phase2_fold(fold: int) -> None:
+    def _phase2_fold(fold: int, heartbeat=None) -> dict | None:
+        """One fold's full TPE trial budget.  `heartbeat` (work-queue mode)
+        renews the fold's lease after every persisted trial or round."""
         if fold in excluded_folds:
             logger.info("phase2: fold %d excluded by the quality gate", fold)
-            return
+            return None
         if _fold_searched(fold):
             logger.info("phase2: fold %d trials already complete", fold)
-            return
+            trials_log[str(fold)] = _load_fold_trials(fold)
+            return None
         path = fold_paths[fold]
         evaluator.load_fold(path)  # a missing or corrupt checkpoint fails the search
         tpe = TPE(space, seed=seed * 1000 + fold, n_startup=min(20, max(5, num_search // 4)))
         key_fold = prng_key(seed * 77 + fold)
-        fold_trials = list(trials_log.get(str(fold), []))
+        fold_trials = list(_load_fold_trials(fold))
         if pipeline_on:
             # the resume replays the ask/tell interleaving through the ledger
             _phase2_fold_async(fold, path, tpe, key_fold, fold_trials)
-            return
+            return {"num_trials": len(fold_trials)}
         for entry in fold_trials:  # resume (a third element marks a quarantined trial)
             tpe.tell(entry[0], entry[1])
 
@@ -766,6 +937,8 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
             fold_trials.append((proposal, reward) if failure is None
                                else (proposal, reward, failure))
             _persist_trials(fold, fold_trials)
+            if heartbeat is not None:
+                heartbeat()
             if trial_idx % 10 == 0 or trial_idx == num_search - 1:
                 logger.info("phase2 fold %d trial %d/%d: top1_valid=%.4f best=%.4f", fold,
                             trial_idx, num_search, reward, tpe.best[1])
@@ -804,27 +977,49 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
             fold_trials.extend((p, r) if failure is None else (p, r, failure)
                                for p, r in zip(proposals, rewards))
             _persist_trials(fold, fold_trials)
+            if heartbeat is not None:
+                heartbeat()
             logger.info("phase2 fold %d trials %d-%d/%d (batch of %d): best_in_batch=%.4f "
                         "best=%.4f", fold, t_base, t_base + k_eff - 1, num_search, k_eff,
                         max(rewards), tpe.best[1])
+        return {"num_trials": len(fold_trials)}
 
     with record_function("search.phase2"):
         if overlap_mode:
             def _p1_overlap(fold: int) -> None:
                 try:
-                    _phase1_fold(fold)
+                    _phase1_fold(fold, heartbeat=(fleet_transport.beat
+                                                  if fleet_transport is not None else None))
                 except BaseException as e:
                     # the in-flight learner stops at its next round boundary
                     pipeline_stop_cell.append(e)
                     raise
+                if fleet_transport is not None and fold not in excluded_folds \
+                        and os.path.exists(fold_paths[fold]):
+                    # the gate-cleared checkpoint goes to the fleet at once
+                    # (after its atomic rename): fold k's rounds go to actor
+                    # hosts while fold k+1 still trains here
+                    fleet_transport.publish_checkpoint(fold, fold_paths[fold])
 
             timeline = run_overlapped_phases(fold_list, _p1_overlap, _phase2_fold)
             pipeline_overlap_timeline.update(timeline)
             p1_ends = [v["end"] for v in timeline["phase1"].values()]
             _stamp_phase1(max(p1_ends) if p1_ends else None)
-        else:
+        elif work_queue is None:
             for fold in fold_list:
                 _phase2_fold(fold)
+        else:
+            def _run_p2(fold, unit):
+                return _phase2_fold(fold, heartbeat=_lease_heartbeat(unit)) or {}
+
+            _workqueue_phase({f: f"p2-fold{f}" for f in fold_list if f not in excluded_folds},
+                             _run_p2)
+            # every fold's trials (finished here or by other hosts) merge
+            # into the in-memory log so the ranking below sees all of them
+            for fold in fold_list:
+                ft = _load_fold_trials(fold)
+                if ft:
+                    trials_log[str(fold)] = ft
 
     # top-N per fold from the trial log (folds run here and folds resumed
     # from disk alike, search.py:253-259); only complete searches count
@@ -963,12 +1158,96 @@ def search_policies(conf, dataroot: str, save_dir: str, *, cv_num: int = 5,
     result["resilience"]["watchdog"] = wd.stats()
     result["watchdog_fires"] = wd.fires
     result["compile_cache"] = compile_cache_stats()
+    if work_queue is not None:
+        # the degraded-completion evidence any surviving host can rebuild
+        # from the shared queue
+        work_queue.beat_host()  # the census must not see a stale self
+        _stamp_fleet(result, work_queue.accounting(), "unit(s) reclaimed and finished by "
+                                                      "survivors")
+    if fleet_transport is not None:
+        # any round finished at lease attempt > 1 was reclaimed from a dead
+        # or preempted actor host; the trial log itself is the single-host
+        # run's already — this stamp says how it got there
+        fleet_transport.beat()
+        _stamp_fleet(result, fleet_transport.accounting(), "round unit(s) reclaimed and "
+                                                           "finished by surviving actors")
+        result["fleet_transport"] = {"root": fleet_transport.root,
+                                     "owner": fleet_transport.owner,
+                                     "window": pipeline_actors + pipeline_queue_depth}
     write_json_atomic(os.path.join(save_dir, "final_policy.json"), final_policy_set)
+    if fleet_transport is not None:
+        # terminal marker AFTER the final artifacts land: actor hosts drain
+        # their claim poll and exit 0
+        fleet_transport.mark_search_done({"num_sub_policies": len(final_policy_set)})
     logger.info("search done: %d sub-policies; phase1 %.1f device-s, phase2 %.1f device-s on "
                 "%s", len(final_policy_set), result["device_secs_phase1"],
                 result["device_secs_phase2"], result["backend"])
     result["elapsed_total"] = time.time() - t_start
     return result
+
+
+def _stamp_fleet(result: dict, acct: dict, what: str) -> None:
+    """The work queue's or the round transport's accounting into `result`."""
+    result["resilience"]["fleet"] = acct
+    result["degraded"] = acct["degraded"]
+    result["lost_hosts"] = acct["lost_hosts"]
+    result["reclaimed_units"] = [r["unit"] for r in acct["reclaimed_units"]]
+    if acct["degraded"]:
+        logger.warning("search completed DEGRADED: lost_hosts=%s, %d %s", acct["lost_hosts"],
+                       acct["num_reclaimed_units"], what)
+
+
+def search_actor(conf, dataroot: str, save_dir: str, fleet_transport, *, cv_num: int = 5,
+                 cv_ratio: float = 0.4, num_policy: int = 5, num_op: int = 2,
+                 trial_batch: int = 1, seed: int = 0, aug_dispatch: str = "exact",
+                 aug_groups: int = 8, watchdog="off", compile_cache: str = "off",
+                 telemetry_spec: str = "off", poll_sec: float = 0.5,
+                 ckpt_timeout: float = 900.0, device="cuda", draw_source=None) -> dict:
+    """ACTOR-host entry of the fleet search (``search_cli --search-role
+    actor``): no training and no TPE — the ``_FoldEval`` TTA machinery (its
+    graphed TTA step on the card) in a claim/evaluate/post loop against the
+    learner's published rounds (``search/pipeline.py run_fleet_actor``).
+
+    The geometry arguments (`trial_batch`, `num_policy`, `num_op`,
+    `aug_dispatch`, ...) must match the learner's: a payload mismatch raises
+    instead of quarantining every round.  `save_dir` is the SHARED artifact
+    directory the learner writes fold checkpoints into; the transport's
+    published digests gate loading.  `seed` is accepted for the learner's
+    flags; each round carries its own key seed.  Returns the actor's
+    accounting (rounds evaluated and failed, leases lost, units reclaimed
+    from dead peers) once the learner marks the search done."""
+    dev = resolve_device(device)
+    install_signal_handlers()
+    configure_compile_cache(compile_cache)
+    telemetry.configure_telemetry(telemetry_spec)
+    wd = resolve_watchdog(watchdog)
+    evaluator = _FoldEval(conf, dataroot, num_policy=num_policy, num_op=num_op,
+                          cv_ratio=cv_ratio, trial_batch=trial_batch, aug_dispatch=aug_dispatch,
+                          aug_groups=aug_groups, device=dev,
+                          draw_source=draw_source or PhiloxDraws(), watchdog=wd)
+
+    def _fold_path(fold: int) -> str:
+        if not 0 <= int(fold) < cv_num:
+            raise ValueError(f"published round names fold {fold} outside this actor's "
+                             f"cv_num={cv_num} - launch actors with the learner's flags")
+        return _fold_ckpt_path(save_dir, conf, int(fold), cv_ratio)
+
+    # the process's start on the card before its first claim
+    evaluator.warm_up(int(conf["batch"]))
+    logger.info("fleet actor %s: serving rounds from %s (save_dir %s)",
+                fleet_transport.owner, fleet_transport.root, save_dir)
+    stats = run_fleet_actor(evaluator, fleet_transport, _fold_path,
+                            trial_batch=max(1, int(trial_batch)), num_policy=num_policy,
+                            num_op=num_op, poll_sec=poll_sec, ckpt_timeout=ckpt_timeout)
+    stats["watchdog"] = wd.stats()
+    stats["compile_cache"] = compile_cache_stats()
+    stats["tta_executables"] = (executable_census(evaluator.tta_step_batch if trial_batch > 1
+                                                  else evaluator.tta_step)
+                                if evaluator._built else None)
+    logger.info("fleet actor %s: done - %d round(s) evaluated, %d failed, %d lease(s) lost, "
+                "%d reclaimed", fleet_transport.owner, stats["rounds_ok"], stats["rounds_err"],
+                stats["lease_lost"], len(stats["reclaimed_units"]))
+    return stats
 
 
 def audit_sub_policies(evaluator: _FoldEval, policy_set: list, fold_paths: list[str], *,

@@ -1,6 +1,5 @@
 """Async actor/learner search pipeline: TPE math overlapped with the TTA
-dispatches (the port's copy of ``fast_autoaugment_tpu/search/pipeline.py``,
-without the fleet transport).
+dispatches (the port's copy of ``fast_autoaugment_tpu/search/pipeline.py``).
 
 One fold's trial budget runs as a streaming ask-tell service:
 
@@ -27,10 +26,22 @@ actors reproduce the log of one actor with the same window.
 thread) with phase-2 search: fold k's trials dispatch while fold k+1
 trains.  :class:`DispatchTrace` records each dispatch's window, and
 ``search_result.json`` stamps its summary under ``pipeline``.
+
+:class:`FleetTransport` takes the candidate queue across hosts: a LEARNER
+host publishes each ask round as a leased work unit of
+``launch/workqueue.py`` (:class:`_FleetRoundBackend`, the learner loop
+unchanged) and ACTOR hosts (:func:`run_fleet_actor`) claim rounds, rebuild
+their policy tensors and keys from the payload (:func:`_build_round`; the
+keys through the draw source, K7 on the card), run the TTA evaluations on
+the published fold checkpoint and post the rewards back.  A round's
+rewards depend only on (checkpoint, proposals, id-derived keys), so any
+actor computes the same answer, and a SIGKILLed actor's round, reclaimed
+through its stale lease, leaves the trial log unchanged.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -49,7 +60,10 @@ from fast_autoaugment_tpu_torch.core.telemetry import wall
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
 
 __all__ = ["DispatchTrace", "replay_trial_log", "run_fold_pipeline",
-           "run_overlapped_phases", "resolve_async_pipeline"]
+           "run_overlapped_phases", "resolve_async_pipeline",
+           "FleetTransport", "RemoteEvalError", "run_fleet_actor",
+           "resolve_search_role", "SEARCH_ROLE_ENV_VAR",
+           "FLEET_TRANSPORT_ENV_VAR"]
 
 logger = get_logger("faa_torch.pipeline")
 
@@ -86,6 +100,35 @@ def resolve_async_pipeline(spec) -> bool:
     if s in ("on", "1", "true"):
         return True
     raise ValueError(f"async_pipeline must be 'off' or 'on', got {spec!r}")
+
+
+#: per-host role export for fleet-search launches (the fleet launcher's
+#: ``--roles`` writes it, ``search_cli --search-role auto`` reads it —
+#: the same launcher/worker env handoff as FAA_HOST_ID/FAA_ATTEMPT)
+SEARCH_ROLE_ENV_VAR = "FAA_SEARCH_ROLE"
+#: shared transport-dir handoff (the fleet launcher's
+#: ``--fleet-transport`` exports it, mirroring FAA_COMPILE_CACHE /
+#: FAA_TELEMETRY — every host launch AND retry inherits it)
+FLEET_TRANSPORT_ENV_VAR = "FAA_FLEET_TRANSPORT"
+
+_SEARCH_ROLES = ("learner", "actor")
+
+
+def resolve_search_role(spec: str | None) -> str:
+    """``--search-role {auto,learner,actor}`` to a concrete role.
+    ``auto`` (or None) reads :data:`SEARCH_ROLE_ENV_VAR` and defaults
+    to ``learner`` — a plain single-host launch is a learner.  Unknown
+    roles raise: a typo'd role must not silently train."""
+    s = ("auto" if spec is None else str(spec)).strip().lower()
+    if s == "auto":
+        s = os.environ.get(SEARCH_ROLE_ENV_VAR, "").strip().lower() \
+            or "learner"
+    if s not in _SEARCH_ROLES:
+        raise ValueError(
+            f"search role must be one of {('auto',) + _SEARCH_ROLES}, "
+            f"got {spec!r} (env {SEARCH_ROLE_ENV_VAR}="
+            f"{os.environ.get(SEARCH_ROLE_ENV_VAR)!r})")
+    return s
 
 
 class DispatchTrace:
@@ -274,8 +317,18 @@ def _build_round(idx, ids, proposals, *, trial_batch, num_policy, num_op,
     return _Round(idx, list(ids), list(proposals), policies_t, keys)
 
 
+class RemoteEvalError(RuntimeError):
+    """A fleet ACTOR host's TTA evaluation failed; the learner rebuilds
+    the failure from the reward-return payload.  ``str()`` carries the
+    actor's already-formatted ``"Type: message"`` text, so quarantine
+    records match the in-process scheduler's byte for byte."""
+
+
 def _failure_text(exc: BaseException) -> str:
-    """The trial log's quarantine error text for a failed evaluation."""
+    """The trial log's quarantine error text for a failed evaluation —
+    remote failures arrive pre-formatted by the actor host."""
+    if isinstance(exc, RemoteEvalError):
+        return str(exc)
     return f"{type(exc).__name__}: {exc}"
 
 
@@ -405,6 +458,7 @@ def run_fold_pipeline(
     on_first_ok: Callable[[], None] | None = None,
     should_stop: Callable[[], BaseException | None] | None = None,
     heartbeat: Callable[[], None] | None = None,
+    backend=None,
 ) -> dict:
     """One fold's full trial budget through the actor/learner pipeline.
 
@@ -428,6 +482,14 @@ def run_fold_pipeline(
     failures through it); SIGTERM/SIGUSR1 preemption is polled
     directly.
 
+    `backend` selects the dispatch plane: None (default) builds the
+    in-process :class:`_ThreadActorBackend` over `actors` device
+    threads; a :class:`_FleetRoundBackend` routes the same rounds to
+    ACTOR HOSTS over the shared-directory transport instead.  The
+    learner loop — ask horizon, reorder buffer, id-order tells,
+    persistence — is identical either way, which is why an N-host
+    fleet reproduces the single-host trial log bit for bit.
+
     Returns accounting: rounds processed, trials appended, tell
     reorders observed, and the actor/queue geometry."""
     trial_batch = max(1, int(trial_batch))
@@ -435,10 +497,11 @@ def run_fold_pipeline(
     queue_depth = max(0, int(queue_depth))
     max_inflight = actors + queue_depth
 
-    backend = _ThreadActorBackend(
-        evaluator, fold, path, actors=actors,
-        trial_batch=trial_batch, max_inflight=max_inflight,
-        num_policy=num_policy, num_op=num_op, key_fold=key_fold)
+    if backend is None:
+        backend = _ThreadActorBackend(
+            evaluator, fold, path, actors=actors,
+            trial_batch=trial_batch, max_inflight=max_inflight,
+            num_policy=num_policy, num_op=num_op, key_fold=key_fold)
 
     # ---------------- learner (the calling thread) --------------------
     # replayed-pending trials (the rounds the uninterrupted run had in
@@ -581,6 +644,461 @@ def run_fold_pipeline(
         "trials": trials_appended,
         "tell_reorders": tell_reorders + tpe.tell_reorders,
     }
+
+
+class FleetTransport:
+    """Cross-host round transport for the fleet search: the in-process
+    candidate queue as shared-directory plumbing (the Podracer/MPMD shape
+    of PAPERS.md: a learner host drives the proposal ledger while actor
+    hosts stream the TTA evaluations).
+
+    The LEARNER host publishes each ask round as a leased work unit
+    (trial ids + proposals — a few hundred bytes of JSON); ACTOR hosts
+    claim rounds through the lease protocol of ``launch/workqueue.py``,
+    rebuild the policy tensors and id-derived keys locally
+    (:func:`_build_round` is a pure function of the payload), run the
+    shared ``_FoldEval`` TTA evaluations against the published
+    gate-cleared fold checkpoint, and post rewards back as done-marker
+    ``info`` payloads.  Because every reward is a pure function of
+    (checkpoint digest, proposals, id-derived keys), ANY actor computes
+    the same answer — which is what lets the lease TTL and the steal
+    fence reclaim a SIGKILLed actor's round and still reproduce the
+    single-host artifacts bit for bit.
+
+    Layout under ``root`` (a directory every host mounts — the same
+    assumption the shared ``save_dir`` already makes)::
+
+        work/p2r-f<fold>-t<t_base>.json   round payloads (the claim menu)
+        leases/ done/ hosts/              the lease protocol
+        ckpt/fold<k>.json                 checkpoint-published markers
+        search_done.json                  the learner's terminal marker
+
+    Round units are keyed by ``t_base`` (the round's first trial id),
+    which is stable across learner resumes — a resumed learner
+    republishes byte-identical payloads onto the same units and adopts
+    any results actors posted while it was down.  Journal evidence:
+    typed ``round`` events (``publish``/``claim``/``return``/``apply``)
+    carry the transport latencies."""
+
+    UNIT_PREFIX = "p2r-"
+
+    def __init__(self, root: str, owner: str, *,
+                 lease_ttl: float | None = None, role: str | None = None):
+        from fast_autoaugment_tpu_torch.launch.workqueue import (
+            DEFAULT_LEASE_TTL_SEC,
+            WorkQueue,
+        )
+
+        self.wq = WorkQueue(
+            root, owner,
+            lease_ttl=DEFAULT_LEASE_TTL_SEC if lease_ttl is None
+            else float(lease_ttl))
+        self.root = self.wq.root
+        self.owner = self.wq.owner
+        self.role = role
+        self._ckpt_dir = os.path.join(self.root, "ckpt")
+        os.makedirs(self._ckpt_dir, exist_ok=True)
+
+    # ------------------------------------------------ identity/liveness
+    def beat(self, extra: dict | None = None) -> None:
+        """Host liveness beat, stamped with this host's fleet-search
+        role."""
+        rec = dict(extra or {})
+        if self.role:
+            rec.setdefault("role", self.role)
+        self.wq.beat_host(rec)
+
+    def mark_host_done(self, info: dict | None = None) -> None:
+        rec = dict(info or {})
+        if self.role:
+            rec.setdefault("role", self.role)
+        self.wq.mark_host_done(rec)
+
+    def accounting(self) -> dict:
+        return self.wq.accounting()
+
+    # ------------------------------------------------------- round units
+    @classmethod
+    def round_unit(cls, fold: int, t_base: int) -> str:
+        """Unit id for the round whose first trial id is `t_base` —
+        trial-id keyed, so resumes can never collide two different
+        rounds onto one unit (round indices restart at 0 per process;
+        trial ids never do)."""
+        return f"{cls.UNIT_PREFIX}f{int(fold)}-t{int(t_base):06d}"
+
+    def publish_round(self, fold: int, rnd: _Round, *, key_seed: int,
+                      trial_batch: int, num_policy: int,
+                      num_op: int) -> str:
+        """Mint the round's work unit (atomic payload write) — the
+        learner-side cost of handing a round to the fleet is this one
+        write, measured into the ``publish`` journal event."""
+        unit = self.round_unit(fold, rnd.t_base)
+        t0 = telemetry.mono()
+        self.wq.publish_unit(unit, {
+            "fold": int(fold), "round_idx": int(rnd.idx),
+            "t_base": int(rnd.t_base),
+            "ids": [int(t) for t in rnd.ids],
+            "proposals": rnd.proposals,
+            "trial_batch": int(trial_batch),
+            "num_policy": int(num_policy), "num_op": int(num_op),
+            "key_seed": int(key_seed),
+        })
+        telemetry.emit("round", unit, action="publish", fold=int(fold),
+                       round_idx=int(rnd.idx), t_base=int(rnd.t_base),
+                       k=rnd.k_eff,
+                       publish_secs=round(telemetry.mono() - t0, 6))
+        return unit
+
+    def open_rounds(self) -> list[str]:
+        """Published round units with no posted result yet (sorted by
+        fold then t_base — zero-padded ids keep the lexicographic order
+        numeric)."""
+        return self.wq.open_units(self.UNIT_PREFIX)
+
+    def poll_round(self, fold: int, t_base: int):
+        """Learner-side result check: ``None`` while the round is in
+        flight, else ``("ok", rewards)`` or ``("err", RemoteEvalError)``
+        from the done marker an actor posted.  Emits the ``apply``
+        journal event with the return->apply latency and the evaluating
+        host's identity."""
+        unit = self.round_unit(fold, t_base)
+        t0 = telemetry.mono()
+        rec = self.wq.done_record(unit)
+        if rec is None:
+            return None
+        info = rec.get("info") or {}
+        completed = rec.get("completed_at")
+        lat_ms = (round((wall() - float(completed)) * 1e3, 3)
+                  if isinstance(completed, (int, float)) else None)
+        telemetry.emit("round", unit, action="apply", fold=int(fold),
+                       t_base=int(t_base),
+                       poll_secs=round(telemetry.mono() - t0, 6),
+                       return_to_apply_ms=lat_ms,
+                       evaluated_by=rec.get("owner"),
+                       lease_attempt=int(rec.get("attempt", 1)))
+        if "rewards" in info:
+            return ("ok", [float(r) for r in info["rewards"]])
+        return ("err", RemoteEvalError(
+            str(info.get("error")
+                or "actor host evaluation failed (no detail posted)")))
+
+    def post_result(self, unit: str, payload: dict, result: dict) -> None:
+        """Actor-side reward return: release the unit with the rewards
+        (or the failure text) riding the done marker."""
+        self.wq.release(unit, info=result)
+        telemetry.emit("round", unit, action="return",
+                       fold=int(payload.get("fold", -1)),
+                       t_base=int(payload.get("t_base", -1)),
+                       ok="rewards" in result,
+                       eval_secs=result.get("eval_secs"))
+
+    def learner_backend(self, fold: int, *, key_seed: int,
+                        trial_batch: int, num_policy: int, num_op: int):
+        """The dispatch backend :func:`run_fold_pipeline` plugs in to
+        route this fold's rounds over the fleet instead of in-process
+        actor threads."""
+        return _FleetRoundBackend(
+            self, fold, key_seed=key_seed, trial_batch=trial_batch,
+            num_policy=num_policy, num_op=num_op)
+
+    # ------------------------------------------- checkpoint publication
+    def _ckpt_marker(self, fold: int) -> str:
+        return os.path.join(self._ckpt_dir, f"fold{int(fold)}.json")
+
+    def publish_checkpoint(self, fold: int, path: str) -> dict:
+        """Announce a gate-cleared fold checkpoint to the fleet: the
+        trainer host writes the marker (name + sha256 digest from the
+        checkpoint's sidecar) the moment the quality gate clears, after
+        the checkpoint's own atomic rename.  The payload itself already
+        lives in the shared ``save_dir``."""
+        from fast_autoaugment_tpu_torch.core import fsfault
+        from fast_autoaugment_tpu_torch.core.checkpoint import read_metadata
+
+        meta = read_metadata(path) or {}
+        rec = {"fold": int(fold), "name": os.path.basename(path),
+               "digest": meta.get("digest"), "epoch": meta.get("epoch")}
+        fsfault.write_json_atomic(self._ckpt_marker(fold), rec)
+        telemetry.emit("checkpoint", f"fold{int(fold)}", action="publish",
+                       fold=int(fold), digest=rec["digest"])
+        return rec
+
+    def checkpoint_record(self, fold: int) -> dict | None:
+        from fast_autoaugment_tpu_torch.launch.workqueue import _read_json
+
+        return _read_json(self._ckpt_marker(fold))
+
+    def wait_checkpoint(self, fold: int, local_path: str, *,
+                        timeout: float = 900.0, poll_sec: float = 0.5,
+                        should_stop=None) -> dict:
+        """Actor-side: block until the fold's marker exists AND the
+        locally visible sidecar digest matches it (a lagging shared
+        filesystem must never evaluate against a half-synced
+        checkpoint).  Raises ``TimeoutError`` past `timeout` — the
+        actor exits nonzero and its lease-stale rounds go to a
+        survivor with a fresher view."""
+        from fast_autoaugment_tpu_torch.core.checkpoint import read_metadata
+
+        deadline = time.monotonic() + float(timeout)
+        while True:
+            rec = self.checkpoint_record(fold)
+            if rec is not None:
+                meta = read_metadata(local_path) or {}
+                if not rec.get("digest") \
+                        or meta.get("digest") == rec.get("digest"):
+                    return rec
+            if preemption_requested():
+                raise PreemptedError(
+                    f"preempted while waiting for fold {fold}'s published "
+                    "checkpoint")
+            if should_stop is not None:
+                err = should_stop()
+                if err is not None:
+                    raise err
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"fold {fold} checkpoint was not published (or never "
+                    f"matched digest {rec and rec.get('digest')!r} "
+                    f"locally) within {timeout:.0f}s of claiming its round")
+            time.sleep(poll_sec)  # robust: allow — deadline-bounded, preemption-polled publish wait
+
+    # --------------------------------------------------- terminal marker
+    @property
+    def _search_done_path(self) -> str:
+        return os.path.join(self.root, "search_done.json")
+
+    def mark_search_done(self, info: dict | None = None) -> None:
+        """The learner's terminal marker: actor hosts drain their idle
+        poll and exit 0 once it exists and no open rounds remain."""
+        from fast_autoaugment_tpu_torch.core import fsfault
+
+        fsfault.write_json_atomic(self._search_done_path,
+                                  dict(info or {}, done=True))
+        telemetry.emit("mark", "fleet-search", kind="search_done")
+
+    def search_done(self) -> bool:
+        from fast_autoaugment_tpu_torch.launch.workqueue import _read_json
+
+        return _read_json(self._search_done_path) is not None
+
+
+class _FleetRoundBackend:
+    """Learner-side dispatch backend over :class:`FleetTransport`:
+    ``submit`` publishes the round as a leased work unit, ``poll``
+    scans the outstanding rounds' done markers for posted rewards.
+    The learner loop upstream is the thread-backend path's — same ask
+    horizon, same reorder buffer, same id-order tells — so the fleet
+    reproduces the single-host trial log bit for bit when launched
+    with the same ``actors + queue_depth`` window."""
+
+    def __init__(self, transport: FleetTransport, fold: int, *,
+                 key_seed: int, trial_batch: int, num_policy: int,
+                 num_op: int, poll_quantum: float = 0.05):
+        self._transport = transport
+        self._fold = int(fold)
+        self._key_seed = int(key_seed)
+        self._trial_batch = int(trial_batch)
+        self._num_policy, self._num_op = int(num_policy), int(num_op)
+        self._poll_quantum = float(poll_quantum)
+        self._outstanding: dict[int, _Round] = {}
+
+    def submit(self, rnd: _Round) -> None:
+        self._transport.publish_round(
+            self._fold, rnd, key_seed=self._key_seed,
+            trial_batch=self._trial_batch, num_policy=self._num_policy,
+            num_op=self._num_op)
+        self._outstanding[rnd.idx] = rnd
+
+    def poll(self, timeout: float):
+        for idx in sorted(self._outstanding):
+            rnd = self._outstanding[idx]
+            res = self._transport.poll_round(self._fold, rnd.t_base)
+            if res is not None:
+                kind, payload = res
+                return (kind, self._outstanding.pop(idx), payload)
+        # one bounded nap per empty scan (the learner loop re-polls);
+        # the scan itself is a handful of stat/read calls, so the
+        # learner-side cost per round stays far under the ask() wall
+        time.sleep(min(float(timeout), self._poll_quantum))
+        return None
+
+    def shutdown(self, fatal: BaseException | None) -> None:
+        # nothing to tear down: published rounds STAY in the queue — a
+        # resumed learner republishes identical payloads onto the same
+        # t_base-keyed units and adopts whatever results actors posted
+        # while it was down
+        return None
+
+
+def _load_fold_resilient(evaluator, fold: int, path: str, *,
+                         budget_s: float = 60.0) -> None:
+    """Digest-verified checkpoint read with bounded backoff: on a
+    lagging shared filesystem the published marker can match the
+    sidecar while the PAYLOAD is still half-synced (or a read returns
+    transient EIO/stale bytes), so the digest check inside
+    ``load_checkpoint`` raises — treat that as not-yet-visible and
+    retry until the budget, then raise a typed ``TimeoutError`` (the
+    actor's loud-exit contract; its rounds go to a survivor with a
+    fresher view)."""
+    from fast_autoaugment_tpu_torch.core.resilience import CheckpointCorruptError
+
+    deadline = time.monotonic() + float(budget_s)
+    delay = 0.1
+    while True:
+        try:
+            return evaluator.load_fold(path)
+        except (CheckpointCorruptError, OSError) as e:
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"fold {fold} checkpoint at {path} never became "
+                    f"readable/digest-clean within {budget_s:.0f}s "
+                    f"(last error: {type(e).__name__}: {e}) — "
+                    "half-synced shared filesystem?") from e
+            logger.warning(
+                "fleet actor: fold %d checkpoint read failed (%s: %s) "
+                "— retrying in %.2fs (visibility lag)", fold,
+                type(e).__name__, e, delay)
+            time.sleep(delay)  # robust: allow — deadline-bounded visibility-lag retry
+            delay = min(1.0, delay * 2)
+
+
+def run_fleet_actor(evaluator, transport: FleetTransport,
+                    fold_ckpt_path: Callable[[int], str], *,
+                    trial_batch: int = 1, num_policy: int = 5,
+                    num_op: int = 2, poll_sec: float = 0.5,
+                    ckpt_timeout: float = 900.0,
+                    should_stop: Callable[[], BaseException | None] | None
+                    = None) -> dict:
+    """One ACTOR host's service loop: claim published rounds off the
+    transport, evaluate them with the shared ``_FoldEval`` machinery
+    against the published fold checkpoints, post rewards back, repeat
+    until the learner marks the search done.
+
+    Each round is rebuilt by :func:`_build_round` on the evaluator's
+    device with its draw source (``evaluator.draw_source``,
+    ``evaluator.dev``) from ``key_fold = prng_key(key_seed)``: the
+    learner's fold key, ``seed * 77 + fold``; on the card its ``fold_in``
+    is one K7 launch a key.
+
+    Failure contract: a trial-level evaluation failure posts the
+    formatted error (the learner quarantines the round exactly as the
+    in-process scheduler would); ``PreemptedError``/``DispatchHungError``
+    re-raise — the CLI maps them to exit 77, the claimed lease goes
+    stale, and a surviving actor reclaims the round; a ``LeaseLostError``
+    mid-round abandons the unit to its new owner (this host was presumed
+    dead; duplicate evaluation is safe — rewards are deterministic).  A
+    geometry mismatch against the published payload (trial_batch/
+    num_policy/num_op) raises ``ValueError`` immediately: that is a launch
+    configuration error, not a quarantinable trial failure."""
+    from fast_autoaugment_tpu_torch.launch.workqueue import LeaseLostError
+    from fast_autoaugment_tpu_torch.search.tta import prng_key
+    from fast_autoaugment_tpu_torch.utils import faultinject
+
+    trial_batch = max(1, int(trial_batch))
+    fi = faultinject.active_plan()
+    loaded: set[int] = set()
+    folds_seen: set[int] = set()
+    stats = {"rounds_ok": 0, "rounds_err": 0, "lease_lost": 0}
+    transport.beat()
+    while True:
+        if preemption_requested():
+            raise PreemptedError(
+                "fleet actor preempted — claimed leases go stale and "
+                "surviving actors reclaim the in-flight rounds")
+        if should_stop is not None:
+            err = should_stop()
+            if err is not None:
+                raise err
+        unit = payload = None
+        for u in transport.open_rounds():
+            p = transport.wq.unit_payload(u)
+            if p is not None and transport.wq.claim(u):
+                unit, payload = u, p
+                break
+        if unit is None:
+            transport.beat()
+            if transport.search_done():
+                break
+            # TTL-fraction claim poll: the loop's exit is the learner's
+            # search_done marker, and each nap stays well under the lease
+            # TTL so stale-round reclaims are never starved
+            time.sleep(max(0.1, min(poll_sec, transport.wq.lease_ttl / 4.0)))  # robust: allow
+            continue
+        fold = int(payload["fold"])
+        if (int(payload.get("trial_batch", 1)) != trial_batch
+                or int(payload.get("num_policy", num_policy)) != num_policy
+                or int(payload.get("num_op", num_op)) != num_op):
+            raise ValueError(
+                f"fleet-actor geometry mismatch on {unit}: learner "
+                f"published trial_batch={payload.get('trial_batch')} "
+                f"num_policy={payload.get('num_policy')} "
+                f"num_op={payload.get('num_op')}; this actor built "
+                f"{trial_batch}/{num_policy}/{num_op} — launch actors "
+                "with the learner's search flags")
+        lease = transport.wq.read_lease(unit) or {}
+        telemetry.emit("round", unit, action="claim", fold=fold,
+                       t_base=int(payload.get("t_base", -1)),
+                       lease_attempt=int(lease.get("attempt", 1)))
+        try:
+            path = fold_ckpt_path(fold)
+            transport.wait_checkpoint(fold, path, timeout=ckpt_timeout,
+                                      should_stop=should_stop)
+            if fold not in loaded:
+                _load_fold_resilient(evaluator, fold, path,
+                                     budget_s=min(60.0, float(ckpt_timeout)))
+                loaded.add(fold)
+            rnd = _build_round(
+                int(payload.get("round_idx", 0)),
+                [int(t) for t in payload["ids"]],
+                [dict(p) for p in payload["proposals"]],
+                trial_batch=trial_batch, num_policy=num_policy,
+                num_op=num_op, key_fold=prng_key(int(payload["key_seed"])),
+                draw_source=evaluator.draw_source, device=evaluator.dev)
+            transport.wq.renew(unit)
+            t0m = telemetry.mono()
+            rewards = _eval_round(evaluator, fold, path, rnd, trial_batch, fi)
+            t1m = telemetry.mono()
+            transport.wq.renew(unit)
+            # the phase-2 lane evidence with THIS host's identity
+            telemetry.phase_event(f"phase2-fold{fold}", t0m, t1m,
+                                  fold=fold, lane="phase2",
+                                  t_base=int(rnd.t_base))
+            result = {"rewards": [float(r) for r in rewards],
+                      "eval_secs": round(t1m - t0m, 6)}
+        except (PreemptedError, DispatchHungError, TimeoutError):
+            # exit-77 / loud-exit path: the lease goes stale and a
+            # survivor reclaims the round (TimeoutError FIRST — it IS
+            # an OSError subclass and must not read as a trial failure)
+            raise
+        except LeaseLostError as e:
+            stats["lease_lost"] += 1
+            logger.warning(
+                "fleet actor: lost the lease on %s mid-round (%s) — "
+                "abandoning it to its new owner", unit, e)
+            continue
+        except (ArithmeticError, RuntimeError, ValueError, OSError) as e:
+            result = {"error": f"{type(e).__name__}: {e}"}
+        try:
+            transport.post_result(unit, payload, result)
+        except LeaseLostError as e:
+            # the done-marker post was FENCED (epoch/owner moved): this
+            # host was presumed dead and the round reclaimed — the
+            # reclaimer posts the same bytes, so abandon, never clobber
+            stats["lease_lost"] += 1
+            logger.warning(
+                "fleet actor: done-marker post for %s fenced off (%s) "
+                "— abandoning the round to its reclaimer", unit, e)
+            continue
+        folds_seen.add(fold)
+        ok = "rewards" in result
+        stats["rounds_ok" if ok else "rounds_err"] += 1
+        transport.beat()
+        logger.info(
+            "fleet actor %s: %s round %s (fold %d, trials %s)%s",
+            transport.owner, "evaluated" if ok else "FAILED", unit, fold,
+            payload.get("ids"),
+            "" if ok else f" — posted {result['error']!r}")
+    return dict(stats, folds=sorted(folds_seen),
+                reclaimed_units=list(transport.wq.reclaimed_units))
 
 
 def run_overlapped_phases(

@@ -338,13 +338,13 @@ class _GraphedDispatch:
     counter, so the n replays are the n steps without a host value between
     them.  The first call runs one step on a side stream to warm cuDNN,
     cuBLAS, autograd and the kernels' one-time set-up, puts every state
-    tensor and the sums back as they were, and captures (deterministic
-    cuDNN, no autotuning).  The tensors the graph reads (state, cache,
+    tensor and the sums back as they were, calls `beat` (if any) and
+    captures (deterministic cuDNN, no autotuning).  The tensors the graph reads (state, cache,
     policy, key, sums) must be the same objects at every call.  Capture or
     replay failures raise."""
 
-    def __init__(self, run: Callable, capacity: int):
-        self.run, self.capacity = run, capacity
+    def __init__(self, run: Callable, capacity: int, beat: Callable | None = None):
+        self.run, self.capacity, self.beat = run, capacity, beat
         self.graph = None
 
     @staticmethod
@@ -385,14 +385,17 @@ class _GraphedDispatch:
 
     def _capture(self, state, *reads) -> None:
         self.graph, self.tally, _ = _capture_step(state, lambda: self._step(state, *reads),
-                                                  [reads[-1]])
+                                                  [reads[-1]], beat=self.beat)
 
 
-def _capture_step(state: TrainState, step: Callable, extra: list[torch.Tensor]) -> tuple:
+def _capture_step(state: TrainState, step: Callable, extra: list[torch.Tensor],
+                  beat: Callable | None = None) -> tuple:
     """Capture ``step()`` (one train step over static tensors) as a CUDA
     graph: a warm-up call on a side stream (cuDNN's and cuBLAS's plans,
     autograd, the kernels' one-time set-up), every state tensor and `extra`
-    put back as they were, then the capture, under deterministic cuDNN
+    put back as they were, then `beat` (if any) once the warm-up has
+    finished on the card, so a caller's lease is renewed between the two
+    halves of a first dispatch, then the capture, under deterministic cuDNN
     without autotuning whatever the caller's flags, ``thread_local`` (other
     threads, the prefetch worker or the search pipeline's actors, may launch
     and synchronize meanwhile) and under ``capture_guard``.  Returns
@@ -418,6 +421,9 @@ def _capture_step(state: TrainState, step: Callable, extra: list[torch.Tensor]) 
                 t.copy_(v)
         del saved
         side.wait_stream(main)
+        if beat is not None:
+            side.synchronize()
+            beat()
         graph = torch.cuda.CUDAGraph()
         with _kernels.counting_capture() as tally, \
                 torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
@@ -484,7 +490,8 @@ class _GraphedStep:
         self.scalars.copy_(scalars, non_blocking=True)
 
 
-def make_multistep_train_step(body: StepBody, *, steps_per_dispatch: int) -> Callable:
+def make_multistep_train_step(body: StepBody, *, steps_per_dispatch: int,
+                              beat: Callable | None = None) -> Callable:
     """Up to N train steps per dispatch over a device-resident dataset:
     ``fn(state, cache_images, cache_labels, idx [n, B], policy, key,
     sums=None) -> (state, metric_sums)``, ``1 <= n <= N`` (an epoch's
@@ -503,8 +510,9 @@ def make_multistep_train_step(body: StepBody, *, steps_per_dispatch: int) -> Cal
     On ``cuda`` each step is a replay of one CUDA graph of a single step
     (:class:`_GraphedDispatch`), captured at the first call: a dispatch is
     one upload of its rows and n replays, and a call with `sums` None uses a
-    buffer of its own, overwritten by the next call.  On the CPU the n steps
-    run as a loop."""
+    buffer of its own, overwritten by the next call; `beat` (a lease's
+    renewal) runs between the capture's warm-up step and the capture.  On the
+    CPU the n steps run as a loop."""
     n_max = int(steps_per_dispatch)
     if n_max < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1, got {n_max}")
@@ -517,7 +525,7 @@ def make_multistep_train_step(body: StepBody, *, steps_per_dispatch: int) -> Cal
             with torch.no_grad():
                 sums.add_(torch.stack([m[k] for k in METRIC_KEYS]))
 
-    graph = _GraphedDispatch(run, n_max)
+    graph = _GraphedDispatch(run, n_max, beat)
     own: list[torch.Tensor] = []  # the card's sums buffer of calls without `sums`
 
     def multi_fn(state, cache_images, cache_labels, idx, policy, key, sums=None):

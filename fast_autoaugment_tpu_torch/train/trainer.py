@@ -407,7 +407,8 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     eval_kw = dict(num_classes=num_classes, lb_smooth=lb_smooth, preprocess_fn=eval_preprocess)
     if use_cache:
         multi_step = make_multistep_train_step(make_train_step_body(model, optimizer, **step_kw),
-                                               steps_per_dispatch=steps_per_dispatch)
+                                               steps_per_dispatch=steps_per_dispatch,
+                                               beat=heartbeat)
     else:
         make_step = make_train_step if host_step == "eager" else make_graphed_train_step
         train_step = make_step(model, optimizer, **step_kw)

@@ -47,8 +47,15 @@ The serving plane consults these:
     The router's readiness verdict for that replica alternates every P
     health-poll rounds from its first consult on.
 
-The other kinds (``io_error``, ``stale_lease``) belong to seams the port
-does not have yet and are parsed but never consulted.  Pinned specs fire
+The work queue consults this one:
+
+``stale_lease@unit=NAME``
+    Heartbeat renewals of lease unit NAME are silently dropped from the
+    first match on (a wedged heartbeat thread): the stale-lease reclaim
+    path (``launch/workqueue.py``).  It latches.
+
+``io_error`` belongs to a seam the port does not have and is parsed but
+never consulted.  Pinned specs fire
 once per process; every kind that lists it takes an optional
 ``attempt=N`` gate (it fires only when ``FAA_ATTEMPT`` equals N).
 Tests call :func:`reset` after changing ``os.environ['FAA_FAULT']``.
@@ -297,6 +304,21 @@ class FaultPlan:
                     "health-poll round(s) from now on", f["period"])
             return int(f["period"])
         return None
+
+    def lease_stale(self, unit: str) -> bool:
+        """True when heartbeat renewals for `unit` must be dropped.
+        LATCHES: after the first match every later renewal for the unit
+        stays dropped (a wedged heartbeat thread never comes back)."""
+        for f in self.faults:
+            if f["kind"] != "stale_lease" or f["unit"] != unit:
+                continue
+            if not f["fired"]:
+                f["fired"] = True
+                logger.warning(
+                    "faultinject: dropping heartbeats for lease unit %r "
+                    "from now on (stale_lease)", unit)
+            return True
+        return False
 
 
 _plan: FaultPlan | None = None

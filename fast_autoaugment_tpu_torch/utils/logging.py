@@ -1,8 +1,14 @@
 """Logging helpers (the port's copy of ``fast_autoaugment_tpu/utils/logging.py``):
 ``get_logger``, and the append-only JSONL scalar logs ``{tag}_{train,valid,
 test}.jsonl`` that ``train_and_eval`` writes beside a checkpoint
-(:class:`ScalarWriter`, :class:`NullWriter`, :func:`make_writers`).  The
-TensorBoard event writer of the JAX module is not ported."""
+(:class:`ScalarWriter`, :class:`NullWriter`, :func:`make_writers`).
+
+TensorBoard-compatible export: set ``FAA_TB_EVENTS=1`` (or pass ``tb=True``
+to :func:`make_writers`) to also write ``tfevents`` files under
+``<logdir>/tb/<run>_<split>/`` (``utils/tb_events.py``, no tensorboard
+install needed).  Opt-in, because search flows create many short runs whose
+sidecar promotion tracks the fixed JSONL names, not timestamped event
+files."""
 
 from __future__ import annotations
 
@@ -12,7 +18,7 @@ import os
 import sys
 import time
 
-__all__ = ["get_logger", "ScalarWriter", "NullWriter", "make_writers"]
+__all__ = ["get_logger", "ScalarWriter", "NullWriter", "TeeWriter", "make_writers"]
 
 _FORMAT = "[%(asctime)s] [%(name)s] [%(levelname)s] %(message)s"
 
@@ -67,9 +73,41 @@ class NullWriter:
         pass
 
 
-def make_writers(logdir: str | None, tag: str, is_master: bool = True):
+class TeeWriter:
+    """Fan a scalar stream out to several writers (JSONL + tfevents)."""
+
+    def __init__(self, *writers):
+        self._writers = writers
+        self.path = writers[0].path if writers else None
+
+    def add_scalar(self, tag: str, value, step: int):
+        for w in self._writers:
+            w.add_scalar(tag, value, step)
+
+    def flush(self):
+        for w in self._writers:
+            w.flush()
+
+    def close(self):
+        for w in self._writers:
+            w.close()
+
+
+def make_writers(logdir: str | None, tag: str, is_master: bool = True,
+                 tb: bool | None = None):
     """The (train, valid, test) writers of run `tag` under `logdir`; writers
-    that write nothing without a `logdir` or off the master process."""
+    that write nothing without a `logdir` or off the master process.  `tb`
+    adds TensorBoard event files (None: read ``FAA_TB_EVENTS``)."""
     if not is_master or not logdir:
         return NullWriter(), NullWriter(), NullWriter()
-    return tuple(ScalarWriter(logdir, f"{tag}_{split}") for split in ("train", "valid", "test"))
+    if tb is None:
+        tb = os.environ.get("FAA_TB_EVENTS", "0") == "1"
+    writers = []
+    for split in ("train", "valid", "test"):
+        w = ScalarWriter(logdir, f"{tag}_{split}")
+        if tb:
+            from fast_autoaugment_tpu_torch.utils.tb_events import TBEventWriter
+
+            w = TeeWriter(w, TBEventWriter(os.path.join(logdir, "tb", f"{tag}_{split}"), split))
+        writers.append(w)
+    return tuple(writers)

@@ -103,15 +103,16 @@ def _journal_events(mod, directory, **kw):
 
 def test_journal_records_equal_jax(tmp_path):
     mine = _journal_events(T, tmp_path / "port")
-    theirs = _journal_events(JT, tmp_path / "jax", tb_bridge=False)
+    theirs = _journal_events(JT, tmp_path / "jax")
     assert len(mine) == len(theirs) == 5
     for a, b in zip(mine, theirs):
         for rec in (a, b):
             assert rec.pop("t_wall") > 0 and rec.pop("t_mono") > 0
         assert a == b
-    # the file names carry the same identity
-    assert sorted(os.listdir(tmp_path / "port")) == sorted(
-        n for n in os.listdir(tmp_path / "jax") if n.endswith(".jsonl"))
+    # the file names carry the same identity; both journals have their TB
+    # bridge's directory beside the segments
+    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax"))
+    assert "tb" in os.listdir(tmp_path / "port")
 
 
 def test_journal_rotation_and_dispatch_budget(tmp_path):
@@ -119,7 +120,8 @@ def test_journal_rotation_and_dispatch_budget(tmp_path):
                            max_segments=2, dispatch_events_per_sec=3)
     for i in range(20):
         rec.emit("mark", "x", i=i)
-    assert len(rec.segments) == 2 and len(os.listdir(tmp_path)) == 2
+    assert len(rec.segments) == 2
+    assert len([n for n in os.listdir(tmp_path) if n.endswith(".jsonl")]) == 2
     assert [rec.allow_dispatch_event("tta") for _ in range(5)] == [True] * 3 + [False] * 2
     rec.close()
 

@@ -459,18 +459,32 @@ def test_final_policy_and_phase3_match_jax(runs):
     ({"fold_stack": 2}, "item 10b"), ({"fold_stack": "auto"}, "item 10b"),
     ({"async_pipeline": "on"}, None), ({"watchdog": "auto"}, None),
     ({"compile_cache": "cc"}, None), ({"telemetry_spec": "tel"}, None),
-    ({"divergence_retries": 1}, None), ({"work_queue": object()}, "item 13"),
-    ({"fleet_transport": object()}, "item 13")],
-    ids=["fold_stack_2", "fold_stack_auto", "async_pipeline", "watchdog", "compile_cache", "telemetry", "divergence_retries",
-         "work_queue", "fleet_transport"])
+    ({"divergence_retries": 1}, None), ({"work_queue": "wq"}, None),
+    ({"fleet_transport": "tr"}, None), ({"work_queue": "wq", "fold_stack": 2}, None),
+    ({"work_queue": "wq", "fleet_transport": "tr"}, "mutually exclusive")],
+    ids=["fold_stack_2", "fold_stack_auto", "async_pipeline", "watchdog", "compile_cache",
+         "telemetry", "divergence_retries", "work_queue", "fleet_transport",
+         "work_queue_forces_fold_stack_off", "work_queue_and_fleet_transport"])
 def test_search_policies_refuses_what_is_not_ported(tmp_path, kw, item):
     """The unported options raise by their ROADMAP item; the runtime seams
-    (item 12, ported) are taken: the call gets past them to the fold check."""
+    (item 12) and the fleet tier (item 13b (a)) are taken: the call gets past
+    them to the fold check (the work queue forces fold stacking off, as the
+    JAX driver does); the queue with a transport is a contradiction."""
     from fast_autoaugment_tpu_torch.core import compilecache, telemetry
+    from fast_autoaugment_tpu_torch.launch.workqueue import WorkQueue
+    from fast_autoaugment_tpu_torch.search.pipeline import FleetTransport
 
     conf = SC.load_config(CONF)
     kw = {k: str(tmp_path / v) if k in ("compile_cache", "telemetry_spec") else v
           for k, v in kw.items()}
+    if "work_queue" in kw:
+        kw["work_queue"] = WorkQueue(str(tmp_path / kw["work_queue"]), "host0")
+    if "fleet_transport" in kw:
+        kw["fleet_transport"] = FleetTransport(str(tmp_path / kw["fleet_transport"]), "host0")
+    if item == "mutually exclusive":
+        with pytest.raises(ValueError, match=item):
+            D.search_policies(conf, "", str(tmp_path), device="cpu", folds=[7], **kw)
+        return
     if item is None:
         try:
             with pytest.raises(ValueError, match="out of range"):

@@ -704,8 +704,8 @@ def test_chip_smoke_resnet50_constants_match_the_config():
 
 
 def test_training_modules_import_nothing_the_card_lacks():
-    """The training, search, model-zoo, runtime, serving and ImageNet data
-    slices' modules and ``chip_smoke.py`` import in a fresh
+    """The training, search, model-zoo, runtime, serving, ImageNet data and
+    fleet slices' modules and ``chip_smoke.py`` import in a fresh
     interpreter without JAX, flax, the JAX package, sklearn, PyYAML,
     msgpack or PIL."""
     mods = ["fast_autoaugment_tpu_torch.train.trainer", "fast_autoaugment_tpu_torch.train.steps",
@@ -733,6 +733,9 @@ def test_training_modules_import_nothing_the_card_lacks():
     mods += ["fast_autoaugment_tpu_torch." + m for m in (
         "core.fsfault", "serve.wire", "serve.policy_server", "serve.serve_cli",
         "serve.router", "serve.router_cli", "serve.autoscaler")]
+    # the fleet tier and the TensorBoard bridge
+    mods += ["fast_autoaugment_tpu_torch." + m for m in (
+        "launch.fleet", "launch.workqueue", "utils.tb_events")]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
