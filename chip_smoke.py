@@ -5,6 +5,7 @@
     python3 chip_smoke.py --imagenet-only
     python3 chip_smoke.py --sampler-only
     python3 chip_smoke.py --fleet-only
+    python3 chip_smoke.py --control-only
     python3 chip_smoke.py --pair-with OTHER_CHECKOUT
 
 Run from the root of a checkout; it needs one CUDA card and ``nvcc``.  With
@@ -192,7 +193,22 @@ each printing one JSON line:
    the longest gap between a live host's beats, rounds per actor, the
    rounds' publish->apply latency, and each arm's kernel launches (the
    hosts' ``LAUNCHES`` lines).  ``--fleet-only`` runs the search and this
-   phase alone.
+   phase alone;
+13. the closed control loop (``control_main_path``,
+   :func:`phase_control_main_path`), after the search: two fleets of three
+   ``serve_cli --traffic-stats`` replicas behind ``router_cli``, side by
+   side, under closed-loop traffic and an injected input drift; (a)
+   ``launch/control_cli.py`` detects it, runs the port's ``search_cli
+   --topup-trials 2`` warm-started from the search's run, canaries the
+   candidate on one replica and promotes it (``drift`` -> ``research`` ->
+   ``canary`` -> ``promote`` in one journal, every replica on the
+   candidate's digest, the base trials kept bitwise); (b) a controller
+   SIGKILLed mid-canary and ``control_cli --resume`` driving the dangling
+   episode to a promote; no failed request in either; every replica's and
+   the re-search's kernel launches against their predictions; detection
+   latency, re-search wall, canary -> verdict wall, requests/s and p50/p99
+   before the drift, during the canary and after the promotion.
+   ``--control-only`` runs the search and this phase alone.
 
 The last two lines are the ``kernels`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with
@@ -465,9 +481,10 @@ def counts_since(before: dict) -> dict:
 ANNOTATIONS = ("train.", "tta.", "search.")
 
 
-def device_busy(prof, launched_by=None, skip_streams=frozenset()) -> dict:
+def device_busy(prof, launched_by=None, skip_streams=frozenset(), after_ns=None) -> dict:
     """The device's work in a profile (kernels, copies, fills; not the
-    ranges of `ANNOTATIONS`; not the streams in `skip_streams`), or only
+    ranges of `ANNOTATIONS`; not the streams in `skip_streams`; none that
+    starts before `after_ns` on the device's clock), or only
     that launched by the operators for
     which ``launched_by(name, input_shapes)`` holds: the summed durations in
     µs, their union on the device's clock (the time the card was busy: the
@@ -482,7 +499,8 @@ def device_busy(prof, launched_by=None, skip_streams=frozenset()) -> dict:
     for e in events:
         if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0 \
                 or e.is_user_annotation() or e.name().startswith(ANNOTATIONS) \
-                or int(e.device_resource_id()) in skip_streams:
+                or int(e.device_resource_id()) in skip_streams \
+                or (after_ns is not None and e.start_ns() < after_ns):
             continue
         if launched_by is not None:
             op = ops.get(e.linked_correlation_id())
@@ -1686,22 +1704,56 @@ def phase_times(dev, card: str) -> list[dict]:
 
 #: apply_subpolicy_draws calls profiled alone by phase_trace
 APPLY_CALLS = 5
-#: empty kernels that open a profiled window: the profiler drops the first
-#: few kernel records of a window (4-5 seen, PERF.md §7), which are then
-#: theirs and not the work's
+#: empty kernels that open a profiled window, each waited for, with a gap
+#: before the next that doubles from :data:`PRIMING_FIRST_GAP_S`: the profiler
+#: drops the device records that it places before the window's start (a
+#: window's first 4-5 back-to-back kernels, and late in a long run a traced
+#: step's first K1 and K6: PERF.md §7), so a window's work begins ~0.33 s
+#: after its start, and the priming records kept bracket that cut
+#: (:func:`priming_kept`)
 PRIMING_LAUNCHES = 16
+PRIMING_FIRST_GAP_S = 10e-6
 
 
-def prime_profiler(dev) -> None:
-    """Launch :data:`PRIMING_LAUNCHES` empty kernels (uncounted, on no path)
-    and wait for them: call it first thing in a profiled window."""
+def prime_profiler(dev) -> list[float]:
+    """Launch :data:`PRIMING_LAUNCHES` empty kernels (uncounted, on no path),
+    each waited for and followed by a doubling gap: call it first thing in a
+    profiled window.  Returns each launch's time in s since the call."""
     import torch
 
     from fast_autoaugment_tpu_torch.ops import _kernels
 
-    for _ in range(PRIMING_LAUNCHES):
+    t0, offsets = time.perf_counter(), []
+    for i in range(PRIMING_LAUNCHES):
+        if i:
+            time.sleep(PRIMING_FIRST_GAP_S * 2 ** (i - 1))
+        offsets.append(time.perf_counter() - t0)
         _kernels.empty_kernel(dev)
-    torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(dev)
+    return offsets
+
+
+def priming_kept(prof, offsets: list[float]) -> dict:
+    """The priming kernel records that a profile kept, of those launched at
+    `offsets` (:func:`prime_profiler`).  The drops are the first ones, so the
+    window's start was cut between the last dropped launch and the first
+    kept one (``cut_ms``, from the priming's start; a bound is None where
+    every record was kept or none)."""
+    kept = kernel_counts(prof, ("empty_kernel",))["empty_kernel"]
+    lost = len(offsets) - kept
+    return {"launched": len(offsets), "kept": kept,
+            "cut_ms": [offsets[lost - 1] * 1e3 if lost > 0 else None,
+                       offsets[lost] * 1e3 if 0 <= lost < len(offsets) else None]}
+
+
+def priming_end_ns(prof) -> int | None:
+    """The device start of a profile's last priming kernel record (None if
+    it kept none): the work after :func:`prime_profiler` starts later."""
+    from torch.autograd import DeviceType
+
+    starts = [e.start_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and "empty_kernel" in e.name()]
+    return max(starts) if starts else None
 
 
 def phase_trace(dev, card: str) -> dict:
@@ -1725,7 +1777,7 @@ def phase_trace(dev, card: str) -> dict:
         applier.apply(imgs, np.uint32([9, i]))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prime_profiler(dev)
+        priming = prime_profiler(dev)
         t0 = time.perf_counter()
         for i in range(20):
             applier.apply(imgs, np.uint32([9, 100 + i]))
@@ -1757,7 +1809,7 @@ def phase_trace(dev, card: str) -> dict:
            "wall_ms_per_call": wall_s * 1e3 / 20,
            "device_busy_ms_per_call": busy_us / 1e3 / 20 if busy_us else None,
            "device_idle_share": (1 - busy_us / 1e6 / wall_s) if busy_us else None,
-           "device_kernels": len(by_name),
+           "device_kernels": len(by_name), "priming": priming_kept(prof, priming),
            "device_kernels_per_call": sum(kernels.values()) / 20,
            "kernels_per_call": {k[:80]: v / 20 for k, v in kernels.items()},
            "augment_kernel_us_per_call": device_us(prof, K1_KERNELS) / 20,
@@ -3487,8 +3539,14 @@ def phase_search_runtime(dev, workdir: str, card: str, serial: dict) -> dict:
 FLEET_RUNNER = CLI_RUNNER + ("from fast_autoaugment_tpu_torch.ops import _kernels\n"
                              "print('LAUNCHES ' + json.dumps(_kernels.launch_counts()), "
                              "flush=True)\n")
-#: the fleet arms' lease TTL and the queue arm's watchdog deadline (seconds)
+#: the transport arm's lease TTL, the bound every live lease's gap between
+#: two writes must stay under in both arms, and the queue arm's watchdog
+#: deadline (seconds)
 FLEET_TTL_S, FLEET_WATCHDOG_S = 10, 5
+#: the queue arm's lease TTL: b's relaunch re-claims its own unit only if
+#: no other host has found that lease stale first, and a relaunch's process
+#: start and warm-up take 8-15 s before its claim (``relaunch_gaps_s``)
+FLEET_QUEUE_TTL_S = 2 * FLEET_TTL_S
 #: the queue arm's hosts and their faults: a hangs once (the watchdog exits 77
 #: and the relaunch resumes), b is SIGKILLed at step 3 on every attempt (lost
 #: after its retries), c is clean and joins once b is lost
@@ -3582,6 +3640,18 @@ class _LeaseWatch(threading.Thread):
                             for e in inside][:12]})
         return out
 
+    def relaunch_gaps(self) -> list:
+        """Per unit, owner and epoch, the seconds from one process's last
+        write of the lease to the first write by the owner's next process
+        (a relaunch re-claiming its own unit): what the TTL must dominate
+        for the relaunch to keep its unit."""
+        spans: dict = {}
+        for (unit, owner, epoch, _pid), ticks in self.leases.items():
+            spans.setdefault((unit, owner, epoch), []).append((ticks[0][0], ticks[-1][0]))
+        return [{"unit": unit, "owner": owner, "s": b[0] - a[1]}
+                for (unit, owner, _epoch), runs in sorted(spans.items(), key=str)
+                for a, b in zip(sorted(runs), sorted(runs)[1:])]
+
     def beat_gaps(self) -> dict:
         """Per host, its processes' longest gap between two host beats."""
         out: dict = {}
@@ -3592,7 +3662,8 @@ class _LeaseWatch(threading.Thread):
 
 def _lease_report(watch: _LeaseWatch, events: list) -> dict:
     """The lease watch's findings and the two checks on them: every lease
-    gap of a live holder under the TTL, and no holder that lost its lease
+    gap of a live holder under :data:`FLEET_TTL_S` (the transport's TTL, half
+    the queue's), and no holder that lost its lease
     while it ran (a ``lease`` event with action ``lost``): the drill's
     reclaims are of dead or hung hosts only."""
     watch.stop.set()
@@ -3600,8 +3671,8 @@ def _lease_report(watch: _LeaseWatch, events: list) -> dict:
     longest = max((g["longest_s"] for g in gaps), default=0.0)
     lost = [{k: e.get(k) for k in ("label", "host", "new_owner")} for e in events
             if e["type"] == "lease" and e.get("action") == "lost"]
-    return {"lease_gaps": gaps, "lease_gap_max_s": longest, "lease_ttl_s": FLEET_TTL_S,
-            "leases_lost_by_live_holders": lost,
+    return {"lease_gaps": gaps, "lease_gap_max_s": longest, "lease_gap_bound_s": FLEET_TTL_S,
+            "relaunch_gaps_s": watch.relaunch_gaps(), "leases_lost_by_live_holders": lost,
             "host_beat_gap_max_s": watch.beat_gaps(),
             "checks": {"ttl_dominates_lease_gaps": longest < FLEET_TTL_S,
                        "no_live_lease_lost": not lost}}
@@ -3685,7 +3756,7 @@ def phase_fleet_search(workdir: str, card: str, serial: dict) -> dict:
     (a) The elastic work queue: ``launch/fleet.py launch_fleet`` over three
     local hosts (a local shell in place of ssh) with ``--elastic``,
     :data:`FLEET_HOST_RETRIES` retries and the heartbeat wedge detector, each
-    host ``search_cli --workqueue --lease-ttl 10 --watchdog 5`` with its fault
+    host ``search_cli --workqueue --lease-ttl 20 --watchdog 5`` with its fault
     of :data:`FLEET_FAULTS`.  The fleet exits 0; the result is degraded,
     host1 (b) lost, a unit reclaimed; every ``p1-fold<k>``/``p2-fold<k>`` unit
     has a done marker; the per-fold trial logs, final policy, audit and fold
@@ -3722,7 +3793,7 @@ def phase_fleet_search(workdir: str, card: str, serial: dict) -> dict:
     with open(runner, "w") as fh:
         fh.write(FLEET_RUNNER.format(repo=REPO, cli="search_cli"))
     command = [sys.executable, runner] + FLEET_HOST_ARGS + _search_argv(save, SEARCH_EPOCHS, until=2, extra=[
-            "--workqueue", wq, "--lease-ttl", str(FLEET_TTL_S), "--watchdog",
+            "--workqueue", wq, "--lease-ttl", str(FLEET_QUEUE_TTL_S), "--watchdog",
             str(FLEET_WATCHDOG_S), "--ckpt-every-dispatch", "1", "--telemetry", tel])
 
     def preamble(host: str) -> str:
@@ -3895,6 +3966,564 @@ def phase_fleet_search(workdir: str, card: str, serial: dict) -> dict:
                                  "transport": out_b["kill_to_reclaim_s"]}}
     emit(out)
     return {"workqueue": launches_a, "transport": launches_b, **out}
+
+
+# --------------------------------------------------------- the control loop
+
+#: control_main_path: every replica's inputs shift by CONTROL_SHIFT from its
+#: CONTROL_DRIFT_DISPATCH-th dispatch on (FAA_FAULT ``drift``; past the drift
+#: monitor's 20-sample baseline window on every replica)
+CONTROL_DRIFT_DISPATCH, CONTROL_SHIFT = 24, 60
+#: the replicas' padded shapes (one CUDA graph each, a warm-up call each at
+#: start and at every reload) and the closed-loop clients of each fleet
+CONTROL_SHAPES = (8, 32)
+CONTROL_CLIENTS, CONTROL_IMAGES = 4, 8
+#: trials the re-search adds to each fold of the search cell's base run
+CONTROL_TOPUP = 2
+#: seconds of traffic kept after each arm's promotion
+CONTROL_AFTER_S = 2.0
+#: the longest either arm waits for its promotion (seconds)
+CONTROL_DEADLINE_S = 420
+#: control_cli flags of both arms (the JAX drills' gate: non-inferiority
+#: with a wide margin, two judgeable polls).  The monitor watches the
+#: inputs, where the drift is injected: the reward proxy moves with the
+#: served policy itself, and the window re-baselined after a promotion
+#: holds dispatches served before the replicas' reloads, so watching it
+#: can start a second episode after the promotion (seen on an H100: a
+#: CUSUM of 11.88 on reward_proxy 0.9 s after the promote)
+CONTROL_FLAGS = ["--drift-metrics", "input_mean", "--canary-replicas", "1", "--split-every",
+                 "2", "--quality-margin", "10", "--min-arm-dispatches", "1",
+                 "--reload-timeout", "300"]
+#: arguments every replica and the re-search get first (a CPU rehearsal
+#: puts --device cpu)
+CONTROL_HOST_ARGS: list = []
+
+
+class _Traffic:
+    """Closed-loop clients through one endpoint: `clients` threads each POST
+    raw requests of `n` 32x32 images (a seeded pool of batches, cycled)
+    back to back until stopped; every request's start, end and error."""
+
+    def __init__(self, port: int, clients: int = CONTROL_CLIENTS, n: int = CONTROL_IMAGES,
+                 seed: int = 5):
+        from fast_autoaugment_tpu_torch.serve import wire
+
+        g = np.random.default_rng(seed)
+        self.bodies = [wire.encode_raw(g.integers(0, 256, (n, 32, 32, 3)).astype(np.uint8))
+                       for _ in range(16)]
+        self.ctype, self.port = wire.RAW_CONTENT_TYPE, port
+        self.rows: list[tuple] = []
+        self.lock = threading.Lock()
+        self.stop_event = threading.Event()
+        self.threads = [threading.Thread(target=self._client, args=(i, clients), daemon=True)
+                        for i in range(clients)]
+        self.t0 = time.time()
+        for t in self.threads:
+            t.start()
+
+    def _client(self, i: int, clients: int) -> None:
+        k = i
+        while not self.stop_event.is_set():
+            body = self.bodies[k % len(self.bodies)]
+            k += clients
+            t0 = time.time()
+            try:
+                status, _h, _b = _http(self.port, "/augment", body, self.ctype)
+                err = None if status == 200 else f"status {status}: {_b[:200]!r}"
+            except Exception as e:  # noqa: BLE001 -- counted, fails the phase
+                err = repr(e)
+            with self.lock:
+                self.rows.append((t0, time.time(), err))
+
+    def stop(self) -> None:
+        self.stop_event.set()
+        for t in self.threads:
+            t.join(timeout=150)
+        self.t1 = time.time()
+
+    def window(self, t0: float, t1: float) -> dict:
+        """Requests answered in [t0, t1): count, failures, requests/s, p50/p99."""
+        with self.lock:
+            rows = [r for r in self.rows if t0 <= r[1] < t1]
+        ms = np.array([(b - a) * 1e3 for a, b, e in rows if e is None] or [0.0])
+        return {"requests": len(rows), "failed": sum(e is not None for _a, _b, e in rows),
+                "seconds": t1 - t0, "requests_per_s": len(rows) / max(t1 - t0, 1e-9),
+                "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+    def failures(self) -> list[str]:
+        with self.lock:
+            return [e for _a, _b, e in self.rows if e is not None]
+
+
+def _control_fleet(root: str, baseline: str, tag: str) -> dict:
+    """Three ``serve_cli --traffic-stats`` replicas of `baseline` (grouped,
+    32x32, journaling into one shared dir, drifting at
+    :data:`CONTROL_DRIFT_DISPATCH`) and ``router_cli`` over their port dir;
+    started, not waited for."""
+    d = {k: os.path.join(root, k) for k in ("telemetry", "ports")}
+    for path in d.values():
+        os.makedirs(path, exist_ok=True)
+    drift = f"drift@dispatch={CONTROL_DRIFT_DISPATCH},shift={CONTROL_SHIFT}"
+    reps = [Replica(CONTROL_HOST_ARGS + [
+        "--policy", baseline, "--image", "32", "--shapes", ",".join(map(str, CONTROL_SHAPES)),
+        "--dispatch", "grouped", "--max-wait-ms", "2", "--traffic-stats", "--telemetry",
+        d["telemetry"], "--port-dir", d["ports"], "--host-tag", f"replica{i}"],
+        root, f"{tag}_replica{i}", env_extra={"FAA_FAULT": drift, "FAA_HOST_ID": str(i)})
+        for i in range(3)]
+    rt = Replica(["--port-dir", d["ports"], "--poll-interval", "0.2", "--telemetry",
+                  d["telemetry"]], root, f"{tag}_router",
+                 module="fast_autoaugment_tpu_torch.serve.router_cli",
+                 env_extra={"FAA_HOST_ID": "9"})
+    return {**d, "replicas": reps, "router": rt, "root": root}
+
+
+def _wait_watching(proc, timeout: float = 120.0) -> None:
+    """Until the controller's loop runs (its "control loop watching" log
+    line), so that the traffic's drift meets a polling monitor."""
+    _wait_for(lambda: "control loop watching" in _tail(proc.log_path, 1 << 20)
+              or (proc.poll() is not None and fail(
+                  f"control_main_path: {os.path.basename(proc.log_path)} exited "
+                  f"{proc.returncode}: {_tail(proc.log_path)}")),
+              timeout, f"{os.path.basename(proc.log_path)} to watch")
+
+
+def _stop_proc(proc, timeout: float = 60.0):
+    """SIGTERM a :func:`_cli_process` (killed past `timeout`); its exit code."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    proc.log_fh.close()
+    return proc.returncode
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    with open(path, errors="replace") as fh:
+        return fh.read()[-n:]
+
+
+def _wait_event(tel: str, pred, procs, timeout: float, what: str):
+    """The first journal event of `tel` satisfying `pred`; fails if a
+    process of `procs` exits first or `timeout` passes."""
+    def found():
+        event = next((e for e in _journal(tel) if pred(e)), None)
+        for p in procs:
+            if event is None and p.poll() is not None:
+                fail(f"control_main_path: {os.path.basename(p.log_path)} exited "
+                     f"{p.returncode} before {what}: {_tail(p.log_path)}")
+        return event
+
+    return _wait_for(found, timeout, what)
+
+
+def _replica_launches(st: dict, reloads: int) -> tuple[dict, dict]:
+    """A control replica's launch counters against the prediction: each
+    graph build (start, every reload) is a warm-up call a shape, every
+    dispatch one K7 and one K1 call; nothing else."""
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    per_call = _kernels.augment_plan(32, 32, st["num_op"]).launches
+    calls = len(CONTROL_SHAPES) * (1 + reloads) + st["dispatches"]
+    want = dict.fromkeys(ALL_KERNELS, 0)
+    want.update(augment=per_call * calls, sampler=calls)
+    return st["kernel_launches"], want
+
+
+def _research_expected_launches(base: str, cand: str) -> dict:
+    """K1, K5, K7 and K8 launches of the re-search process (``search_cli
+    --topup-trials`` at ``--until 2`` over the seeded base run, the async
+    pipeline): no fold retrains (the seeded checkpoints are at the run's
+    epochs), so K8 0; each new trial is its key (1 K7) and one TTA call a
+    valid batch (2 a fold); the audit recomputes each fold's identity
+    baseline (2 calls a fold) and scores the final sub-policies the base
+    run's ``audit.json`` does not hold (through the TTA step up to 4, else
+    the audit step in chunks of 8 with two key fold_ins each); each graph
+    (the trials' policy shape, the single-sub shape, the audit step's) adds
+    a warm-up call.  A TTA or audit call: ``augment_plan`` K1, 1 K5, 3 K7."""
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    base_log, cand_log = (_read_json(os.path.join(d, "search_trials.json")) for d in (base, cand))
+    folds = sorted(base_log)
+    new_trials = sum(len(cand_log[f]) - len(base_log[f]) for f in folds)
+    base_audit, audit = (_read_json(os.path.join(d, "audit.json")) for d in (base, cand))
+    same = base_audit["audit_folds"] == audit["audit_folds"] and all(
+        abs(base_audit["fold_baselines"][str(f)] - audit["fold_baselines"][str(f)]) < 1e-6
+        for f in audit["audit_folds"])
+    cached = {json.dumps(s["sub_policy"]) for s in base_audit["scores"]} if same else set()
+    audited = sum(json.dumps(s["sub_policy"]) not in cached for s in audit["scores"])
+    n_audit = len(audit["audit_folds"])
+    valid = 2
+    calls = new_trials * valid + len(folds) * valid + n_audit * valid * (
+        audited if audited <= 4 else -(-audited // 8))
+    warm = (1 if new_trials else 0) + 1 + (1 if audited > 4 else 0)
+    keys = new_trials + (2 * n_audit * -(-audited // 8) if audited > 4 else 0)
+    per_call = _kernels.augment_plan(32, 32, 2).launches
+    want = dict.fromkeys(ALL_KERNELS, 0)
+    want.update(augment=per_call * (calls + warm), cifar_stack=calls + warm,
+                sampler=TTA_CALL_SAMPLER * (calls + warm) + keys)
+    return {"launches": want, "new_trials": new_trials, "audited": audited,
+            "audit_cache_reused": same}
+
+
+def _stats_of(fleet: dict) -> dict:
+    return {f"replica{i}": r.get("/stats") for i, r in enumerate(fleet["replicas"])}
+
+
+def _control_arm_a(fleet: dict, base_dir: str, baseline: str, go: threading.Event,
+                   out: dict) -> None:
+    """(a): the full loop on `fleet` with a real warm-started re-search.  The
+    controller starts once the router is up (its start overlaps the
+    replicas'), the traffic once `go` is set (every replica in rotation)."""
+    root, tel = fleet["root"], fleet["telemetry"]
+    runner = os.path.join(root, "research_host.py")
+    with open(runner, "w") as fh:
+        fh.write(FLEET_RUNNER.format(repo=REPO, cli="search_cli"))
+    research_argv = CONTROL_HOST_ARGS + _search_argv("{out}", SEARCH_EPOCHS, until=2, extra=[
+        "--topup-trials", str(CONTROL_TOPUP), "--async-pipeline", "on"])
+    research_cmd = " ".join(shlex.quote(a) for a in [sys.executable, runner, *research_argv])
+    rt = fleet["router"]
+    rt.wait_ready()
+    stats_file = os.path.join(root, "control_stats.json")
+    ctl = _cli_process("control_cli", [
+        "--telemetry", tel, "--port-dir", fleet["ports"], "--router-url",
+        f"http://127.0.0.1:{rt.port}", "--baseline-policy", baseline, "--base-search-dir",
+        base_dir, "--research-cmd", research_cmd, "--candidate-dir",
+        os.path.join(root, "research"), "--gate-polls", "2", "--poll-interval", "0.3",
+        "--stats-file", stats_file, *CONTROL_FLAGS], os.path.join(root, "control.log"))
+    out.update(ctl=ctl, research_cmd=research_cmd, stats_file=stats_file)
+    traffic = None
+    try:
+        _wait_watching(ctl)
+        if not go.wait(CONTROL_DEADLINE_S) or out.get("abort"):
+            return
+        traffic = out["traffic"] = _Traffic(rt.port)
+        out["decision"] = _wait_event(tel, lambda e: e["type"] in ("promote", "rollback") or (
+            e["type"] == "mark" and e.get("event") == "research_failed"), [ctl],
+            CONTROL_DEADLINE_S, "a promote")
+        time.sleep(CONTROL_AFTER_S)
+    finally:
+        if traffic is not None:
+            traffic.stop()
+            out["stats"] = _stats_of(fleet)
+        out["ctl_rc"] = _stop_proc(ctl)
+
+
+def _control_arm_b(fleet: dict, baseline: str, candidate: str, go: threading.Event,
+                   out: dict) -> None:
+    """(b): ``control_cli --candidate-policy`` SIGKILLed once its canary
+    split is armed on the router, then ``--resume`` to a promote (the first
+    controller starts once the router is up, the traffic once `go` is
+    set; ``out["abort"]`` then means the fleet never came up)."""
+    root, tel, rt = fleet["root"], fleet["telemetry"], fleet["router"]
+    rt.wait_ready()
+    common = ["--telemetry", tel, "--port-dir", fleet["ports"], "--router-url",
+              f"http://127.0.0.1:{rt.port}", "--baseline-policy", baseline,
+              "--candidate-policy", candidate, *CONTROL_FLAGS]
+    # a wide gate window, so that the kill lands mid-canary
+    first = _cli_process("control_cli", common + [
+        "--gate-polls", "40", "--gate-timeout-polls", "200", "--poll-interval", "0.5"],
+        os.path.join(root, "control_first.log"))
+    procs = [first]
+    traffic = None
+    try:
+        _wait_watching(first)
+        if not go.wait(CONTROL_DEADLINE_S) or out.get("abort"):
+            return
+        traffic = out["traffic"] = _Traffic(rt.port, seed=6)
+        armed = _wait_for(lambda: json.loads(rt.request("/stats")[2]).get("canary")
+                          if first.poll() is None else fail(
+                              f"control_main_path (b): the first controller exited "
+                              f"{first.returncode}: {_tail(first.log_path)}"),
+                          CONTROL_DEADLINE_S, "the first controller's canary split")
+        first.kill()
+        first.wait(timeout=30)
+        out["killed_at"] = time.time()
+        time.sleep(1.0)
+        out["armed"] = armed
+        out["dangling"] = json.loads(rt.request("/stats")[2]).get("canary")
+        stats_file = os.path.join(root, "resume_stats.json")
+        second = _cli_process("control_cli", common + [
+            "--gate-polls", "2", "--poll-interval", "0.3", "--resume", "--stats-file",
+            stats_file], os.path.join(root, "control_resume.log"))
+        procs.append(second)
+        out["decision"] = _wait_event(tel, lambda e: e["type"] in ("promote", "rollback"),
+                                      [second], CONTROL_DEADLINE_S, "the resumed promote")
+        time.sleep(CONTROL_AFTER_S)
+    finally:
+        if traffic is not None:
+            traffic.stop()
+            out["stats"] = _stats_of(fleet)
+            out["router_canary_after"] = json.loads(rt.request("/stats")[2]).get("canary")
+        out["rcs"] = [_stop_proc(p) for p in procs]
+        out["stats_file"] = os.path.join(root, "resume_stats.json")
+
+
+def _shift_and_detection(events: list, drift: dict) -> dict:
+    """The shift's first dispatch on each replica (its
+    :data:`CONTROL_DRIFT_DISPATCH`-th journaled ``serve_dispatch``; the
+    journal's 50-a-second budget per replica keeps every dispatch up to
+    it), and the detection latency to the ``drift`` verdict in seconds and
+    in journaled shifted dispatches up to the sample that tripped it."""
+    by_host: dict = {}
+    for e in events:
+        if e["type"] == "dispatch" and e.get("label") == "serve_dispatch":
+            by_host.setdefault(e["host"], []).append(e)
+    shift_seq, means = {}, {}
+    for host, recs in by_host.items():
+        recs.sort(key=lambda e: e["seq"])
+        if len(recs) >= CONTROL_DRIFT_DISPATCH:
+            shift_seq[host] = recs[CONTROL_DRIFT_DISPATCH - 1]["seq"]
+            before = [r["input_mean"] for r in recs[:CONTROL_DRIFT_DISPATCH - 1]]
+            means[host] = (float(np.mean(before)),
+                           recs[CONTROL_DRIFT_DISPATCH - 1]["input_mean"])
+    first = min((r["t_wall"] for h, recs in by_host.items() for r in recs
+                 if h in shift_seq and r["seq"] == shift_seq[h]), default=None)
+    trip = next((r for r in by_host.get(drift.get("source_host"), [])
+                 if r["seq"] == drift.get("source_seq")), None)
+    shifted = sum(1 for h, recs in by_host.items() for r in recs
+                  if h in shift_seq and r["seq"] >= shift_seq[h] and trip is not None
+                  and r["t_wall"] <= trip["t_wall"])
+    return {"shift_first_dispatch_wall": first, "replicas_shifted": len(shift_seq),
+            "input_mean_before_and_at_shift": means,
+            "detection_s": drift["t_wall"] - first if first is not None else None,
+            "detection_dispatches": shifted, "verdict": {k: drift.get(k) for k in (
+                "id", "metric", "direction", "stat", "threshold", "sample", "value",
+                "baseline_mean", "baseline_sigma")}}
+
+
+def phase_control_main_path(workdir: str, card: str, serial: dict) -> dict:
+    """``control_main_path``: the closed control loop
+    (``launch/control_cli.py``, ``control/``) actuating two routed fleets of
+    the port's replicas on the card, side by side, each of three ``serve_cli
+    --traffic-stats`` replicas serving ``fa_reduced_cifar10`` (grouped,
+    32x32) behind ``router_cli``, with :data:`CONTROL_CLIENTS` closed-loop
+    clients through the router from before the drift to after the
+    promotion and ``FAA_FAULT=drift@dispatch=24,shift=60`` on every replica.
+
+    (a) The full loop: ``control_cli --research-cmd`` running the port's
+    ``search_cli --topup-trials 2 --until 2 --async-pipeline on`` on the
+    search cell's geometry over a directory seeded from `serial`'s run; the
+    journal holds ``drift`` -> ``research`` -> ``canary`` -> ``promote`` of
+    one episode in that order; the promoted digest is the candidate's
+    provenance sidecar's and every replica's after; the top-up's trial logs
+    keep the base entries bitwise and add 2 trials a fold; no request fails.
+    (b) The crash drill: ``control_cli --candidate-policy`` (a copy of the
+    base run's final policy) SIGKILLed once its canary split is armed on the
+    router, which then holds a dangling split; ``control_cli --resume``
+    re-asserts it and promotes; the split is cleared; no request fails.
+    Every replica's K7 and K1 launches and the re-search's K1, K5, K7 and K8
+    launches equal their predictions (:func:`_replica_launches`,
+    :func:`_research_expected_launches`).  Prints detection latency,
+    re-search wall, canary -> verdict wall, requests/s and p50/p99 before
+    the drift, during the canary and after the promotion."""
+    import shutil
+
+    from fast_autoaugment_tpu_torch.control.research import policy_file_digest
+    from fast_autoaugment_tpu_torch.control import select_canary_replicas
+    from fast_autoaugment_tpu_torch.policies.archive import load_policy
+
+    t_phase = time.time()
+    root = os.path.join(workdir, "control")
+    roots = {k: os.path.join(root, k) for k in ("a", "b")}
+    for d in roots.values():
+        os.makedirs(d)
+    baseline = os.path.join(root, "baseline.json")
+    with open(baseline, "w") as fh:
+        json.dump([[list(op) for op in sub] for sub in load_policy("fa_reduced_cifar10")], fh)
+    candidate_b = os.path.join(roots["b"], "candidate.json")
+    shutil.copy2(os.path.join(serial["save_dir"], "final_policy.json"), candidate_b)
+    digests = {"baseline": policy_file_digest(baseline), "b": policy_file_digest(candidate_b)}
+    fleets = {k: _control_fleet(roots[k], baseline, k) for k in ("a", "b")}
+    arms: dict = {"a": {}, "b": {}}
+    go = threading.Event()
+    errors = {}
+
+    def run(k, fn, *args):
+        try:
+            fn(*args)
+        except (Exception, SystemExit) as e:  # an arm's failure (fail() included) is the phase's
+            errors[k] = f"{type(e).__name__}: {e}"
+
+    threads = [threading.Thread(target=run, args=("a", _control_arm_a, fleets["a"],
+                                                     serial["save_dir"], baseline, go,
+                                                     arms["a"]), daemon=True),
+               threading.Thread(target=run, args=("b", _control_arm_b, fleets["b"], baseline,
+                                                     candidate_b, go, arms["b"]), daemon=True)]
+    try:
+        for t in threads:
+            t.start()
+        for f in fleets.values():
+            for p in f["replicas"] + [f["router"]]:
+                p.wait_ready()
+        for f in fleets.values():
+            _wait_for(lambda f=f: json.loads(f["router"].request("/readyz")[2]).get(
+                "in_rotation") == 3, 120, "three replicas in the router's rotation")
+        t_ready = time.time()
+        go.set()
+        for t in threads:
+            t.join(timeout=2 * CONTROL_DEADLINE_S + 240)
+        if errors:
+            fail(f"control_main_path: {errors}")
+    finally:
+        if not go.is_set():  # the fleets never came up: the arms stop their controllers
+            for arm in arms.values():
+                arm["abort"] = True
+            go.set()
+        for t in threads:
+            t.join(timeout=120)
+        procs = [p for f in fleets.values() for p in f["replicas"] + [f["router"]]]
+        for p in procs:  # every drain at once, then the waits
+            if p.proc.poll() is None:
+                p.proc.send_signal(signal.SIGTERM)
+        for p in procs:
+            p.stop()
+    problems = []
+
+    # ---- (a)'s checks
+    a, tel_a = arms["a"], fleets["a"]["telemetry"]
+    events = _journal(tel_a)
+    loop = [e for e in events if e["type"] in ("drift", "research", "promote", "rollback")
+            or (e["type"] == "canary" and e.get("action") == "rollout")]
+    chain = [e["type"] for e in sorted(loop, key=lambda e: e["t_wall"])]
+    drift = next((e for e in events if e["type"] == "drift"), {})
+    research = next((e for e in events if e["type"] == "research"), {})
+    rollouts = [e for e in events if e["type"] == "canary" and e.get("action") == "rollout"]
+    promote = next((e for e in events if e["type"] == "promote"), {})
+    cand_dir = os.path.join(roots["a"], "research", "episode1")
+    prov = _read_json(os.path.join(cand_dir, "final_policy.provenance.json")) \
+        if os.path.exists(os.path.join(cand_dir, "final_policy.provenance.json")) else {}
+    base_log = _read_json(os.path.join(serial["save_dir"], "search_trials.json"))
+    cand_log = _read_json(os.path.join(cand_dir, "search_trials.json")) \
+        if os.path.exists(os.path.join(cand_dir, "search_trials.json")) else {}
+    n_base = {f: len(base_log[f]) for f in base_log}
+    with open(a["ctl"].log_path, errors="replace") as fh:
+        ctl_lines = fh.read().splitlines()
+    research_launches = next((json.loads(ln.split("LAUNCHES ", 1)[1]) for ln in ctl_lines
+                              if ln.startswith("LAUNCHES ")), None)
+    research_want = _research_expected_launches(serial["save_dir"], cand_dir) \
+        if cand_log else {"launches": None}
+    detect = _shift_and_detection(events, drift) if drift else {}
+    stats_a = a.get("stats", {})
+    replicas_a = {}
+    for tag, st in stats_a.items():
+        got, want = _replica_launches(st, 1)
+        replicas_a[tag] = {"launches": got, "expected": want, "reloads": st["reloads"],
+                           "dispatches": st["dispatches"], "digest": st["policy_digest"],
+                           "provenance_digest": (st.get("policy_provenance") or {}).get(
+                               "policy_digest"), "traffic_samples": st["traffic"]["samples"]}
+    loop_stats = _read_json(a["stats_file"]) if os.path.exists(a["stats_file"]) else {}
+    canary_expected = select_canary_replicas(promote.get("digest", ""), list(stats_a), 1) \
+        if promote else None
+    checks_a = {
+        "chain_in_order": chain == ["drift", "research", "canary", "promote"],
+        "one_episode": len([e for e in events if e["type"] == "drift"]) == 1
+        and loop_stats.get("promotes") == 1 and loop_stats.get("rollbacks") == 0,
+        "drift_after_the_shift": bool(detect) and detect["detection_s"] is not None
+        and detect["detection_s"] >= 0 and detect["replicas_shifted"] == 3,
+        "promoted_is_candidate": bool(promote) and promote["digest"] == prov.get(
+            "policy_digest") == research.get("digest") != digests["baseline"],
+        "every_replica_on_it": bool(stats_a) and all(
+            r["digest"] == r["provenance_digest"] == promote.get("digest")
+            for r in replicas_a.values()),
+        "canary_by_rendezvous": sorted({e["replica"] for e in rollouts}) == canary_expected,
+        "no_failed_request": not a["traffic"].failures(),
+        "base_trials_bitwise": bool(cand_log) and all(
+            json.dumps(cand_log[f][:n]) == json.dumps(base_log[f])
+            and len(cand_log[f]) == n + CONTROL_TOPUP for f, n in n_base.items()),
+        "warm_start_stamped": (_read_json(os.path.join(cand_dir, "search_result.json"))
+                               .get("warm_start") or {}).get("topup_trials") == CONTROL_TOPUP
+        if cand_log else False,
+        "replica_launches": bool(replicas_a) and all(
+            r["launches"] == r["expected"] and r["reloads"] == 1 for r in replicas_a.values()),
+        "research_launches": research_launches == research_want["launches"],
+        "control_exit_0": a.get("ctl_rc") == 0,
+    }
+    tr = a["traffic"]
+    t_shift = detect.get("shift_first_dispatch_wall") or tr.t0
+    t_canary = rollouts[0]["t_wall"] if rollouts else None
+    t_promote = promote.get("t_wall")
+    out_a = {"phase": "control_main_path", "part": "loop", "card": card, "checks": checks_a,
+             "chain": chain, "detection": detect,
+             "research_wall_s": research.get("wall_sec"),
+             "canary_to_verdict_s": t_promote - t_canary if t_promote and t_canary else None,
+             "detect_to_promote_s": promote.get("detect_to_promote_sec"),
+             "traffic": {"before_drift": tr.window(tr.t0, t_shift),
+                         "drift_to_canary": tr.window(t_shift, t_canary or t_shift),
+                         "canary": tr.window(t_canary, t_promote)
+                         if t_canary and t_promote else None,
+                         "after_promotion": tr.window(t_promote, tr.t1) if t_promote else None,
+                         "failed": len(tr.failures()), "errors": tr.failures()[:3],
+                         "clients": CONTROL_CLIENTS, "images_per_request": CONTROL_IMAGES},
+             "promoted_digest": promote.get("digest"), "baseline_digest": digests["baseline"],
+             "canary": sorted({e["replica"] for e in rollouts}),
+             "gate_evidence": promote.get("evidence"),
+             "research": {"launches": research_launches, **research_want,
+                          "warm_start": _read_json(os.path.join(
+                              cand_dir, "search_result.json")).get("warm_start")
+                          if cand_log else None,
+                          "trials_per_fold": {f: len(v) for f, v in cand_log.items()}},
+             "replicas": replicas_a, "research_cmd": a.get("research_cmd")}
+    emit(out_a)
+    if not all(checks_a.values()):
+        problems.append("(a) " + str({k: v for k, v in checks_a.items() if not v}) + " "
+                        + "\n".join(ctl_lines[-40:]))
+
+    # ---- (b)'s checks
+    b, tel_b = arms["b"], fleets["b"]["telemetry"]
+    events_b = _journal(tel_b)
+    drift_b = next((e for e in events_b if e["type"] == "drift"), {})
+    promote_b = next((e for e in events_b if e["type"] == "promote"), {})
+    resumes = [e for e in events_b if e["type"] == "mark" and e.get("event") == "resume"]
+    rollouts_b = [e for e in events_b if e["type"] == "canary" and e.get("action") == "rollout"]
+    stats_b = b.get("stats", {})
+    canary_b = sorted({e["replica"] for e in rollouts_b})
+    replicas_b = {}
+    for tag, st in stats_b.items():
+        got, want = _replica_launches(st, 2 if tag in canary_b else 1)
+        replicas_b[tag] = {"launches": got, "expected": want, "reloads": st["reloads"],
+                           "dispatches": st["dispatches"], "digest": st["policy_digest"]}
+    resume_stats = _read_json(b["stats_file"]) if os.path.exists(b["stats_file"]) else {}
+    checks_b = {
+        "dangling_split_after_kill": (b.get("dangling") or {}).get("digest") == digests["b"],
+        "resumed_at_canary": bool(resumes) and resumes[0].get("stage") == "canary"
+        and resumes[0].get("digest") == digests["b"],
+        "promoted_after_resume": promote_b.get("digest") == digests["b"]
+        and promote_b.get("drift_id") == drift_b.get("id")
+        and promote_b.get("pid") != drift_b.get("pid"),
+        "split_cleared": b.get("router_canary_after", "unread") is None,
+        "every_replica_on_it": bool(stats_b) and all(r["digest"] == digests["b"]
+                                                     for r in replicas_b.values()),
+        "one_promote": resume_stats.get("promotes") == 1
+        and resume_stats.get("rollbacks") == 0 and resume_stats.get("state") == "watching",
+        "no_failed_request": not b["traffic"].failures(),
+        "replica_launches": bool(replicas_b) and len(canary_b) == 1 and all(
+            r["launches"] == r["expected"] for r in replicas_b.values()),
+        "resumed_exit_0": (b.get("rcs") or [None, None])[1] == 0,
+    }
+    trb = b["traffic"]
+    out_b = {"phase": "control_main_path", "part": "crash_drill", "card": card,
+             "checks": checks_b, "candidate_digest": digests["b"],
+             "kill_to_promote_s": promote_b["t_wall"] - b["killed_at"]
+             if promote_b and b.get("killed_at") else None,
+             "traffic": {"all": trb.window(trb.t0, trb.t1), "failed": len(trb.failures()),
+                         "errors": trb.failures()[:3]},
+             "canary": canary_b, "replicas": replicas_b, "rcs": b.get("rcs")}
+    emit(out_b)
+    if not all(checks_b.values()):
+        problems.append("(b) " + str({k: v for k, v in checks_b.items() if not v}) + " "
+                        + _tail(os.path.join(roots["b"], "control_resume.log"), 2000))
+    if problems:
+        fail("control_main_path: " + "; ".join(problems))
+    replica_total = _sum_launches([r["launches"] for r in replicas_a.values()]
+                                  + [r["launches"] for r in replicas_b.values()])
+    out = {"phase": "control_main_path", "part": "summary", "card": card,
+           "wall_s": time.time() - t_phase, "fleets_ready_s": t_ready - t_phase,
+           "launches_replicas": replica_total, "launches_research": research_launches}
+    emit(out)
+    return {"launches": _sum_launches([replica_total, research_launches]), **out}
 
 
 # ------------------------------------------------------------ train path
@@ -4368,6 +4997,10 @@ IMAGENET_LISTING = {"classes": 10, "train": 1280, "val": 256, "side": (256, 512)
 #: the steps of each train_and_eval arm that a profiler traces (after the
 #: 6th step's end, through the 9th's)
 IMAGENET_TRACE = (6, 9)
+#: steps before the traced stretch through which the profiler runs with its
+#: records discarded (``schedule`` warm-up): the device's tracing is on
+#: before the stretch begins
+IMAGENET_TRACE_WARMUP = 2
 #: runs of an arm before its traced stretch's kernel records must have
 #: equalled the launch counters
 IMAGENET_TRACE_ATTEMPTS = 3
@@ -4483,8 +5116,9 @@ def _imagenet_kernels_vs_plain(dev, root: str) -> dict:
     return out
 
 
-def _stream_busy(prof) -> dict:
-    """Device time by stream (µs) in a profile, and whether each is one of
+def _stream_busy(prof, after_ns=None) -> dict:
+    """Device time by stream (µs) in a profile, from `after_ns` on the
+    device's clock, and whether each is one of
     the decoder's (its kernels all nvJPEG's, or copies only; the training
     stream and cuDNN's and the graph's own streams run other kernels)."""
     from torch.autograd import DeviceType
@@ -4492,7 +5126,8 @@ def _stream_busy(prof) -> dict:
     by = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0 \
-                or e.is_user_annotation() or e.name().startswith(ANNOTATIONS):
+                or e.is_user_annotation() or e.name().startswith(ANNOTATIONS) \
+                or (after_ns is not None and e.start_ns() < after_ns):
             continue
         s = by.setdefault(int(e.device_resource_id()), {"us": 0.0, "activities": 0, "top": {}})
         s["us"] += e.duration_ns() / 1e3
@@ -4510,17 +5145,20 @@ def _imagenet_arm(dev, conf: dict, root: str, save: str, graphed: bool) -> dict:
     eager step (``host_step="eager"``), under deterministic cuDNN.  Each
     step is followed by a synchronize (its wall runs from the previous
     step's end, so it holds the wait for the next decoded batch), and steps
-    :data:`IMAGENET_TRACE` are profiled.  The idle share is given twice:
+    :data:`IMAGENET_TRACE` are profiled, after :data:`IMAGENET_TRACE_WARMUP`
+    steps of the profiler's warm-up and the priming.  The idle share is given twice:
     over the union of all the device's work, the decoder's nvJPEG kernels
-    and copies included, and over the training's streams alone."""
+    and copies included, and over the training's streams alone, both from
+    the last priming kernel on the device's clock."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from fast_autoaugment_tpu_torch.ops import _kernels
     from fast_autoaugment_tpu_torch.train import trainer
 
-    marks, window = [], []
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks, window, priming = [], [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
     # the builder that train_and_eval calls for this host_step, wrapped to
     # time each step (the eager step itself is picked by the argument)
     builder = "make_graphed_train_step" if graphed else "make_train_step"
@@ -4533,12 +5171,15 @@ def _imagenet_arm(dev, conf: dict, root: str, save: str, graphed: bool) -> dict:
             out = step(*args)
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            if len(marks) == IMAGENET_TRACE[0]:
-                prof.start()
-                prime_profiler(dev)
+            if len(marks) == IMAGENET_TRACE[0] - IMAGENET_TRACE_WARMUP:
+                prof.start()  # the warm-up: tracing on, its records discarded
+            elif len(marks) == IMAGENET_TRACE[0]:
+                prof.step()  # the recorded stretch
+                priming.extend(prime_profiler(dev))
                 window.append(time.perf_counter())
             elif len(marks) == IMAGENET_TRACE[1]:
                 window.append(marks[-1])
+                prof.step()
                 prof.stop()
             return out
 
@@ -4563,10 +5204,13 @@ def _imagenet_arm(dev, conf: dict, root: str, save: str, graphed: bool) -> dict:
     steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     n = IMAGENET_TRACE[1] - IMAGENET_TRACE[0]
     window_s = window[1] - window[0]
-    busy = device_busy(prof)
-    by_stream = _stream_busy(prof)
+    # the decoder works on through the priming: the device's work is taken
+    # from the last priming kernel, as the wall from the priming's end
+    after = priming_end_ns(prof)
+    busy = device_busy(prof, after_ns=after)
+    by_stream = _stream_busy(prof, after_ns=after)
     decoder = frozenset(k for k, v in by_stream.items() if v["decoder"])
-    training = device_busy(prof, skip_streams=decoder)
+    training = device_busy(prof, skip_streams=decoder, after_ns=after)
     # every thread's: the decoder's threads launch nvJPEG's kernels and copies
     calls = _host_launches(prof)
     image = int(conf.get("imgsize", 0) or 0) or 224
@@ -4590,7 +5234,7 @@ def _imagenet_arm(dev, conf: dict, root: str, save: str, graphed: bool) -> dict:
                       "host_runtime_calls_per_step": sum(calls.values()) / n,
                       "host_runtime_calls_per_step_by_name": {k: v / n
                                                               for k, v in calls.items()},
-                      "kernel_records": seen,
+                      "kernel_records": seen, "priming": priming_kept(prof, priming),
                       "sampler_kernels_ms_per_step": device_us(
                           prof, SAMPLER_KERNELS + NOISE_KERNELS) / 1e3 / n}}
 
@@ -4637,6 +5281,7 @@ def phase_imagenet_main_path(dev, workdir: str, card: str) -> dict:
         # the profiler drops kernel records now and then (ROADMAP Queue 3): a
         # run whose traced stretch misses records is made again, and the run
         # kept must hold exactly the records its launch counters give
+        runs = []
         for attempt in range(1, IMAGENET_TRACE_ATTEMPTS + 1):
             suffix = "" if attempt == 1 else f"_a{attempt}"
             arm = _imagenet_arm(dev, conf, root,
@@ -4644,6 +5289,8 @@ def phase_imagenet_main_path(dev, workdir: str, card: str) -> dict:
                                 name == "graphed")
             traced = arm["trace"]["steps"]
             arm["trace_attempts"] = attempt
+            runs.append({k: arm["trace"][k] for k in ("kernel_records", "priming")})
+            arm["trace_runs"] = runs
             if arm["trace"]["kernel_records"] == {"augment": per_call * traced,
                                                   "imagenet_stack": traced}:
                 break
@@ -4666,7 +5313,8 @@ def phase_imagenet_main_path(dev, workdir: str, card: str) -> dict:
         if seen != {"augment": per_call * traced, "imagenet_stack": traced}:
             problems.append(f"{name}: the traced stretch holds {seen}, the counters "
                             f"{per_call * traced} K1 and {traced} K6, in each of "
-                            f"{arm['trace_attempts']} runs")
+                            f"{arm['trace_attempts']} runs (each run's records and "
+                            f"priming: {arm['trace_runs']})")
         if not np.isfinite(arm["result"]["loss_train"]):
             problems.append(f"{name}: the train loss is not finite")
     drop = ("elapsed_sec", "loader")
@@ -4742,9 +5390,11 @@ def phase_imagenet_main_path(dev, workdir: str, card: str) -> dict:
                      f"{IMAGENET_TRACE[0] + 1}-{IMAGENET_TRACE[1]} profiled, device_idle_share = "
                      "1 - the union of all device activity (the decoder's nvJPEG kernels and "
                      "copies included) over their wall, training_idle_share = 1 - the union "
-                     "over the streams that are not the decoder's; the window opens with "
-                     f"{PRIMING_LAUNCHES} empty kernels (prime_profiler), counted in its "
-                     "runtime calls and unions"}
+                     "over the streams that are not the decoder's; the profiler warms up "
+                     f"over the {IMAGENET_TRACE_WARMUP} steps before, and the window opens "
+                     f"with {PRIMING_LAUNCHES} empty kernels spread over ~0.33 s "
+                     "(prime_profiler), counted in its runtime calls; the unions start at "
+                     "the last of them on the device's clock"}
     emit(out)
     if problems:
         fail("imagenet_main_path: " + "; ".join(problems))
@@ -5751,6 +6401,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as workdir:
             phase_fleet_search(workdir, card, phase_search_main_path(dev, workdir, card))
         return 0
+    if sys.argv[1:2] == ["--control-only"]:  # the search and the control loop alone
+        _kernels.load_libraries()
+        print(card, flush=True)
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_control_main_path(workdir, card, phase_search_main_path(dev, workdir, card))
+        return 0
 
     t0 = time.perf_counter()
     _kernels.load_libraries()
@@ -5785,6 +6441,7 @@ def main() -> int:
         search = phase_search_main_path(dev, workdir, card)
         phase_search_runtime(dev, workdir, card, search)
         fleet = phase_fleet_search(workdir, card, search)
+        control = phase_control_main_path(workdir, card, search)
     train_t = phase_train_times(dev, rn, card)
     del rn
     torch.cuda.empty_cache()
@@ -5827,13 +6484,14 @@ def main() -> int:
                 "train_and_eval_wrn40_2": flagship["launches"][kernel],
                 "search_wrn40_2": search["launches"][kernel],
                 "fleet_search_workqueue": fleet["workqueue"][kernel],
-                "fleet_search_transport": fleet["transport"][kernel], **zoo_by_path(kernel),
+                "fleet_search_transport": fleet["transport"][kernel],
+                "control_loop": control["launches"][kernel], **zoo_by_path(kernel),
                 "device_cache_wrn40_2_arms": cached[kernel],
                 "imagenet_resnet50_jpeg": imagenet_launches[kernel]}
 
     sampler_paths, noise_paths = by_path("sampler"), by_path("train_noise")
     silent = [p for p in ("serve", "serve_plane", "tta", "search_wrn40_2",
-                          "fleet_search_workqueue", "fleet_search_transport",
+                          "fleet_search_workqueue", "fleet_search_transport", "control_loop",
                           "imagenet_resnet50_jpeg") if not sampler_paths[p]]
     silent += [p for p in ("train_resnet50", "train_and_eval_wrn40_2", "search_wrn40_2",
                            "fleet_search_workqueue", "device_cache_wrn40_2_arms",
@@ -5841,6 +6499,8 @@ def main() -> int:
                if not noise_paths.get(p)]
     silent += [f"{p} ({k})" for p in ("workqueue", "transport") for k in ("augment", "cifar_stack")
                if not fleet[p][k]]
+    silent += [f"control_loop ({k})" for k in ("augment", "cifar_stack")
+               if not control["launches"][k]]
     if silent:
         fail(f"paths that never launched the sampler or the train noise: {silent}")
     print(card, flush=True)
@@ -5852,8 +6512,8 @@ def main() -> int:
         + graph_launches["augment"]
         + train_path["launches"]["augment"] + flagship["launches"]["augment"]
         + search["launches"]["augment"] + fleet["workqueue"]["augment"]
-        + fleet["transport"]["augment"] + zoo_launches["augment"] + cached["augment"]
-        + imagenet_launches["augment"],
+        + fleet["transport"]["augment"] + control["launches"]["augment"]
+        + zoo_launches["augment"] + cached["augment"] + imagenet_launches["augment"],
         "launches_by_path": {"serve": main_path["launches"],
                              "serve_plane": plane["launches"],
                              "tta": tta_path["launches"]["augment"],
@@ -5863,6 +6523,7 @@ def main() -> int:
                              "search_wrn40_2": search["launches"]["augment"],
                              "fleet_search_workqueue": fleet["workqueue"]["augment"],
                              "fleet_search_transport": fleet["transport"]["augment"],
+                             "control_loop": control["launches"]["augment"],
                              **zoo_by_path("augment"),
                              "device_cache_wrn40_2_arms": cached["augment"],
                              "imagenet_resnet50_jpeg": imagenet_launches["augment"]},
@@ -5884,14 +6545,15 @@ def main() -> int:
         "launches": tta_path["launches"]["cifar_stack"] + graph_launches["cifar_stack"]
         + flagship["launches"]["cifar_stack"]
         + search["launches"]["cifar_stack"] + fleet["workqueue"]["cifar_stack"]
-        + fleet["transport"]["cifar_stack"] + zoo_launches["cifar_stack"]
-        + cached["cifar_stack"] + imagenet_launches["cifar_stack"],
+        + fleet["transport"]["cifar_stack"] + control["launches"]["cifar_stack"]
+        + zoo_launches["cifar_stack"] + cached["cifar_stack"] + imagenet_launches["cifar_stack"],
         "launches_by_path": {"tta": tta_path["launches"]["cifar_stack"],
                              "tta_graphed_vs_eager": graph_launches["cifar_stack"],
                              "train_and_eval_wrn40_2": flagship["launches"]["cifar_stack"],
                              "search_wrn40_2": search["launches"]["cifar_stack"],
                              "fleet_search_workqueue": fleet["workqueue"]["cifar_stack"],
                              "fleet_search_transport": fleet["transport"]["cifar_stack"],
+                             "control_loop": control["launches"]["cifar_stack"],
                              **zoo_by_path("cifar_stack"),
                              "device_cache_wrn40_2_arms": cached["cifar_stack"],
                              "imagenet_resnet50_jpeg_eval": imagenet_launches["cifar_stack"]},

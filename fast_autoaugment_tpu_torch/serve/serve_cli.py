@@ -113,29 +113,19 @@ def build_policy_tensor(spec: str) -> np.ndarray:
     return np.asarray(policy_to_tensor(load_policy(spec)), np.float32)
 
 
-def provenance_path(policy_path: str) -> str:
-    """``.../final_policy.json`` -> ``.../final_policy.provenance.json``
-    (the sidecar a re-search writes next to its policy)."""
-    p = str(policy_path)
-    if p.endswith(".json"):
-        return p[:-len(".json")] + ".provenance.json"
-    return p + ".provenance.json"
-
-
 def load_policy_provenance(spec: str) -> dict | None:
-    """The provenance sidecar for a policy file, or None: archive names
-    and policies without a sidecar have none, and an unreadable sidecar
-    reads as None (serving never fails on provenance bookkeeping)."""
+    """The provenance sidecar for a policy file, or None.
+
+    ``<stem>.provenance.json`` next to ``<stem>.json`` (the control
+    plane's re-search writes it; ``control/research.py`` owns the schema
+    and the path rule); archive names and policies without a sidecar
+    have none, and an unreadable sidecar reads as None (serving never
+    fails on provenance bookkeeping)."""
     if not spec or not str(spec).endswith(".json") or not os.path.exists(spec):
         return None
-    path = provenance_path(spec)
-    if not os.path.exists(path):
-        return None
-    prov = fsfault.read_json(path)
-    if prov is None:
-        logger.warning("unreadable provenance sidecar %s", path)
-        return None
-    return prov if isinstance(prov, dict) else None
+    from fast_autoaugment_tpu_torch.control.research import load_provenance
+
+    return load_provenance(spec)
 
 
 def seed_keys(seeds) -> np.ndarray:

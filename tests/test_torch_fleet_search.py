@@ -321,12 +321,21 @@ ARGS = ["-c", CONF, "--num-fold", "2", "--folds", "1", "--num-search", "2", "--n
         "--device", "cpu"]
 
 
-def test_one_host_workqueue_search_equals_the_plain_search(tmp_path):
+@pytest.fixture
+def two_threads():
+    """Torch on 2 threads, put back afterwards: float32 results move with
+    the count, and the next file in the same test worker runs on its own."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_one_host_workqueue_search_equals_the_plain_search(tmp_path, two_threads):
     """One host through the lease queue (the fleet launcher's rank suffix
     included): every unit done once, a clean accounting, and the plain
     search's trial log (per fold) and final policy, byte for byte (one fold
     of two, no audit: the queue's protocol, at a small cost)."""
-    torch.set_num_threads(2)
     plain = SC.main(ARGS + ["--save-dir", str(tmp_path / "plain"), "epoch=1"])
     queued = SC.main(ARGS + ["--save-dir", str(tmp_path / "q"), "--workqueue",
                              str(tmp_path / "wq"), "epoch=1", "--coordinator", "x:1",

@@ -230,8 +230,17 @@ def _search(tmp, name, **kw):
     return res, trials, final
 
 
-def test_search_with_the_pipeline_equals_the_serial_search(tmp_path):
+@pytest.fixture
+def two_threads():
+    """Torch on 2 threads, put back afterwards: float32 results move with
+    the count, and the next file in the same test worker runs on its own."""
+    n = torch.get_num_threads()
     torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_search_with_the_pipeline_equals_the_serial_search(tmp_path, two_threads):
     off = _search(tmp_path, "off")
     on = _search(tmp_path, "on", async_pipeline="on", pipeline_actors=2,
                  pipeline_queue_depth=1, watchdog="auto")

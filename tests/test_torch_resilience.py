@@ -55,6 +55,7 @@ PRE_CONF = {"model": {"type": "wresnet10_1"}, "dataset": "synthetic",
 
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
+    threads = torch.get_num_threads()
     torch.set_num_threads(2)
     monkeypatch.delenv("FAA_FAULT", raising=False)
     F.reset()
@@ -62,6 +63,7 @@ def _clean(monkeypatch):
     yield
     F.reset()
     R.clear_preemption()
+    torch.set_num_threads(threads)  # float32 results move with the count
 
 
 def _fault(monkeypatch, spec):

@@ -704,10 +704,10 @@ def test_chip_smoke_resnet50_constants_match_the_config():
 
 
 def test_training_modules_import_nothing_the_card_lacks():
-    """The training, search, model-zoo, runtime, serving, ImageNet data and
-    fleet slices' modules and ``chip_smoke.py`` import in a fresh
-    interpreter without JAX, flax, the JAX package, sklearn, PyYAML,
-    msgpack or PIL."""
+    """The training, search, model-zoo, runtime, serving, ImageNet data,
+    fleet and control-loop slices' modules and ``chip_smoke.py`` import in
+    a fresh interpreter without JAX, flax, the JAX package, sklearn,
+    PyYAML, msgpack or PIL."""
     mods = ["fast_autoaugment_tpu_torch.train.trainer", "fast_autoaugment_tpu_torch.train.steps",
             "fast_autoaugment_tpu_torch.ops.optim", "fast_autoaugment_tpu_torch.ops.schedules",
             "fast_autoaugment_tpu_torch.ops.preprocess_imagenet",
@@ -736,6 +736,10 @@ def test_training_modules_import_nothing_the_card_lacks():
     # the fleet tier and the TensorBoard bridge
     mods += ["fast_autoaugment_tpu_torch." + m for m in (
         "launch.fleet", "launch.workqueue", "utils.tb_events")]
+    # the closed control loop
+    mods += ["fast_autoaugment_tpu_torch." + m for m in (
+        "control", "control.drift", "control.research", "control.canary", "control.resume",
+        "control.loop", "launch.control_cli")]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
