@@ -6,6 +6,7 @@
     python3 chip_smoke.py --sampler-only
     python3 chip_smoke.py --fleet-only
     python3 chip_smoke.py --control-only
+    python3 chip_smoke.py --gameday-only
     python3 chip_smoke.py --pair-with OTHER_CHECKOUT
 
 Run from the root of a checkout; it needs one CUDA card and ``nvcc``.  With
@@ -21,8 +22,9 @@ each printing one JSON line:
    differing elements: the augmentation kernel (all 19 ops forced on with
    both mirror signs over a sweep of levels, then random draws under all
    six policy archives, at 128x32x32, 4x17x23, 128x224x224, 3x225x223 (bands
-   of unequal height), 2x496x300 (clusters of 16 at one block per SM) and
-   2x520x300 (too large for a cluster: one launch per slot); at 224x224
+   of unequal height), 2x496x300 (clusters of 16 at one block per SM),
+   2x520x300 (too large for a cluster: one launch per slot) and 8x8x8 (the
+   game days' serving call); at 224x224
    with clusters of 8 and of 16 blocks; one launch per call on the cluster
    path; every cluster size resident at its largest band) and the CIFAR
    stack kernel (``k5_vs_plain``: every crop offset and flip bit, cutout
@@ -40,8 +42,10 @@ each printing one JSON line:
    (K8) of ``csrc/sampler.cu`` against their plain versions on the card and
    against the CPU, bitwise, at the main path's shapes (``sampler_vs_plain``:
    exact draws at 1, 8, 32 and 128 lanes of 32x32 and 1 and 8 of 224x224,
-   the grouped serving call at 128 with 8 groups, the TTA step's 5 draw keys
-   x 128 lanes with 1-3 slots exact and grouped, the ImageNet train step's
+   the grouped serving call at 128 with 8 groups, the game days' serving
+   call of 8 images of 8x8 exact (a single-sub policy) and grouped, the TTA
+   step's 5 draw keys x 128 lanes with 1-3 slots exact and grouped, the
+   ImageNet train step's
    128 lanes at 224x224 exact and grouped, each zoo model's noise at its
    preset's batch, 4096 Beta(0.2) draws, permutations of 1, 64, 128 and
    4096, the key entry), one launch a call, with their times by CUDA-graph
@@ -86,8 +90,8 @@ each printing one JSON line:
    1 augmentation launch and 1 CIFAR stack launch per step call; then
    the same steps with the plain versions of both kernels on the card
    (augmented lanes bitwise, fields equal under
-   ``cudnn.deterministic``) and each batched candidate against ``eval_tta``
-   of that candidate alone;
+   ``cudnn.deterministic``) and the first and last batched candidates
+   against ``eval_tta`` of that candidate alone;
 5. times beside the card's name and power limit: requests/s and p50/p99
    latency of a closed-loop burst (inside phase 3, before the drain); the
    augmentation kernel per dispatch at each serving shape; a
@@ -112,7 +116,11 @@ each printing one JSON line:
    and every tensor of the model bitwise).  ``train_flagship`` runs ``train_and_eval``
    with the flagship WRN-40-2 config on ``synthetic`` (2 epochs of 4 steps,
    evaluation every epoch; the default device cache, a CUDA-graph replay a
-   step) and checks its result dict and launch counts;
+   step) and checks its result dict and launch counts, then resumes it from
+   an imported checkpoint (the reference importer's ``imported_from``
+   record, written on the card: only the last epoch trains, the step at the
+   resume epoch, the EMA seeded from the imported weights, the launches
+   predicted);
 7. the search (``search_main_path``): ``launch/search_cli.py main`` with
    ``confs/wresnet40x2_cifar.yaml`` at full width (WRN-40-2) on the offline
    ``synthetic_shapes`` data, cut in depth (:data:`SEARCH_FLAGS`,
@@ -152,8 +160,8 @@ each printing one JSON line:
    with K1 and K5 (CIFAR) or K1 and K6 (EfficientNet, mixup 0.2, seeded
    uint8 224x224 batches): 3 steps with the kernels against 3 with the
    plain versions under deterministic cuDNN (bitwise), launches against
-   the plans, then the median of 6 timed steps, images/s, peak memory and
-   a profiled trace of 1 step (idle share, stages, CondConv's share);
+   the plans, then the median of 4 timed steps, images/s, peak memory and
+   a profiled trace of 2 steps (idle share, stages, CondConv's share);
    ``zoo_train_cli`` runs ``launch/train_cli.py`` on
    ``confs/shake26_2x96d_cifar.yaml`` with ``dataset=synthetic epoch=1``,
    saving, then with ``--only-eval`` (result keys, digest, equal metrics);
@@ -208,7 +216,20 @@ each printing one JSON line:
    the re-search's kernel launches against their predictions; detection
    latency, re-search wall, canary -> verdict wall, requests/s and p50/p99
    before the drift, during the canary and after the promotion.
-   ``--control-only`` runs the search and this phase alone.
+   ``--control-only`` runs the search and this phase alone;
+14. the game days (``gameday_main_path``, :func:`phase_gameday_main_path`):
+   ``launch/gameday_cli.py --suite --smoke --device cuda`` as a subprocess,
+   every registered scenario at the JAX package's smoke factor 0.4 over a
+   live plane of the port's replicas on the card (8x8 images at shapes 1, 4,
+   8) behind ``router_cli``, with the autoscaler and ``control_cli`` where a
+   scenario has them, flash crowds, cohort rotation over the tenant LRU, a
+   SIGKILLed canary, drift, shared-FS faults; the suite green, the broken
+   no-shedding flash crowd failing on ``shed_not_hang``, the schedules'
+   digests, no shm region left, every replica on the card and its K7 and K1
+   launches as predicted (a warm-up call a graph build, one replay a
+   dispatch); a line a scenario (elapsed, bring-up, offered/ok/shed/hung,
+   p50/p99, goodput, scale-ups, the control decision).
+   ``--gameday-only`` runs this phase alone.
 
 The last two lines are the ``kernels`` summary and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero with
@@ -240,10 +261,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 #: K1's check shapes: serving and TTA (one block per image), odd sizes, the
 #: train shape (a cluster per image), bands of unequal height, the tallest
-#: image that fits clusters of 16, and an image too large for a cluster (one
-#: launch per slot)
+#: image that fits clusters of 16, an image too large for a cluster (one
+#: launch per slot), and the game days' serving call (8 images of 8x8)
 SHAPES = ((128, 32, 32), (4, 17, 23), (128, 224, 224), (3, 225, 223), (2, 496, 300),
-          (2, 520, 300))
+          (2, 520, 300), (8, 8, 8))
 #: K1's two kernels (csrc/augment.cu): the cluster path and the per-slot path
 K1_KERNELS = ("augment_kernel", "augment_slot_kernel")
 
@@ -2006,7 +2027,7 @@ def phase_tta_main_path(dev, st: dict) -> dict:
         fail(f"TTA step with kernels vs plain versions: {lanes_diff} lane elements differ, "
              f"fields {res}")
 
-    # each batched candidate against eval_tta of that candidate alone: the
+    # batched candidates against eval_tta of that candidate alone: the
     # forwards run at batch sizes 2560 and 640, whose cuDNN algorithms may
     # round differently; a top-1 can flip only where two logits are that close
     single = [tta.eval_tta(step, batches, st["candidates"][k], st["keys"][k]) for k in range(4)]
@@ -2574,6 +2595,14 @@ def phase_sampler_vs_plain(dev) -> dict:
     cases["grouped_128x32_g8"] = (
         "sampler", lambda k, d: aug.sample_grouped(k[0], 128, 8, cifar_sub, 2, 32, 32),
         lambda k, d: aug.sample_grouped_plain(k[0], 128, 8, cifar_sub, 2, 32, 32), keys(1))
+    # the game days' serving call: 8 images of 8x8 under their generated
+    # single-sub policies (exact dispatch, serve_cli's "auto"), and grouped
+    cases["gameday_exact_8x8_1sub"] = (
+        "sampler", lambda k, d: aug.sample_exact(k, 1, 2, 8, 8),
+        lambda k, d: aug.sample_exact_plain(k, 1, 2, 8, 8), keys(8))
+    cases["gameday_grouped_8x8_g8"] = (
+        "sampler", lambda k, d: aug.sample_grouped(k[0], 8, 8, cifar_sub, 2, 8, 8),
+        lambda k, d: aug.sample_grouped_plain(k[0], 8, 8, cifar_sub, 2, 8, 8), keys(1))
     for num_op in (1, 2, 3):
         for dispatch in ("exact", "grouped"):
             kw = dict(batch=128, num_sub=cifar_sub, num_op=num_op, height=32, width=32,
@@ -4526,6 +4555,158 @@ def phase_control_main_path(workdir: str, card: str, serial: dict) -> dict:
     return {"launches": _sum_launches([replica_total, research_launches]), **out}
 
 
+# ------------------------------------------------------------ game days
+
+#: the device every game-day replica serves on (a CPU rehearsal puts "cpu")
+GAMEDAY_DEVICE = "cuda"
+#: the JAX package's smoke factor (``make gameday-smoke``)
+GAMEDAY_SMOKE = 0.4
+#: the longest the smoke suite may take (seconds)
+GAMEDAY_TIMEOUT_S = 600
+
+
+def _gameday_replica_launches(rep: dict) -> tuple[dict, dict, dict]:
+    """A game-day replica's launch counters against the prediction: every
+    graph build (the start, each reload, each tenant admit) is a warm-up
+    call a padded shape, every dispatch one CUDA-graph replay of one K7 and
+    ``augment_plan`` K1 launches; nothing else.  Returns ``(launches,
+    expected launches, expected warm-up launches)``."""
+    from fast_autoaugment_tpu_torch.ops import _kernels
+
+    image = 8  # scenario.Plane.image of every registered scenario
+    per_call = _kernels.augment_plan(image, image, int(rep["num_op"])).launches
+    warm = len(rep["shapes"]) * (1 + int(rep["reloads"]) + int(rep["tenant_admits"]))
+    want, want_warm = dict.fromkeys(ALL_KERNELS, 0), dict.fromkeys(ALL_KERNELS, 0)
+    want.update(augment=per_call * (warm + int(rep["dispatches"])),
+                sampler=warm + int(rep["dispatches"]))
+    want_warm.update(augment=per_call * warm, sampler=warm)
+    return rep["kernel_launches"], want, want_warm
+
+
+def phase_gameday_main_path(workdir: str, card: str) -> dict:
+    """``gameday_main_path``: the port's ``launch/gameday_cli.py --suite
+    --smoke --device cuda --keep`` as a subprocess (every registered
+    scenario at the JAX package's smoke factor, each over a live plane of
+    the port's ``serve_cli`` replicas on the card behind ``router_cli``,
+    with the autoscaler and ``control_cli`` where the scenario has them).
+    Checks: exit 0 (the suite green); every ``expect="pass"`` scenario
+    passes every predicate; ``flash-crowd-10x-noshed`` fails with
+    ``shed_not_hang`` among its failing rows; each record's schedule digest
+    is ``schedule_digest`` of ``scaled(scenario, 0.4)`` at its seed;
+    ``no_shm_leak`` holds everywhere; every replica of every scenario
+    reported (its ``serve_exit`` mark, or its ``/stats`` before a SIGKILL;
+    a replica the autoscaler started too late to enter the router's
+    rotation, and whose scale-down ended it by SIGTERM or SIGKILL before it
+    could journal, served nothing and has no counters: it is listed as
+    ``never_served`` with that exit; any other end fails) and ran on the card; its K7
+    and K1 launches equal
+    :func:`_gameday_replica_launches`' prediction, and no replica launched
+    K5, K6 or K8.  Prints a line a scenario: elapsed and bring-up seconds,
+    offered/completed/ok/shed/hung, p50/p99 of the answered requests,
+    goodput, scale-ups and the control decision."""
+    import glob
+
+    from fast_autoaugment_tpu_torch.gameday import SCENARIOS, build_schedule, scaled
+    from fast_autoaugment_tpu_torch.gameday import schedule_digest
+
+    t_phase = time.time()
+    root = os.path.join(workdir, "gameday")
+    os.makedirs(root)
+    out_json, log = os.path.join(root, "gameday.json"), os.path.join(root, "gameday.log")
+    argv = [sys.executable, "-m", "fast_autoaugment_tpu_torch.launch.gameday_cli", "--suite",
+            "--smoke", "--smoke-factor", str(GAMEDAY_SMOKE), "--device", GAMEDAY_DEVICE,
+            "--out", out_json, "--keep"]
+    # the runner's scenario dirs go under `root` (tempfile reads TMPDIR); its
+    # own session, so that a timeout stops every process of the suite
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(argv, cwd=REPO, env=dict(os.environ, TMPDIR=root), stdout=fh,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=GAMEDAY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            fail(f"gameday_main_path: the suite ran past {GAMEDAY_TIMEOUT_S} s: {_tail(log)}")
+    wall = time.time() - t_phase
+    if not os.path.exists(out_json):
+        fail(f"gameday_main_path: exit {rc} and no suite JSON: {_tail(log)}")
+    suite = _read_json(out_json)
+    kept = glob.glob(os.path.join(root, "faa-gameday-*"))
+    problems, rows = [], []
+    totals = dict.fromkeys(ALL_KERNELS, 0)
+    by_name = {r["scenario"]: r for r in suite["records"]}
+    if sorted(by_name) != sorted(SCENARIOS) or len(kept) != 1:
+        problems.append(f"records {sorted(by_name)} of {sorted(SCENARIOS)}, kept dirs {kept}")
+    for name, rec in by_name.items():
+        spec = scaled(SCENARIOS[name], GAMEDAY_SMOKE)
+        failing = [r["predicate"] for r in rec["predicates"] if not r["ok"]]
+        rep = rec.get("report") or {}
+        journal = _journal(os.path.join(kept[0], name, "telemetry")) if kept else []
+        terminal = [e for e in journal if e["type"] in ("promote", "rollback")]
+        replicas = rec.get("replicas") or {}
+        launch_rows = {}
+        for tag, r in replicas.items():
+            if r.get("source") == "never_served":  # stopped while it started
+                launch_rows[tag] = r
+                if r.get("cause") != "scale_down" or r.get("exit_code") not in (
+                        -signal.SIGTERM, -signal.SIGKILL):
+                    problems.append(f"{name}: {tag} never served and was not stopped ({r})")
+                continue
+            if r.get("source") not in ("serve_exit", "killed_stats"):
+                problems.append(f"{name}: {tag} left no launch counters ({r})")
+                continue
+            got, want, want_warm = _gameday_replica_launches(r)
+            launch_rows[tag] = {"source": r["source"], "device": r["device"],
+                                "dispatches": r["dispatches"], "reloads": r["reloads"],
+                                "tenant_admits": r["tenant_admits"], "launches": got,
+                                "expected": want}
+            for k in ALL_KERNELS:
+                totals[k] += got.get(k, 0)
+            if not str(r["device"]).startswith(GAMEDAY_DEVICE):
+                problems.append(f"{name}: {tag} served on {r['device']}")
+            if launches_differ(got, want) or launches_differ(r["kernel_launches_warmup"],
+                                                             want_warm):
+                problems.append(f"{name}: {tag} launches {got} (warm-up "
+                                f"{r['kernel_launches_warmup']}) != {want} ({want_warm})")
+        checks = {
+            "no_harness_error": rec.get("error") is None,
+            "verdict_as_expected": rec["ok_as_expected"]
+            and (not failing if spec.expect == "pass" else "shed_not_hang" in failing),
+            "schedule_digest": rec["schedule_digest"] == schedule_digest(
+                build_schedule(spec.traffic, spec.seed)),
+            "no_shm_leak": "no_shm_leak" not in failing and rep.get("shm_leftover") == [],
+            "on_the_card": rec.get("device") == GAMEDAY_DEVICE and any(
+                r.get("source") != "never_served" for r in replicas.values()),
+        }
+        line = {"phase": "gameday_main_path", "part": name, "card": card, "checks": checks,
+                "expect": spec.expect, "pass": rec["pass"], "failing": failing,
+                "elapsed_s": rec.get("elapsed_s"), "bring_up_s": rec.get("bring_up_s"),
+                **{k: rep.get(k) for k in ("offered", "completed", "ok", "shed",
+                                           "transport_errors", "p50_ms_ok", "p99_ms_ok",
+                                           "goodput")},
+                "scale_ups": sum(e["type"] == "scale_up" for e in journal),
+                "scale_downs": sum(e["type"] == "scale_down" for e in journal),
+                "control_decision": terminal[-1]["type"] if terminal else None,
+                "killed": rec.get("killed"), "exit_codes": rec.get("exit_codes"),
+                "replicas": launch_rows}
+        emit(line)
+        rows.append(line)
+        if not all(checks.values()):
+            problems.append(f"{name}: {[k for k, v in checks.items() if not v]}")
+    if totals["train_noise"] or totals["cifar_stack"] or totals["imagenet_stack"]:
+        problems.append(f"the game day launched K5, K6 or K8: {totals}")
+    out = {"phase": "gameday_main_path", "part": "summary", "card": card, "rc": rc,
+           "suite_green": suite.get("suite_green"), "wall_s": wall,
+           "smoke_factor": suite.get("smoke_factor"), "launches": totals,
+           "table": suite.get("table")}
+    emit(out)
+    if rc != 0 or not suite.get("suite_green"):
+        problems.append(f"gameday_cli exited {rc}, suite_green {suite.get('suite_green')}")
+    if problems:
+        fail("gameday_main_path: " + "; ".join(problems) + "\n" + _tail(log, 4000))
+    return out
+
+
 # ------------------------------------------------------------ train path
 
 TRAIN_STAGES = ("train.sampler", "train.augment", "train.model", "train.optimizer")
@@ -4893,6 +5074,69 @@ def phase_train_flagship(dev) -> dict:
         fail(f"train_and_eval result is malformed: {sorted(result)}")
     if launches_differ(counts, want) or result["epoch"] != 2 or result["num_test"] != 256:
         fail(f"train_and_eval launch counts {counts} != {want}, or epochs/counts wrong")
+    out["imported"] = _train_flagship_imported(dev, conf)
+    return out
+
+
+def _train_flagship_imported(dev, conf: dict) -> dict:
+    """The flagship resumed from an imported checkpoint: a WRN-40-2
+    checkpoint with the reference importer's record (``imported_from``,
+    ``has_ema`` false; weights and BatchNorm statistics of a seeded model,
+    no optimizer state, epoch 1) written on the card by the port's writer,
+    then ``train_and_eval`` with an EMA of 0.999 resumed from it for the last
+    epoch, and once more from the file at the last epoch (an evaluation).
+    Checks: only epoch 2 trains, the step after it is 2 epochs' (the
+    schedule placed at the resume epoch), the EMA is seeded from the imported
+    weights (the evaluation's EMA metrics equal its raw ones), and K1, K5 and
+    K8 launch as :func:`_dispatch_expected_launches` predicts (the EMA
+    evaluates each test batch twice)."""
+    import tempfile
+
+    from fast_autoaugment_tpu_torch.core.checkpoint import read_metadata, save_checkpoint
+    from fast_autoaugment_tpu_torch.models import get_model
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.ops.optim import build_optimizer
+    from fast_autoaugment_tpu_torch.train.steps import create_train_state
+    from fast_autoaugment_tpu_torch.train.trainer import train_and_eval
+    from fast_autoaugment_tpu_torch.utils.interop import train_state_to_flax
+
+    conf = dict(conf, optimizer=dict(conf["optimizer"], ema=0.999))
+    spe, evals = 512 // conf["batch"], 2 * -(-256 // conf["batch"])
+    model = get_model(dict(conf["model"], dataset="synthetic"), 10, device=dev, seed=7)
+    opt = build_optimizer(conf["optimizer"], lambda c: 0.0)
+    tree = train_state_to_flax(create_train_state(model, opt, use_ema=False), opt)
+    meta = {"epoch": 1, "imported_from": "wrn40_2.pth", "has_ema": False}
+    runs, counts = {}, dict.fromkeys(ALL_KERNELS, 0)
+    with tempfile.TemporaryDirectory() as d:
+        for name, epochs in (("train", 2), ("eval", 1)):
+            path = os.path.join(d, f"{name}.msgpack")
+            save_checkpoint(path, {k: tree[k] for k in ("step", "params", "batch_stats")},
+                            meta)
+            _kernels.reset_launch_counts()
+            result = train_and_eval(dict(conf, epoch=epochs), "", save_path=path,
+                                    evaluation_interval=1, device=dev)
+            got = _kernels.launch_counts()
+            counts = {k: counts[k] + got[k] for k in ALL_KERNELS}
+            runs[name] = {"result": result, "launches": got, "meta": read_metadata(path)}
+    want = {"train": _dispatch_expected_launches(spe, 1, 1, evals, True),
+            "eval": {"cifar_stack": evals}}
+    train, ev = runs["train"], runs["eval"]
+    checks = {
+        "only_epoch_2_trained": train["result"]["epoch"] == 2 and train["meta"]["epoch"] == 2
+        and "imported_from" not in train["meta"],
+        "step_at_resume_epoch": train["meta"]["step"] == 2 * spe,
+        "ema_seeded_from_imported": ev["result"]["epoch"] == 1
+        and "loss_train" not in ev["result"] and all(
+            ev["result"][f"{m}_test_ema"] == ev["result"][f"{m}_test_raw"]
+            for m in ("loss", "top1", "top5")),
+        "finite": all(np.isfinite(v) for r in runs.values() for v in r["result"].values()),
+        "launches": not any(launches_differ(runs[k]["launches"], want[k]) for k in runs),
+    }
+    out = {"phase": "train_flagship", "part": "imported_resume", "checks": checks,
+           "launches": counts, "expected_launches": want, "runs": runs}
+    emit(out)
+    if not all(checks.values()):
+        fail(f"train_flagship imported resume: {[k for k, v in checks.items() if not v]}")
     return out
 
 
@@ -5414,10 +5658,10 @@ ZOO = (("shakeshake26_2x96d", "confs/shake26_2x96d_cifar.yaml", {}),
         {"model.type": "efficientnet-b0-condconv"}))
 ZOO_EQUAL_STEPS = 3
 #: the zoo's warm-up, timed and traced steps (3, 10 and 3 before the
-#: ImageNet phase joined the script)
+#: ImageNet phase joined the script, 2, 6 and 3 before the game days)
 ZOO_WARMUP_STEPS = 2
-ZOO_TIMED_STEPS = 6
-ZOO_TRACE_STEPS = 3
+ZOO_TIMED_STEPS = 4
+ZOO_TRACE_STEPS = 1
 #: the train_cli run of the zoo: the paper's Shake-Shake preset, one epoch
 ZOO_CLI_CONF = "confs/shake26_2x96d_cifar.yaml"
 
@@ -5807,7 +6051,8 @@ DISPATCH_N = 8
 #: steps timed between the first dispatch and the epoch's remainder, and
 #: steps traced: one dispatch of 8; 2 of the host feed, whose 3,300 runtime
 #: calls a step cost the profiler's post-processing about 3 s a step
-DISPATCH_TIMED_STEPS = 48  # 96 before the ImageNet phase joined the script
+#: 96 before the ImageNet phase joined the script, 48 before the game days
+DISPATCH_TIMED_STEPS = 32
 DISPATCH_TRACE_STEPS = {"host_fed": 2, "n1": 8, "n8": 8}
 #: K1 or K5 records the profiler may lose from a traced stretch
 LOST_RECORDS = 1
@@ -5981,7 +6226,7 @@ def _dispatch_times(dev, card: str) -> dict:
     graph of the step), the cache at N = 1 and at
     N = 8 (dispatches of 8 and the epoch's remainder of 6; both replay one
     graph of a step).  Each arm runs the first 8 steps of an epoch (the
-    graph's capture), then 48 steps timed on the host's clock, synchronized
+    graph's capture), then 32 steps timed on the host's clock, synchronized
     at the ends, then the epoch's last 6; then 8 steps of the next epoch (2
     of the host feed) are traced for the device's idle share and the
     runtime calls that put work on the card per step; the peak memory is
@@ -6407,6 +6652,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as workdir:
             phase_control_main_path(workdir, card, phase_search_main_path(dev, workdir, card))
         return 0
+    if sys.argv[1:2] == ["--gameday-only"]:  # the game days alone
+        _kernels.load_libraries()
+        print(card, flush=True)
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_gameday_main_path(workdir, card)
+        return 0
 
     t0 = time.perf_counter()
     _kernels.load_libraries()
@@ -6442,6 +6693,7 @@ def main() -> int:
         phase_search_runtime(dev, workdir, card, search)
         fleet = phase_fleet_search(workdir, card, search)
         control = phase_control_main_path(workdir, card, search)
+        gameday = phase_gameday_main_path(workdir, card)
     train_t = phase_train_times(dev, rn, card)
     del rn
     torch.cuda.empty_cache()
@@ -6474,6 +6726,7 @@ def main() -> int:
 
     zoo_launches = {k: sum(zoo_by_path(k).values()) for k in ALL_KERNELS}
     cached = dispatch["launches"]  # the seven train_and_eval arms of the cache path
+    imported = flagship["imported"]["launches"]  # the resume from an imported checkpoint
 
     def by_path(kernel):
         return {"serve": main_path["sampler_launches"] if kernel == "sampler" else 0,
@@ -6485,22 +6738,28 @@ def main() -> int:
                 "search_wrn40_2": search["launches"][kernel],
                 "fleet_search_workqueue": fleet["workqueue"][kernel],
                 "fleet_search_transport": fleet["transport"][kernel],
-                "control_loop": control["launches"][kernel], **zoo_by_path(kernel),
+                "control_loop": control["launches"][kernel],
+                "gameday": gameday["launches"][kernel],
+                "train_and_eval_wrn40_2_imported": imported[kernel], **zoo_by_path(kernel),
                 "device_cache_wrn40_2_arms": cached[kernel],
                 "imagenet_resnet50_jpeg": imagenet_launches[kernel]}
 
     sampler_paths, noise_paths = by_path("sampler"), by_path("train_noise")
     silent = [p for p in ("serve", "serve_plane", "tta", "search_wrn40_2",
                           "fleet_search_workqueue", "fleet_search_transport", "control_loop",
-                          "imagenet_resnet50_jpeg") if not sampler_paths[p]]
+                          "gameday", "imagenet_resnet50_jpeg") if not sampler_paths[p]]
     silent += [p for p in ("train_resnet50", "train_and_eval_wrn40_2", "search_wrn40_2",
                            "fleet_search_workqueue", "device_cache_wrn40_2_arms",
-                           "imagenet_resnet50_jpeg", *zoo_by_path("augment"))
+                           "train_and_eval_wrn40_2_imported", "imagenet_resnet50_jpeg",
+                           *zoo_by_path("augment"))
                if not noise_paths.get(p)]
     silent += [f"{p} ({k})" for p in ("workqueue", "transport") for k in ("augment", "cifar_stack")
                if not fleet[p][k]]
     silent += [f"control_loop ({k})" for k in ("augment", "cifar_stack")
                if not control["launches"][k]]
+    silent += [f"gameday ({k})" for k in ("augment",) if not gameday["launches"][k]]
+    silent += [f"train_and_eval_wrn40_2_imported ({k})" for k in ("augment", "cifar_stack")
+               if not imported[k]]
     if silent:
         fail(f"paths that never launched the sampler or the train noise: {silent}")
     print(card, flush=True)
@@ -6513,6 +6772,7 @@ def main() -> int:
         + train_path["launches"]["augment"] + flagship["launches"]["augment"]
         + search["launches"]["augment"] + fleet["workqueue"]["augment"]
         + fleet["transport"]["augment"] + control["launches"]["augment"]
+        + gameday["launches"]["augment"] + imported["augment"]
         + zoo_launches["augment"] + cached["augment"] + imagenet_launches["augment"],
         "launches_by_path": {"serve": main_path["launches"],
                              "serve_plane": plane["launches"],
@@ -6524,6 +6784,8 @@ def main() -> int:
                              "fleet_search_workqueue": fleet["workqueue"]["augment"],
                              "fleet_search_transport": fleet["transport"]["augment"],
                              "control_loop": control["launches"]["augment"],
+                             "gameday": gameday["launches"]["augment"],
+                             "train_and_eval_wrn40_2_imported": imported["augment"],
                              **zoo_by_path("augment"),
                              "device_cache_wrn40_2_arms": cached["augment"],
                              "imagenet_resnet50_jpeg": imagenet_launches["augment"]},
@@ -6546,6 +6808,7 @@ def main() -> int:
         + flagship["launches"]["cifar_stack"]
         + search["launches"]["cifar_stack"] + fleet["workqueue"]["cifar_stack"]
         + fleet["transport"]["cifar_stack"] + control["launches"]["cifar_stack"]
+        + imported["cifar_stack"]
         + zoo_launches["cifar_stack"] + cached["cifar_stack"] + imagenet_launches["cifar_stack"],
         "launches_by_path": {"tta": tta_path["launches"]["cifar_stack"],
                              "tta_graphed_vs_eager": graph_launches["cifar_stack"],
@@ -6554,6 +6817,7 @@ def main() -> int:
                              "fleet_search_workqueue": fleet["workqueue"]["cifar_stack"],
                              "fleet_search_transport": fleet["transport"]["cifar_stack"],
                              "control_loop": control["launches"]["cifar_stack"],
+                             "train_and_eval_wrn40_2_imported": imported["cifar_stack"],
                              **zoo_by_path("cifar_stack"),
                              "device_cache_wrn40_2_arms": cached["cifar_stack"],
                              "imagenet_resnet50_jpeg_eval": imagenet_launches["cifar_stack"]},

@@ -40,8 +40,9 @@ from fast_autoaugment_tpu_torch.core.resilience import CheckpointCorruptError
 from fast_autoaugment_tpu_torch.utils import faultinject
 from fast_autoaugment_tpu_torch.utils.logging import get_logger
 
-__all__ = ["save_checkpoint", "load_checkpoint", "load_checkpoint_chain", "read_metadata",
-           "checkpoint_exists", "chain_paths", "CheckpointCorruptError", "DEFAULT_KEEP"]
+__all__ = ["save_checkpoint", "load_checkpoint", "load_checkpoint_chain", "lenient_merge",
+           "read_metadata", "checkpoint_exists", "chain_paths", "CheckpointCorruptError",
+           "DEFAULT_KEEP"]
 
 logger = get_logger("faa_torch.checkpoint")
 
@@ -160,6 +161,24 @@ def load_checkpoint(path: str, verify: bool = True) -> Any:
         return msgpack.unpackb(payload)
     except ValueError as e:
         raise CheckpointCorruptError(f"{path}: payload does not decode ({e})") from e
+
+
+def lenient_merge(template: Any, tree: Any) -> Any:
+    """`tree`'s fields merged onto `template` (``fast_autoaugment_tpu/core/
+    checkpoint.py:178-211``): the template's structure governs, a field the
+    template lacks (or holds as None) is dropped, a field the file lacks
+    keeps the template's value.  For files the reference importer wrote
+    (``tools/import_checkpoint.py``): weights, BatchNorm statistics and
+    maybe an EMA, but no optimizer state."""
+    if template is None:
+        return None
+    if not isinstance(template, dict) or not isinstance(tree, dict):
+        return tree if tree is not None else template
+    out = dict(template)
+    for k, v in tree.items():
+        if k in out:
+            out[k] = lenient_merge(out[k], v)
+    return out
 
 
 def load_checkpoint_chain(path: str, *, keep: int = DEFAULT_KEEP,

@@ -281,6 +281,20 @@ class AutoscalerPolicy:
 DEFAULT_REPLICA_CMD = (sys.executable, "-m", "fast_autoaugment_tpu_torch.serve.serve_cli")
 
 
+def _journal_exit(tag: str, exit_code: int | None, cause: str) -> None:
+    """Journal how a replica ended, as its supervisor saw it: a ``mark``
+    with ``event="replica_exit"``, its exit code (negative: the signal
+    that ended it; None: still running) and ``cause``, ``"scale_down"``
+    when the fleet stopped it, ``"exited"`` when it ended on its own.  A
+    replica stopped while it started journals nothing itself; this mark
+    tells that apart from one that failed to start."""
+    if cause != "scale_down":
+        logger.warning("fleet: %s exited on its own (exit %s)", tag, exit_code)
+    telemetry.emit("mark", f"autoscaler:{tag}", event="replica_exit",
+                   replica=tag, exit_code=exit_code, cause=cause)
+    telemetry.journal_flush()
+
+
 class LocalReplicaFleet:
     """The process actuator: serve_cli replicas as supervised local
     subprocesses (each replica gets ``FAA_HOST_ID``/``FAA_ATTEMPT`` and
@@ -291,7 +305,8 @@ class LocalReplicaFleet:
     ``scale_down`` SIGTERMs the NEWEST replica: serve_cli's graceful
     drain stops admitting, finishes in-flight requests, removes its
     discovery record and exits 0 — zero dropped in-flight requests by
-    construction (the serving exit contract)."""
+    construction (the serving exit contract).  Every replica's end is
+    journaled with its exit code (:func:`_journal_exit`)."""
 
     def __init__(self, replica_cmd: list[str] | None, port_dir: str, *,
                  extra_env: dict | None = None, tag_prefix: str = "replica"):
@@ -307,7 +322,13 @@ class LocalReplicaFleet:
         self._lock = threading.Lock()
 
     def _reap_locked(self) -> None:
-        self._procs = [(t, p) for t, p in self._procs if p.poll() is None]
+        live = []
+        for tag, p in self._procs:
+            if p.poll() is None:
+                live.append((tag, p))
+            else:  # it ended on its own: a crash, a failed start, a breaker exit
+                _journal_exit(tag, p.returncode, "exited")
+        self._procs = live
 
     def count(self) -> int:
         with self._lock:
@@ -340,10 +361,9 @@ class LocalReplicaFleet:
         logger.info("fleet: draining %s (SIGTERM graceful drain)", tag)
         try:
             p.send_signal(signal.SIGTERM)
-        except ProcessLookupError:
-            return tag
-        try:
             p.wait(timeout=drain_timeout)
+        except ProcessLookupError:
+            pass
         except subprocess.TimeoutExpired:
             logger.warning("fleet: %s did not drain in %.0fs — killing",
                            tag, drain_timeout)
@@ -352,6 +372,7 @@ class LocalReplicaFleet:
                 p.wait(timeout=5.0)
             except subprocess.TimeoutExpired:
                 logger.error("fleet: %s unkillable (zombie)", tag)
+        _journal_exit(tag, p.poll(), "scale_down")
         return tag
 
     def stop_all(self, drain_timeout: float = 10.0) -> None:

@@ -50,7 +50,9 @@ and serves:
   with the breaker closed.
 
 SIGTERM (or SIGINT) drains gracefully -- stop admitting, finish queued
-requests -- and exits 0.  ``--breaker-exit`` turns an open breaker into
+requests -- and exits 0.  With ``--telemetry`` the replica journals its
+last word as it exits: a ``mark`` with ``event="serve_exit"``, its device
+and its kernel launch counters.  ``--breaker-exit`` turns an open breaker into
 exit 77 ("restart me", ``core/resilience.py``).  ``--port-dir`` writes the
 replica's discovery record for the router (``serve/router.py``) and
 removes it on exit; ``--heartbeat-dir`` writes host beats.  The server
@@ -752,6 +754,24 @@ def _breaker_exit_loop(state: ServeState, poll_s: float = 0.2) -> None:
             return
 
 
+def _journal_exit(server, tag: str) -> None:
+    """Journal the replica's last word (a no-op with the journal off): a
+    ``mark`` with ``event="serve_exit"``, its device and its kernel launch
+    counters beside what predicts them (dispatches, reloads, tenant
+    admits), read after the server stopped, so no dispatch is in flight."""
+    from fast_autoaugment_tpu_torch.core import telemetry
+    from fast_autoaugment_tpu_torch.ops import _kernels
+    from fast_autoaugment_tpu_torch.serve.policy_server import warmup_launches
+
+    st = server.stats()
+    telemetry.emit("mark", f"serve:{tag}", event="serve_exit", replica=tag,
+                   device=st["device"], shapes=st["shapes"], num_op=st["num_op"],
+                   dispatches=st["dispatches"], reloads=st["reloads"],
+                   tenancy=st.get("tenancy"), kernel_launches=_kernels.launch_counts(),
+                   kernel_launches_warmup=warmup_launches())
+    telemetry.journal_flush()
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="fast-autoaugment policy-serving endpoint (PyTorch/CUDA)")
@@ -955,6 +975,7 @@ def main(argv=None) -> int:
         state.stop_event.set()
         httpd.server_close()
         server.stop()
+        _journal_exit(server, replica_tag)
         if port_dir_path is not None:
             try:
                 os.remove(port_dir_path)  # no stale discovery record

@@ -62,8 +62,11 @@ the metric sums so far).  A run resumes from the newest intact link: at
 the epoch after it, or, on the cache path, at the dispatch position of an
 ``in_epoch`` link (the host feed and an inconsistent record walk back to an
 epoch-boundary link, ``:466-497``); a run whose link is at the last epoch
-turns into an evaluation (``only_eval``).  The ``imported_from`` records
-of the reference importer are refused by name.
+turns into an evaluation (``only_eval``).  A checkpoint with the reference
+importer's ``imported_from`` record (weights, BatchNorm statistics, maybe
+an EMA; no optimizer state) resumes leniently, as in the JAX trainer
+(``:466-510``): its fields over a fresh state, the step at the resume
+epoch, the EMA seeded from the imported weights when the file has none.
 
 The runtime seams, as in the JAX trainer (``:158-215``, ``:618-877``):
 
@@ -103,8 +106,8 @@ import torch
 
 from fast_autoaugment_tpu_torch.core import telemetry
 from fast_autoaugment_tpu_torch.core.checkpoint import (
+    lenient_merge,
     load_checkpoint_chain,
-    read_metadata,
     save_checkpoint,
 )
 from fast_autoaugment_tpu_torch.core.compilecache import configure_compile_cache
@@ -129,7 +132,7 @@ from fast_autoaugment_tpu_torch.data.pipeline import (
     train_index_matrix,
 )
 from fast_autoaugment_tpu_torch.models import get_model, input_image_size, num_class
-from fast_autoaugment_tpu_torch.ops.optim import build_optimizer
+from fast_autoaugment_tpu_torch.ops.optim import build_optimizer, ema_tensors
 from fast_autoaugment_tpu_torch.ops.preprocess_imagenet import (
     center_crop_box,
     imagenet_eval_batch,
@@ -181,8 +184,16 @@ def resolve_policy_tensor(aug: Any) -> np.ndarray | None:
     return policy_to_tensor([list(map(tuple, sub)) for sub in aug])
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+@torch.no_grad()
+def _imported_fixups(state, meta: dict, step: int) -> None:
+    """A run resumed from an imported checkpoint (JAX ``train/trainer.py:
+    496-507``): the step placed at the resume epoch, so the schedule goes on
+    from its tail, not back at warmup; without an EMA in the file, the
+    shadow seeded from the imported weights, never from random init."""
+    state.step = int(step)
+    if state.ema is not None and not meta.get("has_ema"):
+        for name, t in ema_tensors(state.model).items():
+            state.ema[name].copy_(t)
 
 
 def _stacked_eval_splits(it: BatchIterator, batch: int, dev: torch.device) -> list:
@@ -452,10 +463,6 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
     retries_done = 0  # divergence retries taken (they fold the randomness)
     restored = None
     if save_path:
-        meta = read_metadata(save_path) or {}
-        if "imported_from" in meta:
-            _refuse(f"resuming from a checkpoint with an 'imported_from' record ({save_path})",
-                    "12")
         # mid-epoch links resume only where the dispatch position can be
         # fast-forwarded (the cache's index feed); the host feed walks back
         # to an epoch-boundary link
@@ -472,8 +479,15 @@ def train_and_eval(conf, dataroot: str, *, test_ratio: float = 0.0, cv_fold: int
                                                  accept=lambda m: "in_epoch" not in m)
     if restored is not None:
         tree, meta, used_path = restored
-        load_flax_train_state(tree, state, optimizer)
         epoch_start = int(meta.get("epoch", 0)) + 1
+        if meta.get("imported_from"):
+            # the reference importer's file holds no optimizer state: its
+            # fields merge onto the fresh state's tree
+            tree = lenient_merge(train_state_to_flax(state, optimizer), tree)
+            load_flax_train_state(tree, state, optimizer)
+            _imported_fixups(state, meta, (epoch_start - 1) * steps_per_epoch)
+        else:
+            load_flax_train_state(tree, state, optimizer)
         if meta.get("in_epoch"):
             resume_pos = int(meta["in_epoch"]["pos"])
             resume_sums = meta["in_epoch"].get("sums") or {}

@@ -23,7 +23,8 @@ Oracles and bounds:
 - ``train_and_eval`` with ``save_path``: a run stopped after epoch 1 and
   rerun ends bitwise equal to one uninterrupted run (the port against
   itself on the CPU); a complete checkpoint turns the rerun into an
-  evaluation; the scalar logs; the refused records.
+  evaluation; the scalar logs; the records it does not resume and the
+  lenient resume of an imported one.
 """
 
 import json
@@ -393,9 +394,14 @@ def test_train_and_eval_refuses_records_it_cannot_resume(tmp_path):
     path = str(tmp_path / "m.msgpack")
     with pytest.raises(FileNotFoundError):
         TR.train_and_eval(TRAIN_CONF, "", save_path=path, only_eval=True, device="cpu")
-    C.save_checkpoint(path, {"step": np.asarray(0, np.int32)}, {"epoch": 0, "imported_from": 1})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TR.train_and_eval(TRAIN_CONF, "", save_path=path, device="cpu")
+    # a record of the reference importer resumes leniently: the file's fields
+    # (here only the step) over a fresh state, the step at the resume epoch
+    C.save_checkpoint(path, {"step": np.asarray(5, np.int32)}, {"epoch": 0, "imported_from": 1})
+    got = TR.train_and_eval(dict(TRAIN_CONF, epoch=1), "", save_path=path, seed=3,
+                            device="cpu")
+    assert got["epoch"] == 1 and np.isfinite(got["loss_train"])
+    assert C.read_metadata(path)["step"] == 512 // 64 and "imported_from" not in \
+        C.read_metadata(path)
     # an inconsistent mid-epoch record is not resumed: the chain walks back to
     # an epoch-boundary link (none here), and the run trains from the start
     for mode in ("auto", "off"):

@@ -36,7 +36,10 @@ Oracles and bounds:
   ``synthetic`` with a WRN-10-1, one epoch, a 0.4 CV split, from the same
   initial weights and draws: the same result keys (the JAX compile-cache
   stamp aside), the same reporter call, counts exact, losses within 1e-4
-  relative and accuracies within one sample;
+  relative and accuracies within one sample; and both resumed from the same
+  imported checkpoint (the reference importer's ``imported_from`` record,
+  no optimizer state): the same step, the EMA seeded from the imported
+  weights, the metrics within the same bounds;
 - ``cv_split`` and ``_stratified_split`` against sklearn's
   ``StratifiedShuffleSplit``, and ``load_dataset`` of a CIFAR pickle
   directory against the JAX package's: equal arrays;
@@ -269,6 +272,52 @@ def jax_train_and_eval(job):
             "reporter": [{k: float(v) for k, v in c.items()} for c in calls]}
 
 
+#: the imported-checkpoint resume: the train conf with an EMA, 2 epochs;
+#: the file, written by the JAX package's checkpoint writer, holds the JAX
+#: init's weights and BatchNorm statistics at epoch 1 and no optimizer state
+IMPORTED_CONF = dict(TRAIN_CONF, epoch=2,
+                     optimizer=dict(TRAIN_CONF["optimizer"], ema=0.999))
+IMPORTED_META = {"epoch": 1, "imported_from": "x.pth", "has_ema": False}
+
+
+def _copy_checkpoint(src, dst):
+    import shutil
+
+    for suffix in ("", ".meta.json"):
+        shutil.copyfile(src + suffix, dst + suffix)
+    return dst
+
+
+def jax_imported_resume(job):
+    """Reference runner: JAX ``train_and_eval`` resumed from an imported
+    checkpoint (the shape of JAX ``tests/test_train.py
+    test_lenient_import_seeds_ema_and_schedule_position``), once to train
+    its last epoch and once with the file at the run's last epoch (an
+    evaluation); each run's result and sidecar."""
+    from fast_autoaugment_tpu.core.checkpoint import read_metadata, save_checkpoint
+    from fast_autoaugment_tpu.models import get_model
+    from fast_autoaugment_tpu.parallel.mesh import make_mesh
+    from fast_autoaugment_tpu.train.trainer import train_and_eval
+
+    conf, seed, d = job["conf"], job["seed"], job["dir"]
+    model = get_model(dict(conf["model"], dataset=conf["dataset"]), 10)
+    init = model.init({"params": jax.random.PRNGKey(seed + 100)},
+                      jnp.zeros((2, 32, 32, 3)), train=False)
+    src = os.path.join(d, "imported.msgpack")
+    save_checkpoint(src, {"step": 0, "params": init["params"],
+                          "batch_stats": init["batch_stats"]}, IMPORTED_META)
+    out = {"file": src}
+    for name, epochs in (("train", conf["epoch"]), ("eval", 1)):
+        path = _copy_checkpoint(src, os.path.join(d, f"jax_{name}.msgpack"))
+        result = train_and_eval(dict(conf, epoch=epochs), "", test_ratio=0.4, cv_fold=1,
+                                save_path=path, evaluation_interval=1,
+                                mesh=make_mesh(jax.devices()[:1]), seed=seed,
+                                device_cache="off")
+        out[name] = {"result": {k: v for k, v in result.items() if k != "compile_cache"},
+                     "meta": read_metadata(path)}
+    return out
+
+
 @pytest.fixture(scope="module")
 def refs(tmp_path_factory):
     jobs = []
@@ -279,11 +328,17 @@ def refs(tmp_path_factory):
                      "key": np.asarray(jax.random.PRNGKey(50 + i), np.uint32),
                      "batches": _batches(60 + i, STEPS, b, image, args[-1]),
                      "threefry_partitionable": PARTITIONABLE})
-    jobs.append({"runner": "test_torch_train:jax_train_and_eval", "conf": TRAIN_CONF,
-                 "seed": 0, "test_ratio": 0.4, "cv_fold": 1,
-                 "threefry_partitionable": PARTITIONABLE})
-    out = jax_reference_groups([[j] for j in jobs], tmp_path_factory.mktemp("train"))
-    return {"steps": [o[0] for o in out[:-1]], "train_and_eval": out[-1][0]}
+    groups = [[j] for j in jobs]
+    # the train_and_eval references share one process
+    groups.append([{"runner": "test_torch_train:jax_train_and_eval", "conf": TRAIN_CONF,
+                    "seed": 0, "test_ratio": 0.4, "cv_fold": 1,
+                    "threefry_partitionable": PARTITIONABLE},
+                   {"runner": "test_torch_train:jax_imported_resume", "conf": IMPORTED_CONF,
+                    "seed": 0, "dir": str(tmp_path_factory.mktemp("imported")),
+                    "threefry_partitionable": PARTITIONABLE}])
+    out = jax_reference_groups(groups, tmp_path_factory.mktemp("train"))
+    return {"steps": [o[0] for o in out[:-1]], "train_and_eval": out[-1][0],
+            "imported": out[-1][1]}
 
 
 def _port_model(family, args, variables):
@@ -533,6 +588,57 @@ def test_train_and_eval_matches_jax(refs, monkeypatch):
         assert abs(float(calls[0][k]) - v) <= max(1e-4 * abs(v), 1.0 / 205 + 1e-7), k
 
 
+def _held_to_jax(got, want, n_default):
+    """A port result against the JAX one: the same keys, counts exact,
+    losses within 1e-4 relative, accuracies at most one sample apart."""
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if k == "elapsed_sec":
+            continue
+        if k.startswith("num_") or k == "epoch":
+            assert got[k] == v, k
+        elif "loss" in k:
+            _close(got[k], v, 1e-4, k)
+        else:
+            n = want.get("num_" + k.split("_", 1)[1], n_default)
+            assert abs(got[k] - v) <= 1.0 / n + 1e-7, (k, got[k], v)
+
+
+def test_imported_checkpoint_resumes_like_jax(refs, tmp_path):
+    """JAX oracle: ``train_and_eval`` resumed from the same imported file
+    (``imported_from``, ``has_ema`` false, no optimizer state; JAX
+    ``tests/test_train.py:180-218`` on a WRN-10-1, 2 epochs).  Only epoch 2
+    trains in both, the step after it is equal (the schedule placed at the
+    resume epoch); the EMA is seeded from the imported weights (with the file
+    at the last epoch, a run is an evaluation, and its EMA metrics equal its
+    raw ones in both); the metrics within ``test_train_and_eval_matches_jax``'s
+    tolerance of JAX's."""
+    from fast_autoaugment_tpu_torch.core.checkpoint import read_metadata
+
+    ref = refs["imported"]
+    got = {}
+    for name, epochs in (("train", IMPORTED_CONF["epoch"]), ("eval", 1)):
+        path = _copy_checkpoint(ref["file"], str(tmp_path / f"port_{name}.msgpack"))
+        got[name] = {"result": TR.train_and_eval(
+            dict(IMPORTED_CONF, epoch=epochs), "", test_ratio=0.4, cv_fold=1, save_path=path,
+            evaluation_interval=1, seed=0, device="cpu", draw_source=JaxDraws()),
+            "meta": read_metadata(path)}
+    train, jtrain = got["train"], ref["train"]
+    assert train["result"]["epoch"] == jtrain["result"]["epoch"] == 2
+    # 2 steps an epoch here: epoch 1's placed by the resume, epoch 2's trained
+    assert train["meta"]["step"] == jtrain["meta"]["step"] == 4
+    assert train["meta"]["epoch"] == 2 and "imported_from" not in train["meta"]
+    _held_to_jax(train["result"], jtrain["result"], 128 * 2)
+    evals, jevals = got["eval"]["result"], ref["eval"]["result"]
+    assert evals["epoch"] == jevals["epoch"] == 1 and "loss_train" not in evals
+    for res in (evals, jevals):
+        for split in ("valid", "test"):
+            for metric in ("loss", "top1", "top5"):
+                assert res[f"{metric}_{split}_ema"] == res[f"{metric}_{split}_raw"], \
+                    (metric, split)
+    _held_to_jax(evals, jevals, 128 * 2)
+
+
 def test_host_step_is_picked_once_and_explicitly():
     """The host feed's step is picked by ``host_step`` (and the CLIs'
     ``--host-step``), not by the tensors a call gets: a model on the CPU
@@ -705,7 +811,7 @@ def test_chip_smoke_resnet50_constants_match_the_config():
 
 def test_training_modules_import_nothing_the_card_lacks():
     """The training, search, model-zoo, runtime, serving, ImageNet data,
-    fleet and control-loop slices' modules and ``chip_smoke.py`` import in
+    fleet, control-loop and game-day slices' modules and ``chip_smoke.py`` import in
     a fresh interpreter without JAX, flax, the JAX package, sklearn,
     PyYAML, msgpack or PIL."""
     mods = ["fast_autoaugment_tpu_torch.train.trainer", "fast_autoaugment_tpu_torch.train.steps",
@@ -740,6 +846,10 @@ def test_training_modules_import_nothing_the_card_lacks():
     mods += ["fast_autoaugment_tpu_torch." + m for m in (
         "control", "control.drift", "control.research", "control.canary", "control.resume",
         "control.loop", "launch.control_cli")]
+    # the game days
+    mods += ["fast_autoaugment_tpu_torch." + m for m in (
+        "gameday", "gameday.scenario", "gameday.workload", "gameday.verdict",
+        "gameday.runner", "launch.gameday_cli")]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
